@@ -1,0 +1,69 @@
+"""Carry weights from the JAX package's naming to the port's state dict.
+
+``mxnet_tpu`` names a block's parameters by ``_collect_params_with_prefix()``
+(``layers.0.attn.qkv.weight``, ``ln_f.gamma``, ...). The port keeps the
+same attribute paths and layouts, and names a LayerNorm's ``gamma``/
+``beta`` ``weight``/``bias``, as PyTorch does.
+"""
+from __future__ import annotations
+
+from typing import Dict, Mapping, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from .base import MXNetError
+from .gluon.nn import LayerNorm
+
+__all__ = ["params_from_mxnet_tpu", "port_name", "mxnet_tpu_shapes"]
+
+_RENAMES = {"gamma": "weight", "beta": "bias"}
+
+
+def port_name(name: str) -> str:
+    """The port's name for one of the JAX package's parameter names."""
+    head, _, last = name.rpartition(".")
+    last = _RENAMES.get(last, last)
+    return f"{head}.{last}" if head else last
+
+
+def mxnet_tpu_shapes(model: nn.Module) -> Dict[str, Tuple[int, ...]]:
+    """``{name: shape}`` of ``model``'s parameters under the JAX package's
+    names: the inverse of :func:`port_name`, for making weights in that
+    naming (from a seed, or to hand to both packages)."""
+    inverse = {v: k for k, v in _RENAMES.items()}
+    out: Dict[str, Tuple[int, ...]] = {}
+    for mod_name, mod in model.named_modules():
+        for p_name, p in mod.named_parameters(recurse=False):
+            if isinstance(mod, LayerNorm):
+                p_name = inverse[p_name]
+            out[f"{mod_name}.{p_name}" if mod_name else p_name] = \
+                tuple(p.shape)
+    return out
+
+
+def params_from_mxnet_tpu(named: Mapping[str, np.ndarray],
+                          model: nn.Module) -> Dict[str, torch.Tensor]:
+    """A state dict for ``model`` from the JAX package's ``{name: array}``.
+
+    Every shape is checked against ``model``; a parameter missing on
+    either side raises. The tensors are CPU copies in the model's dtypes:
+    ``model.load_state_dict(result)`` moves them to its device."""
+    target = model.state_dict()
+    out: Dict[str, torch.Tensor] = {}
+    for name, arr in named.items():
+        key = port_name(name)
+        if key not in target:
+            raise MXNetError(f"parameter {name!r} (as {key!r}) has no "
+                             "counterpart in the model")
+        arr = np.asarray(arr)
+        if tuple(arr.shape) != tuple(target[key].shape):
+            raise MXNetError(f"parameter {name!r}: shape {arr.shape} != "
+                             f"{tuple(target[key].shape)}")
+        out[key] = torch.from_numpy(arr.copy()).to(target[key].dtype)
+    missing = sorted(set(target) - set(out))
+    if missing:
+        raise MXNetError(f"no value given for {len(missing)} parameter(s): "
+                         f"{missing[:8]}")
+    return out

@@ -1,0 +1,142 @@
+"""Transformer / BERT model family as ``torch.nn.Module``s.
+
+Counterpart of ``mxnet_tpu/models/transformer.py``. Attribute names are
+the JAX package's (``embed``, ``pos_embed``, ``layers.N.attn.qkv``,
+``proj``, ``ln1``, ``ln2``, ``ffn1``, ``ffn2``, ``ln_f``, ``head``), so
+parameter names line up with its ``_collect_params_with_prefix()`` and
+``convert.params_from_mxnet_tpu`` maps one onto the other.
+
+Attention goes through :func:`~mxnet_tpu_torch.ops.flash_attention`: on
+CUDA every layer launches the hand-written flash kernel, on the CPU it
+takes the kernel's plain version. The JAX package's measured choice
+between flash and dense attention (``operator_tune``), context
+parallelism and the mixture-of-experts FFN come with later slices.
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from ..context import resolve_device
+from ..gluon.nn import (GELU, Dense, Dropout, Embedding, HybridSequential,
+                        LayerNorm)
+from ..ops.flash_attention import flash_attention
+
+__all__ = ["MultiHeadAttention", "TransformerEncoderLayer", "TransformerLM",
+           "BERTModel"]
+
+
+class MultiHeadAttention(nn.Module):
+    """Self-attention over ``(B, T, C)``.
+
+    ``attention`` is the function applied to the ``(B, H, T, D)`` q/k/v,
+    :func:`flash_attention` by default; a caller that needs the dense
+    oracle (a reference run) assigns ``flash_attention_ref``."""
+
+    def __init__(self, units: int, num_heads: int, dropout: float = 0.0,
+                 use_bias: bool = True, causal: bool = False, device="cuda",
+                 dtype=torch.float32):
+        super().__init__()
+        if units % num_heads:
+            raise ValueError(f"units {units} not divisible by num_heads "
+                             f"{num_heads}")
+        dev = resolve_device(device)
+        self._num_heads = num_heads
+        self._head_dim = units // num_heads
+        self.causal = causal
+        self.attention = flash_attention
+        self.qkv = Dense(3 * units, units, use_bias, device=dev, dtype=dtype)
+        self.proj = Dense(units, units, use_bias, device=dev, dtype=dtype)
+        self.drop = Dropout(dropout)
+
+    def forward(self, x):
+        B, T, C = x.shape
+        # (B, T, 3, H, D) -> (3, B, H, T, D): one copy makes q, k and v
+        # each contiguous, as the kernel requires
+        qkv = self.qkv(x).reshape(B, T, 3, self._num_heads, self._head_dim)
+        q, k, v = qkv.permute(2, 0, 3, 1, 4).contiguous().unbind(0)
+        out = self.attention(q, k, v, causal=self.causal)   # (B, H, T, D)
+        out = out.transpose(1, 2).reshape(B, T, C)
+        return self.drop(self.proj(out))
+
+
+class TransformerEncoderLayer(nn.Module):
+    def __init__(self, units: int, num_heads: int, hidden_size: int,
+                 dropout: float = 0.0, pre_norm: bool = True,
+                 num_experts: int = 0, num_experts_per_tok: int = 2,
+                 causal: bool = False, device="cuda", dtype=torch.float32):
+        super().__init__()
+        if num_experts > 0:
+            raise NotImplementedError(
+                "the mixture-of-experts FFN is not ported yet; use "
+                "num_experts=0")
+        dev = resolve_device(device)
+        self._pre_norm = pre_norm
+        self.attn = MultiHeadAttention(units, num_heads, dropout,
+                                       causal=causal, device=dev, dtype=dtype)
+        self.ln1 = LayerNorm(units, device=dev, dtype=dtype)
+        self.ln2 = LayerNorm(units, device=dev, dtype=dtype)
+        self.ffn1 = Dense(hidden_size, units, device=dev, dtype=dtype)
+        self.act = GELU()
+        self.ffn2 = Dense(units, hidden_size, device=dev, dtype=dtype)
+        self.drop = Dropout(dropout)
+
+    def _ffn(self, h):
+        return self.ffn2(self.act(self.ffn1(h)))
+
+    def forward(self, x):
+        if self._pre_norm:
+            x = x + self.attn(self.ln1(x))
+            return x + self.drop(self._ffn(self.ln2(x)))
+        x = self.ln1(x + self.attn(x))
+        return self.ln2(x + self.drop(self._ffn(x)))
+
+
+class TransformerLM(nn.Module):
+    """Encoder / decoder-only LM over token ids ``(B, T)`` -> logits
+    ``(B, T, vocab)``: BERT-style (``causal=False``) or GPT-style
+    (``causal=True``)."""
+
+    def __init__(self, vocab_size: int, units: int = 256, num_layers: int = 4,
+                 num_heads: int = 8, hidden_size: int = 1024,
+                 max_len: int = 512, dropout: float = 0.0,
+                 causal: bool = False, num_experts: int = 0,
+                 num_experts_per_tok: int = 2, device="cuda",
+                 dtype=torch.float32):
+        super().__init__()
+        dev = resolve_device(device)
+        self._max_len = max_len
+        self.embed = Embedding(vocab_size, units, device=dev, dtype=dtype)
+        self.pos_embed = Embedding(max_len, units, device=dev, dtype=dtype)
+        self.layers = HybridSequential()
+        for _ in range(num_layers):
+            self.layers.add(TransformerEncoderLayer(
+                units, num_heads, hidden_size, dropout,
+                num_experts=num_experts,
+                num_experts_per_tok=num_experts_per_tok, causal=causal,
+                device=dev, dtype=dtype))
+        self.ln_f = LayerNorm(units, device=dev, dtype=dtype)
+        self.head = Dense(vocab_size, units, device=dev, dtype=dtype)
+
+    def forward(self, tokens):
+        T = tokens.shape[1]
+        if T > self._max_len:
+            raise ValueError(f"sequence length {T} > max_len "
+                             f"{self._max_len}")
+        pos = torch.arange(T, device=tokens.device)
+        x = self.embed(tokens) + self.pos_embed(pos).unsqueeze(0)
+        x = self.layers(x)
+        return self.head(self.ln_f(x))
+
+
+class BERTModel(TransformerLM):
+    """BERT-base-style encoder (config 3 in BASELINE.json): vocab 30522,
+    768 units, 12 layers, 12 heads, FFN 3072, max_len 512."""
+
+    def __init__(self, vocab_size: int = 30522, units: int = 768,
+                 num_layers: int = 12, num_heads: int = 12,
+                 hidden_size: int = 3072, max_len: int = 512,
+                 dropout: float = 0.1, device="cuda", dtype=torch.float32):
+        super().__init__(vocab_size, units, num_layers, num_heads,
+                         hidden_size, max_len, dropout, causal=False,
+                         device=device, dtype=dtype)

@@ -1,0 +1,81 @@
+"""The port stands alone: importing it (every submodule) and chip_smoke.py
+brings in neither JAX nor the JAX package, and its entry points refuse to
+run on the CPU unless asked to."""
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(ROOT, "mxnet_tpu_torch")
+
+_PROBE = r"""
+import importlib, pkgutil, sys
+import mxnet_tpu_torch
+mods = [m.name for m in pkgutil.walk_packages(mxnet_tpu_torch.__path__,
+                                              "mxnet_tpu_torch.")]
+for name in mods:
+    importlib.import_module(name)
+import chip_smoke
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "jaxlib"
+             or m.startswith("jaxlib.") or m == "mxnet_tpu"
+             or m.startswith("mxnet_tpu."))
+print(len(mods), bad)
+"""
+
+
+def test_import_brings_in_no_jax_nor_mxnet_tpu():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    n_mods, bad = out.stdout.split(" ", 1)
+    assert int(n_mods) >= 15
+    assert bad.strip() == "[]"
+
+
+def _sources():
+    for dirpath, _, files in os.walk(PKG):
+        for f in files:
+            if f.endswith(".py"):
+                yield os.path.join(dirpath, f)
+    yield os.path.join(ROOT, "chip_smoke.py")
+
+
+@pytest.mark.parametrize("path", sorted(_sources()),
+                         ids=lambda p: os.path.relpath(p, ROOT))
+def test_no_import_statement_names_jax_or_mxnet_tpu(path):
+    """Also the imports inside functions, which the probe above only
+    sees where they run."""
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        for name in names:
+            top = name.split(".")[0]
+            assert top not in ("jax", "jaxlib", "mxnet_tpu"), \
+                f"{path}:{node.lineno} imports {name}"
+
+
+def test_entry_points_default_to_cuda_and_raise_without_it():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a GPU: the default device is valid")
+    from mxnet_tpu_torch import MXNetError, resolve_device
+    from mxnet_tpu_torch.models import BERTModel, TransformerLM
+    from mxnet_tpu_torch.serve import ServingEngine
+    for make in (lambda: ServingEngine(lambda x: x),
+                 lambda: BERTModel(num_layers=1),
+                 lambda: TransformerLM(100, num_layers=1),
+                 lambda: resolve_device(None)):
+        with pytest.raises(MXNetError, match="CUDA is not available"):
+            make()
+    assert resolve_device("cpu") == torch.device("cpu")
