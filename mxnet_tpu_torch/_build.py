@@ -3,8 +3,9 @@
 Every source under ``csrc/`` is compiled by ``nvcc`` for Hopper
 (``sm_90a``) into its own shared library with a plain C interface and
 loaded with :mod:`ctypes`. A library is built at first use into
-``_build/`` beside this file, named by a hash of its source and flags, so
-an edited source rebuilds and an unchanged one loads at once. Nothing is
+``_build/`` beside this file, named by a hash of its source, the shared
+headers and the flags, so an edited source rebuilds and an unchanged one
+loads at once. Nothing is
 built when the package is imported.
 """
 from __future__ import annotations
@@ -25,7 +26,7 @@ __all__ = ["SOURCES", "NVCC_FLAGS", "build_all", "load", "LaunchCounter"]
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
-SOURCES = ("flash_fwd",)
+SOURCES = ("flash_fwd", "flash_bwd", "mp_sgd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -45,9 +46,13 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> str:
-    src = os.path.join(CSRC, name + ".cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    """Path of the library, named by a hash of the source, the shared
+    headers (``csrc/*.cuh``) and the flags."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for f in [name + ".cu"] + headers:
+        with open(os.path.join(CSRC, f), "rb") as fh:
+            digest.update(fh.read())
     return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
 
 

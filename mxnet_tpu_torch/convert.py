@@ -1,4 +1,4 @@
-"""Carry weights from the JAX package's naming to the port's state dict.
+"""Carry weights between the JAX package's naming and the port's models.
 
 ``mxnet_tpu`` names a block's parameters by ``_collect_params_with_prefix()``
 (``layers.0.attn.qkv.weight``, ``ln_f.gamma``, ...). The port keeps the
@@ -14,11 +14,12 @@ import torch
 from torch import nn
 
 from .base import MXNetError
-from .gluon.nn import LayerNorm
+from .gluon.parameter import JAX_NAMES, collect_params
 
-__all__ = ["params_from_mxnet_tpu", "port_name", "mxnet_tpu_shapes"]
+__all__ = ["params_from_mxnet_tpu", "params_to_mxnet_tpu", "port_name",
+           "mxnet_tpu_shapes"]
 
-_RENAMES = {"gamma": "weight", "beta": "bias"}
+_RENAMES = {v: k for k, v in JAX_NAMES.items()}
 
 
 def port_name(name: str) -> str:
@@ -32,15 +33,16 @@ def mxnet_tpu_shapes(model: nn.Module) -> Dict[str, Tuple[int, ...]]:
     """``{name: shape}`` of ``model``'s parameters under the JAX package's
     names: the inverse of :func:`port_name`, for making weights in that
     naming (from a seed, or to hand to both packages)."""
-    inverse = {v: k for k, v in _RENAMES.items()}
-    out: Dict[str, Tuple[int, ...]] = {}
-    for mod_name, mod in model.named_modules():
-        for p_name, p in mod.named_parameters(recurse=False):
-            if isinstance(mod, LayerNorm):
-                p_name = inverse[p_name]
-            out[f"{mod_name}.{p_name}" if mod_name else p_name] = \
-                tuple(p.shape)
-    return out
+    return {name: tuple(p.shape)
+            for name, p in collect_params(model).items()}
+
+
+def params_to_mxnet_tpu(model: nn.Module) -> Dict[str, np.ndarray]:
+    """``{name: array}`` of ``model``'s parameters under the JAX package's
+    names, as CPU numpy copies in the model's dtypes: the inverse of
+    :func:`params_from_mxnet_tpu`."""
+    return {name: p.detach().cpu().numpy()
+            for name, p in collect_params(model).items()}
 
 
 def params_from_mxnet_tpu(named: Mapping[str, np.ndarray],

@@ -15,8 +15,8 @@
 //
 // Design against that bound. This first kernel does all arithmetic on the
 // CUDA cores in fp32 (the fp32 path must hold 1e-4 against the plain
-// version, so TF32 tensor cores are not an option there); bf16 inputs are
-// widened to fp32 in shared memory and take the same path. The FMA rate is
+// version, so TF32 tensor cores are not an option there); bf16 and fp16
+// inputs are widened to fp32 in shared memory and take the same path. The FMA rate is
 // kept fed by register blocking:
 // - one 256-thread block per (b*h, 64-row q tile); the sequential K sweep of
 //   the Pallas grid is the loop over 64-key K/V tiles inside the block;
@@ -34,93 +34,16 @@
 //   tiles are issued heaviest first so the causal tail balances.
 // wgmma/TMA and a tensor-core bf16 path are later work; PERF.md carries the
 // measured time beside the bound.
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <math.h>
-#include <stdint.h>
+#include "flash_common.cuh"
 
 namespace {
+
+using namespace mxflash;
 
 constexpr int BM = 64;        // q rows per block
 constexpr int BN = 64;        // keys per K/V tile
 constexpr int NT = 256;       // threads per block: 16 x 16
 constexpr int LDP = BM + 4;   // row stride of the transposed P tile
-constexpr float LOG2E = 1.4426950408889634f;
-constexpr float LN2 = 0.6931471805599453f;
-
-// Four consecutive elements row[d..d+3] as floats; zero past D.
-// VEC: D % 4 == 0 and the row is 16-byte (fp32) / 8-byte (bf16) aligned.
-template <bool VEC>
-__device__ __forceinline__ void load4(const float* row, int d, int D, float x[4]) {
-  if (VEC) {
-    if (d < D) {
-      float4 t = *reinterpret_cast<const float4*>(row + d);
-      x[0] = t.x; x[1] = t.y; x[2] = t.z; x[3] = t.w;
-    } else {
-      x[0] = x[1] = x[2] = x[3] = 0.f;
-    }
-  } else {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) x[i] = (d + i < D) ? row[d + i] : 0.f;
-  }
-}
-
-template <bool VEC>
-__device__ __forceinline__ void load4(const __nv_bfloat16* row, int d, int D, float x[4]) {
-  if (VEC) {
-    if (d < D) {
-      uint2 t = *reinterpret_cast<const uint2*>(row + d);
-      float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&t.x));
-      float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&t.y));
-      x[0] = a.x; x[1] = a.y; x[2] = b.x; x[3] = b.y;
-    } else {
-      x[0] = x[1] = x[2] = x[3] = 0.f;
-    }
-  } else {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) x[i] = (d + i < D) ? __bfloat162float(row[d + i]) : 0.f;
-  }
-}
-
-// Store x[0..3] to row[d..d+3], dropping columns at or past D.
-template <bool VEC>
-__device__ __forceinline__ void store4(float* row, int d, int D, const float x[4]) {
-  if (VEC) {
-    if (d < D) *reinterpret_cast<float4*>(row + d) = make_float4(x[0], x[1], x[2], x[3]);
-  } else {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) if (d + i < D) row[d + i] = x[i];
-  }
-}
-
-template <bool VEC>
-__device__ __forceinline__ void store4(__nv_bfloat16* row, int d, int D, const float x[4]) {
-  if (VEC) {
-    if (d < D) {
-      __nv_bfloat162 a = __floats2bfloat162_rn(x[0], x[1]);
-      __nv_bfloat162 b = __floats2bfloat162_rn(x[2], x[3]);
-      uint2 t;
-      t.x = *reinterpret_cast<uint32_t*>(&a);
-      t.y = *reinterpret_cast<uint32_t*>(&b);
-      *reinterpret_cast<uint2*>(row + d) = t;
-    }
-  } else {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) if (d + i < D) row[d + i] = __float2bfloat16_rn(x[i]);
-  }
-}
-
-__device__ __forceinline__ float row_max16(float v) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
-}
-
-__device__ __forceinline__ float row_sum16(float v) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
 
 // q: (BH, Tq, D), k/v: (BH, Tk, D), o: (BH, Tq, D), lse: (BH, Tq) fp32.
 // DP: D rounded up to 64 or 128 (the shared tiles' width).
@@ -314,8 +237,8 @@ cudaError_t launch_dt(const void* q, const void* k, const void* v, void* o,
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16. vec: 1 when D % 4 == 0 and every
-// pointer is 16-byte aligned. Returns the cudaError_t of the launch.
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16. vec: 1 when D % 4 == 0
+// and every pointer is 16-byte aligned. Returns the cudaError_t of the launch.
 int mx_flash_fwd(const void* q, const void* k, const void* v, void* o,
                  void* lse, int BH, int Tq, int Tk, int D, float scale,
                  int causal, int dtype, int vec, void* stream) {
@@ -326,6 +249,8 @@ int mx_flash_fwd(const void* q, const void* k, const void* v, void* o,
     return (int)launch_dt<float>(q, k, v, o, lse, BH, Tq, Tk, D, scale, causal, vec, s);
   if (dtype == 1)
     return (int)launch_dt<__nv_bfloat16>(q, k, v, o, lse, BH, Tq, Tk, D, scale, causal, vec, s);
+  if (dtype == 2)
+    return (int)launch_dt<__half>(q, k, v, o, lse, BH, Tq, Tk, D, scale, causal, vec, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -14,6 +14,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ... import autograd
+from ...base import MXNetError
 from ...context import resolve_device
 
 __all__ = ["HybridSequential", "Dense", "Dropout", "LayerNorm", "Embedding",
@@ -62,11 +64,40 @@ class Dense(nn.Module):
         return f"{self.weight.shape[1]} -> {self.weight.shape[0]}"
 
 
-class Dropout(nn.Dropout):
-    """Dropout with rate ``rate``; the identity in eval mode."""
+class Dropout(nn.Module):
+    """Dropout with rate ``rate``, active exactly when
+    ``autograd.is_training()`` (inside ``autograd.record()``), as the JAX
+    package's ``F.Dropout`` is; elsewhere, serving included, the identity.
 
-    def __init__(self, rate: float = 0.0):
-        super().__init__(p=rate)
+    Kept elements are scaled by ``1 / (1 - rate)``. Masks come from the
+    layer's own ``torch.Generator`` on its device, seeded from torch's
+    global generator (so ``torch.manual_seed`` fixes them);
+    :meth:`manual_seed` restarts it, so that two runs draw the same
+    masks."""
+
+    def __init__(self, rate: float = 0.0, device="cuda"):
+        super().__init__()
+        if not 0.0 <= rate < 1.0:
+            raise ValueError(f"dropout rate {rate} not in [0, 1)")
+        self.rate = rate
+        self._gen = torch.Generator(device=resolve_device(device))
+        self.manual_seed(int(torch.randint(0, 2 ** 62, ()).item()))
+
+    def manual_seed(self, seed: int) -> None:
+        self._gen.manual_seed(seed)
+
+    def forward(self, x):
+        if self.rate == 0.0 or not autograd.is_training():
+            return x
+        if x.device != self._gen.device:
+            raise MXNetError(f"Dropout: input on {x.device}, the layer's "
+                             f"generator on {self._gen.device}")
+        keep = torch.rand(x.shape, generator=self._gen, device=x.device) \
+            >= self.rate
+        return x * keep.to(x.dtype) * (1.0 / (1.0 - self.rate))
+
+    def extra_repr(self):
+        return f"rate={self.rate}"
 
 
 class LayerNorm(nn.Module):

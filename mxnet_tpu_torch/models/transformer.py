@@ -7,8 +7,10 @@ parameter names line up with its ``_collect_params_with_prefix()`` and
 ``convert.params_from_mxnet_tpu`` maps one onto the other.
 
 Attention goes through :func:`~mxnet_tpu_torch.ops.flash_attention`: on
-CUDA every layer launches the hand-written flash kernel, on the CPU it
-takes the kernel's plain version. The JAX package's measured choice
+CUDA every layer launches the hand-written flash kernels (the forward, and
+in a backward the dQ and dK/dV kernels), on the CPU it takes their plain
+versions. ``dtype=torch.float16`` builds the model for mixed-precision
+training. The JAX package's measured choice
 between flash and dense attention (``operator_tune``), context
 parallelism and the mixture-of-experts FFN come with later slices.
 """
@@ -47,7 +49,7 @@ class MultiHeadAttention(nn.Module):
         self.attention = flash_attention
         self.qkv = Dense(3 * units, units, use_bias, device=dev, dtype=dtype)
         self.proj = Dense(units, units, use_bias, device=dev, dtype=dtype)
-        self.drop = Dropout(dropout)
+        self.drop = Dropout(dropout, device=dev)
 
     def forward(self, x):
         B, T, C = x.shape
@@ -79,7 +81,7 @@ class TransformerEncoderLayer(nn.Module):
         self.ffn1 = Dense(hidden_size, units, device=dev, dtype=dtype)
         self.act = GELU()
         self.ffn2 = Dense(units, hidden_size, device=dev, dtype=dtype)
-        self.drop = Dropout(dropout)
+        self.drop = Dropout(dropout, device=dev)
 
     def _ffn(self, h):
         return self.ffn2(self.act(self.ffn1(h)))

@@ -12,12 +12,22 @@ import torch
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "mxnet_tpu_torch")
 
+# modules each slice must bring, beside those the walk below finds
+SLICE_MODULES = [
+    "mxnet_tpu_torch.ops.flash_attention", "mxnet_tpu_torch.serve.engine",
+    "mxnet_tpu_torch.models.transformer",
+    # slice 2: training
+    "mxnet_tpu_torch.autograd", "mxnet_tpu_torch.optimizer",
+    "mxnet_tpu_torch.ops.optimizer_ops", "mxnet_tpu_torch.opt.kernels",
+    "mxnet_tpu_torch.gluon.loss", "mxnet_tpu_torch.gluon.parameter",
+    "mxnet_tpu_torch.gluon.trainer", "mxnet_tpu_torch.telemetry"]
+
 _PROBE = r"""
 import importlib, pkgutil, sys
 import mxnet_tpu_torch
 mods = [m.name for m in pkgutil.walk_packages(mxnet_tpu_torch.__path__,
                                               "mxnet_tpu_torch.")]
-for name in mods:
+for name in mods + %r:
     importlib.import_module(name)
 import chip_smoke
 bad = sorted(m for m in sys.modules
@@ -25,7 +35,7 @@ bad = sorted(m for m in sys.modules
              or m.startswith("jaxlib.") or m == "mxnet_tpu"
              or m.startswith("mxnet_tpu."))
 print(len(mods), bad)
-"""
+""" % (SLICE_MODULES,)
 
 
 def test_import_brings_in_no_jax_nor_mxnet_tpu():
@@ -34,7 +44,7 @@ def test_import_brings_in_no_jax_nor_mxnet_tpu():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     n_mods, bad = out.stdout.split(" ", 1)
-    assert int(n_mods) >= 15
+    assert int(n_mods) >= 30
     assert bad.strip() == "[]"
 
 
@@ -70,10 +80,13 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
     if torch.cuda.is_available():
         pytest.skip("this host has a GPU: the default device is valid")
     from mxnet_tpu_torch import MXNetError, resolve_device
+    from mxnet_tpu_torch.gluon.nn import Dropout
     from mxnet_tpu_torch.models import BERTModel, TransformerLM
     from mxnet_tpu_torch.serve import ServingEngine
     for make in (lambda: ServingEngine(lambda x: x),
                  lambda: BERTModel(num_layers=1),
+                 lambda: BERTModel(num_layers=1, dtype=torch.float16),
+                 lambda: Dropout(0.1),
                  lambda: TransformerLM(100, num_layers=1),
                  lambda: resolve_device(None)):
         with pytest.raises(MXNetError, match="CUDA is not available"):
