@@ -13,9 +13,10 @@ end, failing on the first phase that fails:
    on the card, at the serving and training paths' shapes and edge cases,
    in fp32, bf16 and fp16, timed beside its plain version,
    ``scaled_dot_product_attention`` (a yardstick only) and its bound;
-4. backward check — the dQ and dK/dV kernels against the plain backward,
-   timed beside it, the backward of ``scaled_dot_product_attention`` and
-   their bounds;
+4. backward check — the dQ and dK/dV passes against the plain backward
+   on both routes (fp16/bf16 on the tensor-core kernels, fp32 and odd head
+   dims on the CUDA-core ones), timed beside it, the backward of
+   ``scaled_dot_product_attention`` and their bounds;
 5. optimizer check — the mixed-precision SGD kernel against its plain
    version at the sizes of BERT-base's parameters, bit for bit;
 6. serving slice — BERT-base (full width, fp32, random weights from a
@@ -26,7 +27,8 @@ end, failing on the first phase that fails:
 7. training slice — BERT-base (full width and depth, fp16 weights,
    dropout 0.1) trained through ``autograd.record`` -> ``backward`` ->
    ``Trainer.step`` with multi-precision SGD and a static loss scale:
-   12/12/12/150 launches per step, every parameter with a gradient, a
+   12/12/12/150 launches per step (all 12 dQ and dK/dV launches on the
+   tensor-core route), every parameter with a gradient, a
    finite and falling loss, and two steps against a reference run with
    dense attention and the plain update; step time, tokens/s, peak memory
    and a per-step breakdown.
@@ -37,6 +39,7 @@ and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -51,9 +54,18 @@ BF16_TOL = 2e-2   # max abs vs fp32 on the same bf16-rounded inputs: the
 SLICE_RTOL = SLICE_ATOL = 1e-3  # 12 fp32 layers over a reordered softmax sum
 # backward kernels vs the fp32 plain backward on the same rounded inputs,
 # elementwise |err| <= atol + rtol*|ref|: fp32 max abs 1e-4 (summation
-# order only); fp16/bf16 rtol four half-ulps of the output type (the one
-# rounding when stored), atol for sums that cancel
-BWD_TOL = {"float32": (1e-4, 0.0), "float16": (1e-3, 2e-3),
+# order only); fp16/bf16 rtol four half-ulps of the output type, atol for
+# sums that cancel. The tensor-core route (fp16/bf16) also rounds p and ds
+# to the input type as operands of dV = p^T.dO, dK = s*ds^T.q, dQ = s*ds.k:
+# that adds at most u*sum|terms| to an element (u = 2^-11 in fp16). At
+# unit-scale causal inputs sum|terms| reaches ~12 at T = 512 (dV of the
+# first keys, which every row sees: sum_q p ~ ln T; |ds| up to ~10 on the
+# first rows), so fp16's atol rises from 1e-3 (breached on the card) to
+# 8e-3 >= 2^-11 * 16 (tests/test_torch_flash_backward.py::
+# test_fp16_atol_covers_the_operand_rounding). bf16 (u = 2^-8) was not
+# breached and keeps its limits: its rounding errors, of random sign, stay
+# inside them.
+BWD_TOL = {"float32": (1e-4, 0.0), "float16": (8e-3, 2e-3),
            "bfloat16": (1e-2, 1.6e-2)}
 # training: BERT-base, B x T token ids, fp16 weights, multi-precision SGD
 TRAIN_B, TRAIN_T, TRAIN_STEPS, REF_STEPS = 8, 512, 8, 2
@@ -126,8 +138,13 @@ def phase_build():
     t0 = time.perf_counter()
     report = _build.build_all()
     for name, rep in report.items():
-        regs = [ln.strip() for ln in rep["log"].splitlines()
-                if "registers" in ln or "spill" in ln]
+        # per entry function (its mangled name from the kernel's name on,
+        # cut short): registers, spills, static shared memory
+        regs = [re.search(r"[a-z_]+_kernel\w{0,24}", ln).group()
+                if "entry function" in ln else ln.split(":", 1)[-1].strip()
+                for ln in rep["log"].splitlines()
+                if "entry function" in ln or "registers" in ln
+                or "spill" in ln]
         log(f"[build] {name}: {rep['seconds']:.2f} s; ptxas: {regs}")
     log(f"[build] all kernels built in {time.perf_counter() - t0:.2f} s")
 
@@ -239,20 +256,29 @@ def backward_bounds(B, H, Tq, Tk, D, causal, dtype, peaks):
 def phase_backward_check(peaks):
     """B3 (dQ) and B4 (dK/dV) against the plain backward on the same
     inputs (the kernel forward's out and lse, one dO), each launched once
-    per case; timed at the training rung in every dtype."""
+    per case on the route ``_bwd_route`` picks: fp16/bf16 (tensor cores)
+    and fp32 (CUDA cores) at the training rung and the edge cases (ragged
+    T, D = 96, Tq != Tk), fp16/bf16 at D = 128, and one fp16 case with
+    D % 8 != 0 (CUDA cores). Timed at the training rung in every dtype,
+    fp16/bf16 also on the CUDA-core kernels for comparison. Every case is
+    run and logged before a disagreement fails the phase."""
     import torch.nn.functional as F
     from mxnet_tpu_torch.ops.flash_attention import (
-        LAUNCHES_DKV, LAUNCHES_DQ, _bwd_pass, flash_attention_bwd,
-        flash_attention_fwd, flash_attention_ref_bwd)
+        LAUNCHES_DKV, LAUNCHES_DKV_TC, LAUNCHES_DQ, LAUNCHES_DQ_TC,
+        _bwd_pass, _bwd_route, flash_attention_bwd, flash_attention_fwd,
+        flash_attention_ref_bwd)
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     rung = (8, HEADS, 512, 512, HEAD_DIM)
-    cases = [(rung, dt, c) for dt in (torch.float32, torch.float16,
-                                      torch.bfloat16) for c in (False, True)]
-    cases += [(s, torch.float32, c) for s in ((8, HEADS, 200, 200, HEAD_DIM),
-                                              (8, HEADS, 384, 384, 96),
-                                              (8, HEADS, 128, 384, HEAD_DIM))
-              for c in (False, True)]
-    rows = []
+    every = (torch.float32, torch.float16, torch.bfloat16)
+    cases = [(rung, dt, c) for dt in every for c in (False, True)]
+    cases += [(s, dt, c) for s in ((8, HEADS, 200, 200, HEAD_DIM),
+                                   (8, HEADS, 384, 384, 96),
+                                   (8, HEADS, 128, 384, HEAD_DIM))
+              for dt in every for c in (False, True)]
+    cases += [((4, HEADS, 512, 512, 128), dt, c)
+              for dt in (torch.float16, torch.bfloat16) for c in (False, True)]
+    cases += [((8, HEADS, 256, 256, 36), torch.float16, False)]
+    rows, bad = [], []
     for shape, dtype, causal in cases:
         B, H, Tq, Tk, D = shape
         q, k, v = (torch.randn(B, H, T, D, device="cuda",
@@ -260,38 +286,47 @@ def phase_backward_check(peaks):
                    for T in (Tq, Tk, Tk))
         dout = torch.randn(q.shape, device="cuda", generator=gen).to(dtype)
         out, lse = flash_attention_fwd(q, k, v, causal)
-        before = (LAUNCHES_DQ.count, LAUNCHES_DKV.count)
+        route = _bwd_route(dtype, D, True)  # torch's allocations are aligned
+        counters = (LAUNCHES_DQ, LAUNCHES_DKV, LAUNCHES_DQ_TC,
+                    LAUNCHES_DKV_TC)
+        before = [c.count for c in counters]
         grads = flash_attention_bwd(q, k, v, out, lse, dout, causal)
         torch.cuda.synchronize()
-        launches = (LAUNCHES_DQ.count - before[0],
-                    LAUNCHES_DKV.count - before[1])
+        launches = [c.count - b for c, b in zip(counters, before)]
         ref = flash_attention_ref_bwd(q.float(), k.float(), v.float(),
                                       out.float(), lse, dout.float(), causal)
         name = str(dtype).replace("torch.", "")
         atol, rtol = BWD_TOL[name]
         errs = [(g.float() - r).abs() for g, r in zip(grads, ref)]
-        ok = launches == (1, 1) and all(
-            bool((e <= atol + rtol * r.abs()).all())
-            and bool(torch.isfinite(g).all())
-            for e, g, r in zip(errs, grads, ref))
+        # the largest share of its limit any element of dq, dk, dv uses
+        share = max((e / (atol + rtol * r.abs())).max().item()
+                    for e, r in zip(errs, ref))
+        on_route = [1, 1] if route == "tc" else [0, 0]
+        ok = launches == [1, 1] + on_route and share <= 1.0 and all(
+            bool(torch.isfinite(g).all()) for g in grads)
         row = {"shape": list(shape), "dtype": name, "causal": causal,
-               "launches": list(launches),
+               "route": route, "launches": launches[:2],
+               "launches_tc": launches[2:],
                "max_abs_err": {n: e.max().item()
                                for n, e in zip(("dq", "dk", "dv"), errs)},
-               "tol": {"atol": atol, "rtol": rtol}}
+               "tol": {"atol": atol, "rtol": rtol}, "limit_share": share}
         if shape == rung:
             bounds = backward_bounds(B, H, Tq, Tk, D, causal, dtype, peaks)
             # each pass alone, on the wrapper's delta and outputs
             delta = torch.sum(dout.float() * out.float(), dim=-1)
-            args = (q, k, v, dout, lse, delta)
             s = 1 / D ** 0.5
+
+            def one(which, rt):
+                return cuda_ms(lambda: _bwd_pass(
+                    which, rt, q, k, v, out, dout, lse, delta,
+                    grads[:1] if which == "dq" else grads[1:], causal, s))
+            if route == "tc":  # the CUDA-core kernels on the same inputs
+                row.update(cc_dq_ms=one("dq", "cc"),
+                           cc_dkv_ms=one("dkv", "cc"))
             row.update(
                 ms=cuda_ms(lambda: flash_attention_bwd(q, k, v, out, lse,
                                                        dout, causal)),
-                dq_ms=cuda_ms(lambda: _bwd_pass("dq", *args, grads[:1],
-                                                causal, s)),
-                dkv_ms=cuda_ms(lambda: _bwd_pass("dkv", *args, grads[1:],
-                                                 causal, s)),
+                dq_ms=one("dq", route), dkv_ms=one("dkv", route),
                 plain_ms=cuda_ms(lambda: flash_attention_ref_bwd(
                     q, k, v, out, lse, dout, causal), iters=5, warm=1),
                 library_ms=sdpa_backward_ms(F, q, k, v, dout, causal),
@@ -302,9 +337,11 @@ def phase_backward_check(peaks):
                 dkv_bound_by=bounds["flash_bwd_dkv"][1])
         log("[kernel] flash_bwd " + json.dumps(row))
         if not ok:
-            raise SystemExit(f"chip_smoke: flash backward disagrees with "
-                             f"its plain version: {row}")
+            bad.append(row)
         rows.append(row)
+    if bad:
+        raise SystemExit(f"chip_smoke: flash backward disagrees with its "
+                         f"plain version in {len(bad)} cases: {bad}")
     return rows
 
 
@@ -530,9 +567,9 @@ def phase_train(card):
     weights, batch and dropout generators."""
     from mxnet_tpu_torch.gluon import Trainer, collect_params
     from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
-    from mxnet_tpu_torch.ops.flash_attention import (LAUNCHES, LAUNCHES_DKV,
-                                                     LAUNCHES_DQ,
-                                                     flash_attention_ref)
+    from mxnet_tpu_torch.ops.flash_attention import (
+        LAUNCHES, LAUNCHES_DKV, LAUNCHES_DKV_TC, LAUNCHES_DQ, LAUNCHES_DQ_TC,
+        flash_attention_ref)
     from mxnet_tpu_torch.opt import kernels as opt_kernels
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -557,9 +594,13 @@ def phase_train(card):
         f"in {time.perf_counter() - t0:.2f} s")
 
     counters = {"flash_fwd": LAUNCHES, "flash_bwd_dq": LAUNCHES_DQ,
-                "flash_bwd_dkv": LAUNCHES_DKV, "mp_sgd": opt_kernels.LAUNCHES}
+                "flash_bwd_dkv": LAUNCHES_DKV, "mp_sgd": opt_kernels.LAUNCHES,
+                "flash_bwd_dq_tc": LAUNCHES_DQ_TC,
+                "flash_bwd_dkv_tc": LAUNCHES_DKV_TC}
+    # every dQ and dK/dV launch of the fp16 step takes the tensor-core route
     want = {"flash_fwd": layers, "flash_bwd_dq": layers,
-            "flash_bwd_dkv": layers, "mp_sgd": len(params)}
+            "flash_bwd_dkv": layers, "mp_sgd": len(params),
+            "flash_bwd_dq_tc": layers, "flash_bwd_dkv_tc": layers}
     totals = dict.fromkeys(counters, 0)
     missing = []
 
@@ -649,6 +690,9 @@ def phase_train(card):
                               for j in range(3))
     kernel_ms, ours, top = profiled_step(lambda: _train_step(
         model, loss_fn, tokens, labels, update))
+    if not all(ms > 0 for ms in ours.values()):
+        raise SystemExit(f"chip_smoke: the profiler found no device time for "
+                         f"a kernel of the step (symbols renamed?): {ours}")
     summary = {
         "card": card, "batch": [TRAIN_B, TRAIN_T], "steps": TRAIN_STEPS,
         "losses": losses, "ref_losses": ref_losses,
@@ -672,10 +716,14 @@ def phase_train(card):
     return totals
 
 
-KERNEL_NAMES = {"flash_fwd": "flash_fwd_kernel",
-                "flash_bwd_dq": "flash_bwd_dq_kernel",
-                "flash_bwd_dkv": "flash_bwd_dkv_kernel",
-                "mp_sgd": "mp_sgd_mom_kernel"}
+# each port kernel's symbols in the profiler (substrings): both designs of
+# the backward passes count under one name
+KERNEL_NAMES = {"flash_fwd": ("flash_fwd_kernel",),
+                "flash_bwd_dq": ("flash_bwd_dq_kernel",
+                                 "flash_bwd_tc_dq_kernel"),
+                "flash_bwd_dkv": ("flash_bwd_dkv_kernel",
+                                  "flash_bwd_tc_dkv_kernel"),
+                "mp_sgd": ("mp_sgd_mom_kernel",)}
 
 
 def profiled_step(step):
@@ -699,8 +747,8 @@ def profiled_step(step):
             us = e.self_cuda_time_total
         rows.append([e.key, us / 1e3, e.count])
     rows.sort(key=lambda r: -r[1])
-    ours = {name: sum(r[1] for r in rows if sym in r[0])
-            for name, sym in KERNEL_NAMES.items()}
+    ours = {name: sum(r[1] for r in rows if any(s in r[0] for s in syms))
+            for name, syms in KERNEL_NAMES.items()}
     return (sum(r[1] for r in rows), ours,
             [[r[0][:80], r[1], r[2]] for r in rows[:8]])
 
@@ -749,9 +797,13 @@ def main():
     fwd16 = pick(rows, shape=[8, HEADS, 512, 512, HEAD_DIM],
                  dtype="float16", causal=False)
     bwd16 = pick(bwd_rows, dtype="float16", causal=False)
+    bwd32 = pick(bwd_rows, dtype="float32", causal=False)
     sgd = pick(sgd_rows, n=max(SGD_SIZES))
-    bwd_err = max(max(r["max_abs_err"].values()) for r in bwd_rows
-                  if r["dtype"] == "float32")
+
+    def bwd_err(which, **want):
+        grads = ("dq",) if which == "dq" else ("dk", "dv")
+        return max(r["max_abs_err"][g] for r in bwd_rows for g in grads
+                   if all(r[k] == v for k, v in want.items()))
     common = {"card": card}
     kernels = [{
         "name": "flash_fwd", "route": "cuda",
@@ -771,23 +823,34 @@ def main():
         **common}]
     for which, line in (("dq", "pallas_kernels.py:257"),
                         ("dkv", "pallas_kernels.py:277")):
+        # the training path's design (tensor cores, fp16), with the fp32
+        # design (CUDA cores, flash_bwd.cu) beside it
         kernels.append({
             "name": f"flash_bwd_{which}", "route": "cuda",
-            "source": "mxnet_tpu_torch/csrc/flash_bwd.cu",
+            "source": "mxnet_tpu_torch/csrc/flash_bwd_tc.cu",
             "replaces": f"mxnet_tpu/ops/{line}",
             "launches": train_launches[f"flash_bwd_{which}"],
-            "max_abs_err": bwd_err,
+            "launches_tensor_core": train_launches[f"flash_bwd_{which}_tc"],
+            "max_abs_err": bwd_err(which, route="tc"),
             "ms": bwd16[f"{which}_ms"],
             "plain_ms": bwd16["plain_ms"],
             "bound_ms": bwd16[f"{which}_bound_ms"],
             "bound_by": bwd16[f"{which}_bound_by"],
             "library_ms": bwd16["library_ms"],
             "plain_and_library_cover": "flash_bwd_dq + flash_bwd_dkv",
-            "shape": bwd16["shape"], "dtype": "float16", **common})
+            "shape": bwd16["shape"], "dtype": "float16",
+            "float32": {
+                "source": "mxnet_tpu_torch/csrc/flash_bwd.cu",
+                "max_abs_err": bwd_err(which, dtype="float32"),
+                "ms": bwd32[f"{which}_ms"], "plain_ms": bwd32["plain_ms"],
+                "bound_ms": bwd32[f"{which}_bound_ms"],
+                "bound_by": bwd32[f"{which}_bound_by"],
+                "library_ms": bwd32["library_ms"]},
+            **common})
     kernels.append({
         "name": "mp_sgd", "route": "cuda",
         "source": "mxnet_tpu_torch/csrc/mp_sgd.cu",
-        "replaces": "mxnet_tpu/opt/kernels.py:93",
+        "replaces": "mxnet_tpu/opt/kernels.py:95",
         "launches": train_launches["mp_sgd"],
         "max_abs_err": max(r["max_abs_err"] for r in sgd_rows),
         "ms": sgd["ms"], "plain_ms": sgd["plain_ms"],

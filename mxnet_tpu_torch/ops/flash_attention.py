@@ -2,10 +2,12 @@
 
 Counterpart of ``mxnet_tpu/ops/pallas_kernels.py``'s ``flash_attention``
 (a ``custom_vjp`` over ``_flash_fwd`` and ``_flash_bwd``). The kernels are
-hand-written for Hopper: ``csrc/flash_fwd.cu`` (forward) and
-``csrc/flash_bwd.cu`` (the dQ pass and the dK/dV pass of the backward);
-their source notes give the bounds and the designs. The wrappers take
-``(B, H, T, D)`` tensors:
+hand-written for Hopper: ``csrc/flash_fwd.cu`` (forward) and two designs
+of the backward's dQ pass and dK/dV pass, chosen by :func:`_bwd_route`:
+``csrc/flash_bwd_tc.cu`` (tensor cores, wgmma and TMA) for fp16/bf16 with
+``D % 8 == 0`` and 16-byte-aligned pointers, ``csrc/flash_bwd.cu`` (CUDA
+cores) for the rest (fp32, odd head dims). The source notes give the bounds
+and the designs. The wrappers take ``(B, H, T, D)`` tensors:
 
 - on CUDA tensors they launch the kernels or raise; nothing falls back;
 - on CPU tensors they compute the plain versions,
@@ -36,12 +38,17 @@ from ..base import MXNetError
 __all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_bwd",
            "flash_attention_ref", "flash_attention_ref_fwd",
            "flash_attention_ref_bwd", "LAUNCHES", "LAUNCHES_DQ",
-           "LAUNCHES_DKV", "MAX_HEAD_DIM"]
+           "LAUNCHES_DKV", "LAUNCHES_DQ_TC", "LAUNCHES_DKV_TC",
+           "MAX_HEAD_DIM"]
 
 MAX_HEAD_DIM = 128
 LAUNCHES = _build.LaunchCounter("flash_fwd")
 LAUNCHES_DQ = _build.LaunchCounter("flash_bwd_dq")
 LAUNCHES_DKV = _build.LaunchCounter("flash_bwd_dkv")
+# the launches of each pass that took the tensor-core route (also counted
+# in LAUNCHES_DQ / LAUNCHES_DKV)
+LAUNCHES_DQ_TC = _build.LaunchCounter("flash_bwd_tc_dq")
+LAUNCHES_DKV_TC = _build.LaunchCounter("flash_bwd_tc_dkv")
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
@@ -181,29 +188,58 @@ def _launch(q, k, v, causal: bool, scale: float):
 _BWD_IN = [ctypes.c_void_p] * 6
 _BWD_TAIL = ([ctypes.c_int] * 4 + [ctypes.c_float] + [ctypes.c_int] * 3
              + [ctypes.c_void_p])
+_TC_ARGS = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_float]
+            + [ctypes.c_int] * 2 + [ctypes.c_void_p])
 
 
-def _bwd_pass(which, q, k, v, dout, lse, delta, grads, causal, scale):
-    """One launch of the dQ kernel (``grads = (dq,)``) or the dK/dV kernel
-    (``grads = (dk, dv)``) on checked, contiguous CUDA tensors."""
+def _bwd_route(dtype, D: int, aligned: bool) -> str:
+    """Which design of the backward takes a launch: ``"tc"``
+    (``csrc/flash_bwd_tc.cu``, tensor cores) for fp16/bf16 with ``D % 8 ==
+    0`` (TMA needs 16-byte row strides) and every pointer 16-byte aligned;
+    ``"cc"`` (``csrc/flash_bwd.cu``, CUDA cores) for the rest: fp32, which
+    must hold 1e-4 and so cannot take 16-bit operands, and odd head dims."""
+    if dtype in (torch.float16, torch.bfloat16) and D % 8 == 0 and aligned:
+        return "tc"
+    return "cc"
+
+
+def _bwd_pass(which, route, q, k, v, out, dout, lse, delta, grads, causal,
+              scale):
+    """One launch of the dQ pass (``grads = (dq,)``) or the dK/dV pass
+    (``grads = (dk, dv)``) of ``route``'s kernels on checked, contiguous
+    CUDA tensors. ``delta`` (fp32, ``(B, H, Tq)``) is read, except by the
+    tensor-core dQ pass, which computes it from ``out`` and ``dout`` and
+    writes it."""
     B, H, Tq, D = q.shape
-    lib = _build.load("flash_bwd")
-    fn = _fn(lib, f"mx_flash_bwd_{which}",
-             _BWD_IN + [ctypes.c_void_p] * len(grads) + _BWD_TAIL)
+    scalars = (B * H, Tq, k.shape[2], D, float(scale), int(bool(causal)),
+               _DTYPES[q.dtype])
+    if route == "tc":
+        lib = _build.load("flash_bwd_tc")
+        fn = _fn(lib, f"mx_flash_bwd_tc_{which}", _TC_ARGS)
+        ptrs = ((q, k, v, out, dout, lse, delta) if which == "dq"
+                else (q, k, v, dout, lse, delta)) + tuple(grads)
+        tail = ()
+    else:
+        lib = _build.load("flash_bwd")
+        fn = _fn(lib, f"mx_flash_bwd_{which}",
+                 _BWD_IN + [ctypes.c_void_p] * len(grads) + _BWD_TAIL)
+        ptrs = (q, k, v, dout, lse, delta) + tuple(grads)
+        tail = (_vec(D, (q, k, v, dout) + tuple(grads)),)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(*(t.data_ptr() for t in (q, k, v, dout, lse, delta)),
-                 *(g.data_ptr() for g in grads), B * H, Tq, k.shape[2], D,
-                 float(scale), int(bool(causal)), _DTYPES[q.dtype],
-                 _vec(D, (q, k, v, dout) + tuple(grads)), stream)
-    _build.check(lib, err, f"flash_bwd_{which} launch")
+        err = fn(*(t.data_ptr() for t in ptrs), *scalars, *tail, stream)
+    _build.check(lib, err, f"flash_bwd_{which} ({route}) launch")
     (LAUNCHES_DQ if which == "dq" else LAUNCHES_DKV).add()
+    if route == "tc":
+        (LAUNCHES_DQ_TC if which == "dq" else LAUNCHES_DKV_TC).add()
 
 
 def _launch_bwd(q, k, v, out, lse, dout, causal: bool, scale: float):
-    """``(dq, dk, dv)`` from the two backward kernels. ``delta =
+    """``(dq, dk, dv)`` from the two passes of the route
+    :func:`_bwd_route` picks. On the CUDA-core route ``delta =
     rowsum(dO * O)`` is one fp32 torch reduction before them, as JAX
-    computes it in XLA outside its kernels."""
+    computes it in XLA outside its kernels; on the tensor-core route the
+    dQ pass computes it for its rows and the dK/dV pass reads it."""
     B, H, Tq, D = q.shape
     dt = q.dtype
     _check_launch([("q", q, dt), ("k", k, dt), ("v", v, dt), ("out", out, dt),
@@ -214,10 +250,17 @@ def _launch_bwd(q, k, v, out, lse, dout, causal: bool, scale: float):
         raise MXNetError(f"flash_attention backward: out {tuple(out.shape)}, "
                          f"dout {tuple(dout.shape)}, lse {tuple(lse.shape)} "
                          f"do not match q {tuple(q.shape)}")
-    delta = torch.sum(dout.float() * out.float(), dim=-1)
+    route = _bwd_route(dt, D, all(t.data_ptr() % 16 == 0
+                                  for t in (q, k, v, out, dout)))
+    if route == "tc":
+        delta = torch.empty((B, H, Tq), device=q.device, dtype=torch.float32)
+    else:
+        delta = torch.sum(dout.float() * out.float(), dim=-1)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-    _bwd_pass("dq", q, k, v, dout, lse, delta, (dq,), causal, scale)
-    _bwd_pass("dkv", q, k, v, dout, lse, delta, (dk, dv), causal, scale)
+    _bwd_pass("dq", route, q, k, v, out, dout, lse, delta, (dq,), causal,
+              scale)
+    _bwd_pass("dkv", route, q, k, v, out, dout, lse, delta, (dk, dv), causal,
+              scale)
     return dq, dk, dv
 
 

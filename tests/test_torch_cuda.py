@@ -11,7 +11,9 @@ inputs: fp32 max abs <= 1e-4 for unit-scale inputs (only the summation
 order differs); bf16 and fp16 against the fp32 plain version on the same
 rounded inputs, within the output's own rounding (forward: bf16 <= 2e-2;
 backward: |err| <= atol + rtol*|ref| with rtol four half-ulps of the type,
-fp16 2e-3 and bf16 1.6e-2, and atol 1e-3 / 1e-2 for sums that cancel).
+fp16 2e-3 and bf16 1.6e-2, and atol 1e-3 / 1e-2 for sums that cancel; the
+same limits hold the tensor-core route, which also rounds p and dS to the
+input type as operands).
 The mixed-precision SGD kernel rounds each operation as its plain version
 does, so the two agree bit for bit.
 """
@@ -125,21 +127,26 @@ def _bwd_close(got, want, dtype):
 @pytest.mark.parametrize("shape", [(2, 3, 200, 200, 64),
                                    (1, 2, 128, 384, 96),
                                    (2, 2, 300, 100, 40),
-                                   (1, 1, 1, 7, 33)])
+                                   (1, 1, 1, 7, 33),
+                                   (2, 3, 160, 160, 96),
+                                   (1, 2, 256, 256, 128)])
 def test_backward_kernels_match_plain_version(shape, causal, dtype):
+    """Both routes: fp16/bf16 with D % 8 == 0 on the tensor-core kernels,
+    fp32 and D = 33 on the CUDA-core ones."""
     _need_cuda()
     from mxnet_tpu_torch.ops.flash_attention import (
-        LAUNCHES_DKV, LAUNCHES_DQ, flash_attention_bwd, flash_attention_fwd,
-        flash_attention_ref_bwd)
+        LAUNCHES_DKV, LAUNCHES_DKV_TC, LAUNCHES_DQ, LAUNCHES_DQ_TC,
+        flash_attention_bwd, flash_attention_fwd, flash_attention_ref_bwd)
     q, k, v = _qkv(1, *shape, dtype)
     g = torch.Generator().manual_seed(2)
     dout = torch.randn(q.shape, generator=g).cuda().to(dtype)
     out, lse = flash_attention_fwd(q, k, v, causal)
-    before = (LAUNCHES_DQ.count, LAUNCHES_DKV.count)
+    counters = (LAUNCHES_DQ, LAUNCHES_DKV, LAUNCHES_DQ_TC, LAUNCHES_DKV_TC)
+    before = [c.count for c in counters]
     grads = flash_attention_bwd(q, k, v, out, lse, dout, causal)
     torch.cuda.synchronize()
-    assert (LAUNCHES_DQ.count, LAUNCHES_DKV.count) == (before[0] + 1,
-                                                       before[1] + 1)
+    tc = int(dtype != torch.float32 and shape[-1] % 8 == 0)
+    assert [c.count - b for c, b in zip(counters, before)] == [1, 1, tc, tc]
     want = flash_attention_ref_bwd(q.float(), k.float(), v.float(),
                                    out.float(), lse, dout.float(), causal)
     for got, ref in zip(grads, want):
@@ -262,8 +269,8 @@ def test_mp_sgd_kernel_refuses_what_it_does_not_take():
 
 def test_trainer_steps_small_fp16_bert_through_the_kernels():
     """record -> backward -> Trainer.step with multi-precision SGD on an
-    fp16 model: launches per step are L forward, L dQ, L dK/dV and one
-    update per parameter; two steps agree with plain attention and the
+    fp16 model: launches per step are L forward, L dQ, L dK/dV (all on the
+    tensor-core route) and one update per parameter; two steps agree with plain attention and the
     plain update to fp16's precision."""
     _need_cuda()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -272,8 +279,8 @@ def test_trainer_steps_small_fp16_bert_through_the_kernels():
     from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
     from mxnet_tpu_torch.models import BERTModel
     from mxnet_tpu_torch.ops.flash_attention import (
-        LAUNCHES, LAUNCHES_DKV, LAUNCHES_DQ, flash_attention,
-        flash_attention_ref)
+        LAUNCHES, LAUNCHES_DKV, LAUNCHES_DKV_TC, LAUNCHES_DQ, LAUNCHES_DQ_TC,
+        flash_attention, flash_attention_ref)
     from mxnet_tpu_torch.opt import kernels
     V, L = 100, 2
 
@@ -299,7 +306,8 @@ def test_trainer_steps_small_fp16_bert_through_the_kernels():
                  for p in ref_params]
     scale = 128.0
     for _ in range(2):
-        counters = (LAUNCHES, LAUNCHES_DQ, LAUNCHES_DKV, kernels.LAUNCHES)
+        counters = (LAUNCHES, LAUNCHES_DQ, LAUNCHES_DKV, kernels.LAUNCHES,
+                    LAUNCHES_DQ_TC, LAUNCHES_DKV_TC)
         for c in counters:
             c.reset()
         with autograd.record():
@@ -307,7 +315,8 @@ def test_trainer_steps_small_fp16_bert_through_the_kernels():
         autograd.backward(loss * scale)
         assert all(p.grad is not None for p in params.values())
         trainer.step(tok.numel() * scale)
-        assert [c.count for c in counters] == [L, L, L, len(params)]
+        # fp16, head dim 16: every backward launch on the tensor-core route
+        assert [c.count for c in counters] == [L, L, L, len(params), L, L]
         with autograd.record():
             ref_loss = loss_fn(ref(tok).reshape(-1, V), lab.reshape(-1))
         autograd.backward(ref_loss * scale)

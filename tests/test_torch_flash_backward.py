@@ -9,7 +9,15 @@ test_pallas.py holds the Pallas backward to against dense attention (fp32,
 different summation orders through three products). The kernels
 themselves are held against the same plain version on the card by
 chip_smoke.py and tests/test_torch_cuda.py.
+
+The tensor-core route (``csrc/flash_bwd_tc.cu``) rounds p and dS to the
+input type once, as operands of the dV, dK and dQ products. A rounding
+model of that (the plain backward with those two roundings) is held here
+against the JAX package's fp32 backward under the tolerance chip_smoke.py
+holds the card to, so the tolerance is shown to leave room for the rounding.
 """
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -17,10 +25,12 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from chip_smoke import BWD_TOL
 from mxnet_tpu.ops.pallas_kernels import flash_attention as jax_flash
 from mxnet_tpu_torch import MXNetError
 from mxnet_tpu_torch.ops.flash_attention import (LAUNCHES_DKV, LAUNCHES_DQ,
-                                                 _launch_bwd, flash_attention,
+                                                 _bwd_route, _launch_bwd,
+                                                 _logits, flash_attention,
                                                  flash_attention_bwd,
                                                  flash_attention_ref,
                                                  flash_attention_ref_bwd,
@@ -37,10 +47,10 @@ CASES = {
 }
 
 
-def _inputs(seed, B, H, Tq, Tk, D):
+def _inputs(seed, B, H, Tq, Tk, D, qk_scale=0.3):
     rng = np.random.RandomState(seed)
-    q = (rng.randn(B, H, Tq, D) * 0.3).astype("float32")
-    k = (rng.randn(B, H, Tk, D) * 0.3).astype("float32")
+    q = (rng.randn(B, H, Tq, D) * qk_scale).astype("float32")
+    k = (rng.randn(B, H, Tk, D) * qk_scale).astype("float32")
     v = rng.randn(B, H, Tk, D).astype("float32")
     g = rng.randn(B, H, Tq, D).astype("float32")
     return q, k, v, g
@@ -55,14 +65,19 @@ def _port_grads(q, k, v, g, causal, dtype=torch.float32):
                                torch.from_numpy(g).to(dtype))
 
 
+def _jax_grads(q, k, v, g, causal):
+    """``jax.vjp`` of the Pallas ``flash_attention`` in interpret mode."""
+    _, vjp = jax.vjp(lambda a, b, c: jax_flash(a, b, c, causal, None, 128,
+                                               128, True),
+                     jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    return vjp(jnp.asarray(g))
+
+
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_flash_backward_matches_jax(case):
     B, H, Tq, Tk, D, causal = CASES[case]
     q, k, v, g = _inputs(3, B, H, Tq, Tk, D)
-    _, vjp = jax.vjp(lambda a, b, c: jax_flash(a, b, c, causal, None, 128,
-                                               128, True),
-                     jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
-    want = vjp(jnp.asarray(g))
+    want = _jax_grads(q, k, v, g, causal)
     got = _port_grads(q, k, v, g, causal)
     for name, a, b in zip("qkv", got, want):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=RTOL,
@@ -135,3 +150,93 @@ def test_backward_wrapper_refuses(what):
         else:
             _launch_bwd(q, k, v, out, lse, dout, False, 0.25)
     assert (LAUNCHES_DQ.count, LAUNCHES_DKV.count) == before
+
+
+def _rounded_operand_bwd(q, k, v, out, lse, dout, causal, dtype):
+    """The tensor-core route's arithmetic in fp32: the plain backward with
+    p and ds rounded to ``dtype`` before the dV, dK and dQ products and
+    every gradient rounded once to ``dtype``."""
+    s = 1.0 / np.sqrt(q.shape[-1])
+    p = torch.exp(_logits(q, k, causal, s) - lse[..., None])
+    delta = (dout * out).sum(-1, keepdim=True)
+    ds = p * (torch.matmul(dout, v.transpose(-1, -2)) - delta)
+    p, ds = p.to(dtype).float(), ds.to(dtype).float()
+    dq = torch.matmul(ds, k) * s
+    dk = torch.matmul(ds.transpose(-1, -2), q) * s
+    dv = torch.matmul(p.transpose(-1, -2), dout)
+    return tuple(t.to(dtype) for t in (dq, dk, dv))
+
+
+_ROUNDED = ("float16", "bfloat16")
+
+
+@functools.lru_cache(maxsize=None)
+def _rounded_case(case):
+    """Unit-scale inputs (as the card's checks draw them) rounded to each
+    16-bit type (as float32), and the JAX backward of both in one call
+    (stacked along the batch)."""
+    B, H, Tq, Tk, D, causal = CASES[case]
+    raw = [torch.from_numpy(a) for a in _inputs(7, B, H, Tq, Tk, D, 1.0)]
+    ins = {dt: [t.to(getattr(torch, dt)).float() for t in raw]
+           for dt in _ROUNDED}
+    both = _jax_grads(*(np.concatenate([ins[dt][i].numpy()
+                                        for dt in _ROUNDED])
+                        for i in range(4)), causal)
+    return {dt: (ins[dt], [np.asarray(w)[j * B:(j + 1) * B] for w in both])
+            for j, dt in enumerate(_ROUNDED)}
+
+
+@pytest.mark.parametrize("dtype", _ROUNDED)
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_rounded_operands_hold_the_card_tolerance(case, dtype):
+    """The rounding model on ``dtype``-rounded inputs (the forward's output
+    rounded too, as the kernel stores it) against the JAX package's fp32
+    backward on the same rounded values: elementwise within chip_smoke's
+    ``BWD_TOL[dtype]``, the limit the card's tensor-core kernels meet."""
+    causal = CASES[case][-1]
+    tdt = getattr(torch, dtype)
+    (q, k, v, g), want = _rounded_case(case)[dtype]
+    out, lse = flash_attention_ref_fwd(q, k, v, causal)
+    got = _rounded_operand_bwd(q, k, v, out.to(tdt).float(), lse, g, causal,
+                               tdt)
+    atol, rtol = BWD_TOL[dtype]
+    for name, a, b in zip("qkv", got, want):
+        np.testing.assert_allclose(a.float().numpy(), np.asarray(b),
+                                   rtol=rtol, atol=atol, err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("D", [8, 16, 36, 64, 96, 100, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16,
+                                   torch.bfloat16])
+def test_backward_route(dtype, D, aligned):
+    """Tensor cores for 16-bit types with D % 8 == 0 and aligned pointers;
+    the CUDA-core kernels for everything else."""
+    want = ("tc" if dtype != torch.float32 and D % 8 == 0 and aligned
+            else "cc")
+    assert _bwd_route(dtype, D, aligned) == want
+
+
+@pytest.mark.parametrize("shape", [CASES[c][:5] for c in sorted(CASES)]
+                         + [(1, 12, 512, 512, 64)],
+                         ids=sorted(CASES) + ["card_rung"])
+def test_fp16_atol_covers_the_operand_rounding(shape):
+    """Rounding p and ds to fp16 (u = 2^-11) moves an element of dV, dK or
+    dQ by at most u * sum|terms| of its product. At unit-scale inputs,
+    causal (the largest sums: early rows see few keys, and every row sees
+    the first keys) and up to the training rung's T = 512, that bound stays
+    under the fp16 atol chip_smoke.py holds the card's tensor-core kernels
+    to."""
+    B, H, Tq, Tk, D = shape
+    q, k, v, g = (torch.from_numpy(a).half().float()
+                  for a in _inputs(8, B, H, Tq, Tk, D, 1.0))
+    out, lse = flash_attention_ref_fwd(q, k, v, True)
+    s = 1.0 / np.sqrt(D)
+    p = torch.exp(_logits(q, k, True, s) - lse[..., None])
+    ds = p * (torch.matmul(g, v.transpose(-1, -2))
+              - (g * out.half().float()).sum(-1, keepdim=True))
+    sums = (s * torch.matmul(ds.abs(), k.abs()),
+            s * torch.matmul(ds.abs().transpose(-1, -2), q.abs()),
+            torch.matmul(p.transpose(-1, -2), g.abs()))
+    bound = 2.0 ** -11 * max(t.max().item() for t in sums)
+    assert bound <= BWD_TOL["float16"][0]
