@@ -10,9 +10,11 @@ end, failing on the first phase that fails:
    CUDA versions; no CUDA device is a failure;
 2. build — every kernel under ``mxnet_tpu_torch/csrc/`` with ``nvcc``;
 3. kernel check — the flash-attention forward against its plain version
-   on the card, at the serving and training paths' shapes and edge cases,
-   in fp32, bf16 and fp16, timed beside its plain version,
-   ``scaled_dot_product_attention`` (a yardstick only) and its bound;
+   on the card on both routes (fp16/bf16 on the tensor-core kernel, fp32
+   and odd head dims on the CUDA-core one), at the serving and training
+   paths' shapes and edge cases, timed beside the CUDA-core kernel on the
+   same 16-bit inputs, its plain version, ``scaled_dot_product_attention``
+   (a yardstick only) and its bound;
 4. backward check — the dQ and dK/dV passes against the plain backward
    on both routes (fp16/bf16 on the tensor-core kernels, fp32 and odd head
    dims on the CUDA-core ones), timed beside it, the backward of
@@ -27,8 +29,8 @@ end, failing on the first phase that fails:
 7. training slice — BERT-base (full width and depth, fp16 weights,
    dropout 0.1) trained through ``autograd.record`` -> ``backward`` ->
    ``Trainer.step`` with multi-precision SGD and a static loss scale:
-   12/12/12/150 launches per step (all 12 dQ and dK/dV launches on the
-   tensor-core route), every parameter with a gradient, a
+   12/12/12/150 launches per step (all 12 forward, dQ and dK/dV launches
+   on the tensor-core route), every parameter with a gradient, a
    finite and falling loss, and two steps against a reference run with
    dense attention and the plain update; step time, tokens/s, peak memory
    and a per-step breakdown.
@@ -49,8 +51,19 @@ import torch
 
 SEED = 0
 FP32_TOL = 1e-4   # max abs, unit-scale inputs: only the summation order differs
-BF16_TOL = 2e-2   # max abs vs fp32 on the same bf16-rounded inputs: the
-                  # output's own bf16 rounding (8-bit mantissa) at |out| ~ 2
+# forward kernels vs the fp32 plain forward on the same rounded inputs, max
+# abs: fp32 (CUDA cores) summation order only. fp16/bf16: the output's own
+# rounding, u*|out| <= u*max|v| (u = 2^-11 fp16, 2^-8 bf16; out is a convex
+# combination of v's rows), and on the tensor-core route the rounding of p
+# to the input type as the A operand of O += P.V: at most
+# u * sum_c p_c|v_c| / l <= u*max|v| per element, where p at the row's
+# maximum rounds to exactly 1 (its exponent is a rounding residual), so the
+# sum runs over the other keys. At
+# unit-scale inputs (max|v| ~ 5.4 over the card's 8 x 12 x 512 x 64) the two
+# together reach 1.9e-3 (fp16) and 1.5e-2 (bf16), on the first causal rows
+# (tests/test_torch_flash_forward_tc.py::test_limit_covers_the_rounding);
+# the CUDA-core route, with no rounding of p, stays inside the same limits.
+FWD_TOL = {"float32": FP32_TOL, "float16": 5e-3, "bfloat16": 2e-2}
 SLICE_RTOL = SLICE_ATOL = 1e-3  # 12 fp32 layers over a reordered softmax sum
 # backward kernels vs the fp32 plain backward on the same rounded inputs,
 # elementwise |err| <= atol + rtol*|ref|: fp32 max abs 1e-4 (summation
@@ -164,65 +177,81 @@ def attention_bound(B, H, Tq, Tk, D, causal, dtype, peaks):
 
 
 def phase_kernel_check(peaks):
+    """B2 against its plain version, launched once per case on the route
+    ``_fwd_route`` picks: fp32 (CUDA cores) at the serving path's rungs and
+    the edge cases (ragged T, D = 96, Tq != Tk); bf16 (tensor cores) at
+    the same timed shapes; fp16 (tensor cores) at the training rung and the
+    edge cases; fp16 with D = 36 (CUDA cores). Timed cases are timed beside
+    the plain version, SDPA and the bound, and the 16-bit ones also on the
+    CUDA-core kernel on the same inputs. Every case is run and logged
+    before a disagreement fails the phase."""
     import torch.nn.functional as F
-    from mxnet_tpu_torch.ops.flash_attention import (LAUNCHES,
-                                                     flash_attention_fwd,
-                                                     flash_attention_ref_fwd)
+    from mxnet_tpu_torch.ops.flash_attention import (
+        LAUNCHES, LAUNCHES_TC, _fwd_pass, _fwd_route, flash_attention_fwd,
+        flash_attention_ref_fwd)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     # (B, H, Tq, Tk, D): the serving path's rungs at the top batch, the
     # edge cases (ragged T, head_dim 96, Tq != Tk), then every other
     # (batch, seq) rung the BERT-base path launches the kernel at
-    timed = [(8, HEADS, t, t, HEAD_DIM) for t in (128, 256, 384, 512)] + [
-        (8, HEADS, 200, 200, HEAD_DIM), (8, HEADS, 384, 384, 96),
-        (8, HEADS, 128, 384, HEAD_DIM)]
-    rungs = [(b, HEADS, t, t, HEAD_DIM) for b in (1, 2, 4)
-             for t in (128, 256, 512)]
-    rows = []
-    for shape in timed + rungs:
+    rung = (8, HEADS, 512, 512, HEAD_DIM)
+    edges = [(8, HEADS, 200, 200, HEAD_DIM), (8, HEADS, 384, 384, 96),
+             (8, HEADS, 128, 384, HEAD_DIM)]
+    timed = [(8, HEADS, t, t, HEAD_DIM) for t in (128, 256, 384, 512)] + edges
+    cases = [(s_, dt, c) for s_ in timed
+             for dt in (torch.float32, torch.bfloat16)
+             + ((torch.float16,) if s_ == rung or s_ in edges else ())
+             for c in (False, True)]
+    cases += [((b, HEADS, t, t, HEAD_DIM), torch.float32, False)
+              for b in (1, 2, 4) for t in (128, 256, 512)]
+    cases += [((8, HEADS, 256, 256, 36), torch.float16, c)
+              for c in (False, True)]
+    rows, bad = [], []
+    for shape, dtype, causal in cases:
         B, H, Tq, Tk, D = shape
-        is_timed = shape in timed
-        dtypes = (torch.float32,)
-        if is_timed:
-            dtypes += (torch.bfloat16,)
-        if shape == (8, HEADS, 512, 512, HEAD_DIM):
-            dtypes += (torch.float16,)  # the training path's
-        for dtype in dtypes:
-            for causal in ((False, True) if is_timed else (False,)):
-                q, k, v = (torch.randn(B, H, T, D, device="cuda",
-                                       generator=gen).to(dtype)
-                           for T in (Tq, Tk, Tk))
-                before = LAUNCHES.count
-                out, lse = flash_attention_fwd(q, k, v, causal)
-                torch.cuda.synchronize()
-                launches = LAUNCHES.count - before
-                ref, ref_lse = flash_attention_ref_fwd(
-                    q.float(), k.float(), v.float(), causal)
-                err = (out.float() - ref).abs().max().item()
-                lse_err = (lse - ref_lse).abs().max().item()
-                tol = FP32_TOL if dtype == torch.float32 else BF16_TOL
-                ok = (err <= tol and lse_err <= FP32_TOL and launches == 1
-                      and bool(torch.isfinite(out).all()))
-                row = {"shape": list(shape), "dtype": str(dtype)[6:],
-                       "causal": causal, "launches": launches,
-                       "max_abs_err": err,
-                       "lse_max_abs_err": lse_err, "tol": tol}
-                if is_timed:
-                    bound_ms, bound_by = attention_bound(
-                        B, H, Tq, Tk, D, causal, dtype, peaks)
-                    row.update(
-                        ms=cuda_ms(lambda: flash_attention_fwd(q, k, v,
-                                                               causal)),
-                        plain_ms=cuda_ms(lambda: flash_attention_ref_fwd(
-                            q, k, v, causal)),
-                        library_ms=cuda_ms(
-                            lambda: F.scaled_dot_product_attention(
-                                q, k, v, is_causal=causal)),
-                        bound_ms=bound_ms, bound_by=bound_by)
-                log("[kernel] flash_fwd " + json.dumps(row))
-                if not ok:
-                    raise SystemExit(f"chip_smoke: flash_fwd disagrees with "
-                                     f"its plain version: {row}")
-                rows.append(row)
+        q, k, v = (torch.randn(B, H, T, D, device="cuda",
+                               generator=gen).to(dtype)
+                   for T in (Tq, Tk, Tk))
+        route = _fwd_route(dtype, D, True)  # torch's allocations are aligned
+        before = (LAUNCHES.count, LAUNCHES_TC.count)
+        out, lse = flash_attention_fwd(q, k, v, causal)
+        torch.cuda.synchronize()
+        launches = LAUNCHES.count - before[0]
+        launches_tc = LAUNCHES_TC.count - before[1]
+        ref, ref_lse = flash_attention_ref_fwd(
+            q.float(), k.float(), v.float(), causal)
+        err = (out.float() - ref).abs().max().item()
+        lse_err = (lse - ref_lse).abs().max().item()
+        name = str(dtype).replace("torch.", "")
+        tol = FWD_TOL[name]
+        ok = (err <= tol and lse_err <= FP32_TOL and launches == 1
+              and launches_tc == int(route == "tc")
+              and bool(torch.isfinite(out).all()))
+        row = {"shape": list(shape), "dtype": name, "causal": causal,
+               "route": route, "launches": launches,
+               "launches_tc": launches_tc, "max_abs_err": err,
+               "lse_max_abs_err": lse_err, "tol": tol}
+        if shape in timed:
+            bound_ms, bound_by = attention_bound(
+                B, H, Tq, Tk, D, causal, dtype, peaks)
+            if route == "tc":  # the CUDA-core kernel on the same inputs
+                o2, l2 = torch.empty_like(out), torch.empty_like(lse)
+                row["cc_ms"] = cuda_ms(lambda: _fwd_pass(
+                    "cc", q, k, v, o2, l2, causal, 1 / D ** 0.5))
+            row.update(
+                ms=cuda_ms(lambda: flash_attention_fwd(q, k, v, causal)),
+                plain_ms=cuda_ms(lambda: flash_attention_ref_fwd(
+                    q, k, v, causal)),
+                library_ms=cuda_ms(
+                    lambda: F.scaled_dot_product_attention(
+                        q, k, v, is_causal=causal)),
+                bound_ms=bound_ms, bound_by=bound_by)
+        log("[kernel] flash_fwd " + json.dumps(row))
+        if not ok:
+            bad.append(row)
+        rows.append(row)
+    if bad:
+        raise SystemExit(f"chip_smoke: flash forward disagrees with its "
+                         f"plain version in {len(bad)} cases: {bad}")
     return rows
 
 
@@ -569,7 +598,7 @@ def phase_train(card):
     from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
     from mxnet_tpu_torch.ops.flash_attention import (
         LAUNCHES, LAUNCHES_DKV, LAUNCHES_DKV_TC, LAUNCHES_DQ, LAUNCHES_DQ_TC,
-        flash_attention_ref)
+        LAUNCHES_TC, flash_attention_ref)
     from mxnet_tpu_torch.opt import kernels as opt_kernels
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -595,12 +624,15 @@ def phase_train(card):
 
     counters = {"flash_fwd": LAUNCHES, "flash_bwd_dq": LAUNCHES_DQ,
                 "flash_bwd_dkv": LAUNCHES_DKV, "mp_sgd": opt_kernels.LAUNCHES,
+                "flash_fwd_tc": LAUNCHES_TC,
                 "flash_bwd_dq_tc": LAUNCHES_DQ_TC,
                 "flash_bwd_dkv_tc": LAUNCHES_DKV_TC}
-    # every dQ and dK/dV launch of the fp16 step takes the tensor-core route
+    # every forward, dQ and dK/dV launch of the fp16 step takes the
+    # tensor-core route
     want = {"flash_fwd": layers, "flash_bwd_dq": layers,
             "flash_bwd_dkv": layers, "mp_sgd": len(params),
-            "flash_bwd_dq_tc": layers, "flash_bwd_dkv_tc": layers}
+            "flash_fwd_tc": layers, "flash_bwd_dq_tc": layers,
+            "flash_bwd_dkv_tc": layers}
     totals = dict.fromkeys(counters, 0)
     missing = []
 
@@ -717,8 +749,8 @@ def phase_train(card):
 
 
 # each port kernel's symbols in the profiler (substrings): both designs of
-# the backward passes count under one name
-KERNEL_NAMES = {"flash_fwd": ("flash_fwd_kernel",),
+# the forward and of the backward passes count under one name
+KERNEL_NAMES = {"flash_fwd": ("flash_fwd_kernel", "flash_fwd_tc_kernel"),
                 "flash_bwd_dq": ("flash_bwd_dq_kernel",
                                  "flash_bwd_tc_dq_kernel"),
                 "flash_bwd_dkv": ("flash_bwd_dkv_kernel",
@@ -805,21 +837,29 @@ def main():
         return max(r["max_abs_err"][g] for r in bwd_rows for g in grads
                    if all(r[k] == v for k, v in want.items()))
     common = {"card": card}
+    # the training path's design (tensor cores, fp16), with the fp32 design
+    # (CUDA cores, flash_fwd.cu; the serving path's) beside it
     kernels = [{
         "name": "flash_fwd", "route": "cuda",
-        "source": "mxnet_tpu_torch/csrc/flash_fwd.cu",
+        "source": "mxnet_tpu_torch/csrc/flash_fwd_tc.cu",
         "replaces": "mxnet_tpu/ops/pallas_kernels.py:126",
         "launches": serve_launches + train_launches["flash_fwd"],
         "launches_by_path": {"serve": serve_launches,
                              "train": train_launches["flash_fwd"]},
+        "launches_tensor_core": train_launches["flash_fwd_tc"],
         "max_abs_err": max(r["max_abs_err"] for r in rows
-                           if r["dtype"] == "float32"),
-        "ms": fwd32["ms"], "plain_ms": fwd32["plain_ms"],
-        "bound_ms": fwd32["bound_ms"], "bound_by": fwd32["bound_by"],
-        "library_ms": fwd32["library_ms"],
-        "shape": fwd32["shape"], "dtype": "float32",
-        "float16": {k: fwd16[k] for k in ("ms", "plain_ms", "bound_ms",
-                                          "bound_by", "library_ms")},
+                           if r["route"] == "tc"),
+        "ms": fwd16["ms"], "cuda_core_ms": fwd16["cc_ms"],
+        "plain_ms": fwd16["plain_ms"],
+        "bound_ms": fwd16["bound_ms"], "bound_by": fwd16["bound_by"],
+        "library_ms": fwd16["library_ms"],
+        "shape": fwd16["shape"], "dtype": "float16",
+        "float32": {
+            "source": "mxnet_tpu_torch/csrc/flash_fwd.cu",
+            "max_abs_err": max(r["max_abs_err"] for r in rows
+                               if r["dtype"] == "float32"),
+            **{k: fwd32[k] for k in ("ms", "plain_ms", "bound_ms",
+                                     "bound_by", "library_ms")}},
         **common}]
     for which, line in (("dq", "pallas_kernels.py:257"),
                         ("dkv", "pallas_kernels.py:277")):

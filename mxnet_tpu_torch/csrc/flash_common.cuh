@@ -1,4 +1,5 @@
-// Helpers shared by the flash-attention kernels (flash_fwd.cu, flash_bwd.cu):
+// Helpers shared by the flash-attention kernels (flash_fwd.cu, flash_bwd.cu;
+// the tensor-core kernels take the constants via flash_tc_common.cuh):
 // four-element loads and stores between fp32 registers and fp32 / bf16 / fp16
 // rows in device memory, and 16-lane row reductions.
 #pragma once

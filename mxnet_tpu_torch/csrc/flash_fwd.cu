@@ -1,7 +1,10 @@
 // Flash-attention forward for Hopper (sm_90a), CUDA cores, fp32 accumulation.
 //
 // Replaces: the Pallas TPU kernel `_flash_fwd` / `_fwd_kernel` in
-// mxnet_tpu/ops/pallas_kernels.py. It computes the same function:
+// mxnet_tpu/ops/pallas_kernels.py:126 for fp32 inputs and for head dims with
+// D % 8 != 0 (or pointers not 16-byte aligned); fp16 and bf16 inputs
+// otherwise take the tensor-core kernel of flash_fwd_tc.cu
+// (ops/flash_attention.py::_fwd_route). It computes the same function:
 //   out[r] = softmax(q[r] . K^T * scale  (causal / tail masked)) . V
 //   lse[r] = log sum_c exp(q[r] . k[c] * scale)          (fp32, natural log)
 // with online softmax, so no Tq x Tk matrix ever reaches device memory.
@@ -13,11 +16,11 @@
 // bf16 against the tensor-core peak (989 TFLOP/s) the 25 MB it moves
 // (3.35 TB/s) bound it at ~7.5 us.
 //
-// Design against that bound. This first kernel does all arithmetic on the
-// CUDA cores in fp32 (the fp32 path must hold 1e-4 against the plain
-// version, so TF32 tensor cores are not an option there); bf16 and fp16
-// inputs are widened to fp32 in shared memory and take the same path. The FMA rate is
-// kept fed by register blocking:
+// Design against that bound. This kernel does all arithmetic on the CUDA
+// cores in fp32 (the fp32 path must hold 1e-4 against the plain version, so
+// TF32 tensor cores are not an option there); the 16-bit inputs it serves
+// (odd head dims) are widened to fp32 in shared memory and take the same
+// path. The FMA rate is kept fed by register blocking:
 // - one 256-thread block per (b*h, 64-row q tile); the sequential K sweep of
 //   the Pallas grid is the loop over 64-key K/V tiles inside the block;
 // - q is staged once, pre-multiplied by scale*log2(e) (softmax in base 2);
@@ -32,8 +35,7 @@
 //   zero-filled on load and masked in the kernel: no padded copies;
 // - causal: K tiles beyond the tile's last row are never loaded, and q
 //   tiles are issued heaviest first so the causal tail balances.
-// wgmma/TMA and a tensor-core bf16 path are later work; PERF.md carries the
-// measured time beside the bound.
+// PERF.md carries the measured time beside the bound.
 #include "flash_common.cuh"
 
 namespace {

@@ -2,12 +2,14 @@
 
 Counterpart of ``mxnet_tpu/ops/pallas_kernels.py``'s ``flash_attention``
 (a ``custom_vjp`` over ``_flash_fwd`` and ``_flash_bwd``). The kernels are
-hand-written for Hopper: ``csrc/flash_fwd.cu`` (forward) and two designs
-of the backward's dQ pass and dK/dV pass, chosen by :func:`_bwd_route`:
+hand-written for Hopper, two designs of the forward and of the backward's
+dQ pass and dK/dV pass, chosen per call by :func:`_fwd_route` and
+:func:`_bwd_route` with one rule: ``csrc/flash_fwd_tc.cu`` and
 ``csrc/flash_bwd_tc.cu`` (tensor cores, wgmma and TMA) for fp16/bf16 with
-``D % 8 == 0`` and 16-byte-aligned pointers, ``csrc/flash_bwd.cu`` (CUDA
-cores) for the rest (fp32, odd head dims). The source notes give the bounds
-and the designs. The wrappers take ``(B, H, T, D)`` tensors:
+``D % 8 == 0`` and 16-byte-aligned pointers, ``csrc/flash_fwd.cu`` and
+``csrc/flash_bwd.cu`` (CUDA cores) for the rest (fp32, odd head dims). The
+source notes give the bounds and the designs. The wrappers take
+``(B, H, T, D)`` tensors:
 
 - on CUDA tensors they launch the kernels or raise; nothing falls back;
 - on CPU tensors they compute the plain versions,
@@ -37,16 +39,17 @@ from ..base import MXNetError
 
 __all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_bwd",
            "flash_attention_ref", "flash_attention_ref_fwd",
-           "flash_attention_ref_bwd", "LAUNCHES", "LAUNCHES_DQ",
-           "LAUNCHES_DKV", "LAUNCHES_DQ_TC", "LAUNCHES_DKV_TC",
-           "MAX_HEAD_DIM"]
+           "flash_attention_ref_bwd", "LAUNCHES", "LAUNCHES_TC",
+           "LAUNCHES_DQ", "LAUNCHES_DKV", "LAUNCHES_DQ_TC",
+           "LAUNCHES_DKV_TC", "MAX_HEAD_DIM"]
 
 MAX_HEAD_DIM = 128
 LAUNCHES = _build.LaunchCounter("flash_fwd")
 LAUNCHES_DQ = _build.LaunchCounter("flash_bwd_dq")
 LAUNCHES_DKV = _build.LaunchCounter("flash_bwd_dkv")
-# the launches of each pass that took the tensor-core route (also counted
-# in LAUNCHES_DQ / LAUNCHES_DKV)
+# the launches of each kernel that took the tensor-core route (also counted
+# in LAUNCHES / LAUNCHES_DQ / LAUNCHES_DKV)
+LAUNCHES_TC = _build.LaunchCounter("flash_fwd_tc")
 LAUNCHES_DQ_TC = _build.LaunchCounter("flash_bwd_tc_dq")
 LAUNCHES_DKV_TC = _build.LaunchCounter("flash_bwd_tc_dkv")
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -163,25 +166,63 @@ def _fn(lib, name: str, argtypes):
     return fn
 
 
-def _launch(q, k, v, causal: bool, scale: float):
+def _fwd_route(dtype, D: int, aligned: bool) -> str:
+    """Which design takes a launch of the forward or of a backward pass:
+    ``"tc"`` (``csrc/flash_fwd_tc.cu``, ``csrc/flash_bwd_tc.cu``: tensor
+    cores) for fp16/bf16 with ``D % 8 == 0`` (TMA needs 16-byte row
+    strides) and every pointer 16-byte aligned; ``"cc"``
+    (``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``: CUDA cores) for the
+    rest: fp32, which must hold 1e-4 and so cannot take 16-bit operands,
+    and odd head dims."""
+    if dtype in (torch.float16, torch.bfloat16) and D % 8 == 0 and aligned:
+        return "tc"
+    return "cc"
+
+
+_bwd_route = _fwd_route  # one rule for the forward and the backward
+
+# q, k, v, out, lse; B*H, Tq, Tk, D; scale; causal, dtype (then the
+# CUDA-core kernel's vec); stream
+_FWD_ARGS = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_float]
+             + [ctypes.c_int] * 2)
+
+
+def _fwd_pass(route, q, k, v, out, lse, causal, scale):
+    """One launch of ``route``'s forward kernel on checked, contiguous CUDA
+    tensors, writing ``out`` and ``lse``."""
     B, H, Tq, D = q.shape
-    Tk = k.shape[2]
+    scalars = (B * H, Tq, k.shape[2], D, float(scale), int(bool(causal)),
+               _DTYPES[q.dtype])
+    if route == "tc":
+        lib = _build.load("flash_fwd_tc")
+        fn = _fn(lib, "mx_flash_fwd_tc", _FWD_ARGS + [ctypes.c_void_p])
+        tail = ()
+    else:
+        lib = _build.load("flash_fwd")
+        fn = _fn(lib, "mx_flash_fwd",
+                 _FWD_ARGS + [ctypes.c_int, ctypes.c_void_p])
+        tail = (_vec(D, (q, k, v, out)),)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(*(t.data_ptr() for t in (q, k, v, out, lse)), *scalars,
+                 *tail, stream)
+    _build.check(lib, err, f"flash_fwd ({route}) launch")
+    LAUNCHES.add()
+    if route == "tc":
+        LAUNCHES_TC.add()
+
+
+def _launch(q, k, v, causal: bool, scale: float):
+    """``(out, lse)`` from the forward kernel :func:`_fwd_route` picks."""
+    B, H, Tq, D = q.shape
     _check_launch([("q", q, q.dtype), ("k", k, q.dtype), ("v", v, q.dtype)],
                   q.dtype)
     _check_dims(q, k)
     out = torch.empty_like(q)
     lse = torch.empty((B, H, Tq), device=q.device, dtype=torch.float32)
-    lib = _build.load("flash_fwd")
-    fn = _fn(lib, "mx_flash_fwd", [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
-             + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 lse.data_ptr(), B * H, Tq, Tk, D, float(scale),
-                 int(bool(causal)), _DTYPES[q.dtype], _vec(D, (q, k, v, out)),
-                 stream)
-    _build.check(lib, err, "flash_fwd launch")
-    LAUNCHES.add()
+    route = _fwd_route(q.dtype, D, all(t.data_ptr() % 16 == 0
+                                       for t in (q, k, v, out)))
+    _fwd_pass(route, q, k, v, out, lse, causal, scale)
     return out, lse
 
 
@@ -190,17 +231,6 @@ _BWD_TAIL = ([ctypes.c_int] * 4 + [ctypes.c_float] + [ctypes.c_int] * 3
              + [ctypes.c_void_p])
 _TC_ARGS = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_float]
             + [ctypes.c_int] * 2 + [ctypes.c_void_p])
-
-
-def _bwd_route(dtype, D: int, aligned: bool) -> str:
-    """Which design of the backward takes a launch: ``"tc"``
-    (``csrc/flash_bwd_tc.cu``, tensor cores) for fp16/bf16 with ``D % 8 ==
-    0`` (TMA needs 16-byte row strides) and every pointer 16-byte aligned;
-    ``"cc"`` (``csrc/flash_bwd.cu``, CUDA cores) for the rest: fp32, which
-    must hold 1e-4 and so cannot take 16-bit operands, and odd head dims."""
-    if dtype in (torch.float16, torch.bfloat16) and D % 8 == 0 and aligned:
-        return "tc"
-    return "cc"
 
 
 def _bwd_pass(which, route, q, k, v, out, dout, lse, delta, grads, causal,

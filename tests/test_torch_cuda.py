@@ -9,8 +9,9 @@ machine with a card and no JAX (tests/conftest.py imports JAX, hence
 The flash kernels are held against their plain versions on the same
 inputs: fp32 max abs <= 1e-4 for unit-scale inputs (only the summation
 order differs); bf16 and fp16 against the fp32 plain version on the same
-rounded inputs, within the output's own rounding (forward: bf16 <= 2e-2;
-backward: |err| <= atol + rtol*|ref| with rtol four half-ulps of the type,
+rounded inputs, within the output's own rounding and, on the tensor-core
+route, the rounding of p as an operand (forward: bf16 <= 2e-2, fp16 <=
+5e-3, chip_smoke's FWD_TOL; backward: |err| <= atol + rtol*|ref| with rtol four half-ulps of the type,
 fp16 2e-3 and bf16 1.6e-2, and atol 1e-3 / 1e-2 for sums that cancel; the
 same limits hold the tensor-core route, which also rounds p and dS to the
 input type as operands).
@@ -34,22 +35,29 @@ def _qkv(seed, B, H, Tq, Tk, D, dtype):
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
-                                       (torch.bfloat16, 2e-2)])
+                                       (torch.bfloat16, 2e-2),
+                                       (torch.float16, 5e-3)])
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("shape", [(2, 3, 200, 200, 64),
                                    (1, 2, 128, 384, 96),
                                    (2, 2, 300, 100, 40),
                                    (1, 1, 1, 7, 33)])
 def test_kernel_matches_plain_version(shape, causal, dtype, tol):
+    """Both routes: fp16/bf16 with D % 8 == 0 on the tensor-core kernel,
+    fp32 and D = 33 on the CUDA-core one."""
     _need_cuda()
-    from mxnet_tpu_torch.ops.flash_attention import (LAUNCHES,
+    from mxnet_tpu_torch.ops.flash_attention import (LAUNCHES, LAUNCHES_TC,
+                                                     _fwd_route,
                                                      flash_attention_fwd,
                                                      flash_attention_ref_fwd)
     q, k, v = _qkv(0, *shape, dtype)
-    before = LAUNCHES.count
+    tc = int(dtype != torch.float32 and shape[-1] % 8 == 0)
+    assert _fwd_route(dtype, shape[-1], True) == ("tc" if tc else "cc")
+    before = (LAUNCHES.count, LAUNCHES_TC.count)
     out, lse = flash_attention_fwd(q, k, v, causal)
     torch.cuda.synchronize()
-    assert LAUNCHES.count == before + 1
+    assert (LAUNCHES.count, LAUNCHES_TC.count) == (before[0] + 1,
+                                                   before[1] + tc)
     assert out.dtype == dtype and lse.dtype == torch.float32
     ref, ref_lse = flash_attention_ref_fwd(q.float(), k.float(), v.float(),
                                            causal)
@@ -270,8 +278,8 @@ def test_mp_sgd_kernel_refuses_what_it_does_not_take():
 def test_trainer_steps_small_fp16_bert_through_the_kernels():
     """record -> backward -> Trainer.step with multi-precision SGD on an
     fp16 model: launches per step are L forward, L dQ, L dK/dV (all on the
-    tensor-core route) and one update per parameter; two steps agree with plain attention and the
-    plain update to fp16's precision."""
+    tensor-core route) and one update per parameter; two steps agree with
+    plain attention and the plain update to fp16's precision."""
     _need_cuda()
     torch.backends.cuda.matmul.allow_tf32 = False
     from mxnet_tpu_torch import autograd
@@ -280,7 +288,7 @@ def test_trainer_steps_small_fp16_bert_through_the_kernels():
     from mxnet_tpu_torch.models import BERTModel
     from mxnet_tpu_torch.ops.flash_attention import (
         LAUNCHES, LAUNCHES_DKV, LAUNCHES_DKV_TC, LAUNCHES_DQ, LAUNCHES_DQ_TC,
-        flash_attention, flash_attention_ref)
+        LAUNCHES_TC, flash_attention, flash_attention_ref)
     from mxnet_tpu_torch.opt import kernels
     V, L = 100, 2
 
@@ -307,7 +315,7 @@ def test_trainer_steps_small_fp16_bert_through_the_kernels():
     scale = 128.0
     for _ in range(2):
         counters = (LAUNCHES, LAUNCHES_DQ, LAUNCHES_DKV, kernels.LAUNCHES,
-                    LAUNCHES_DQ_TC, LAUNCHES_DKV_TC)
+                    LAUNCHES_TC, LAUNCHES_DQ_TC, LAUNCHES_DKV_TC)
         for c in counters:
             c.reset()
         with autograd.record():
@@ -315,8 +323,9 @@ def test_trainer_steps_small_fp16_bert_through_the_kernels():
         autograd.backward(loss * scale)
         assert all(p.grad is not None for p in params.values())
         trainer.step(tok.numel() * scale)
-        # fp16, head dim 16: every backward launch on the tensor-core route
-        assert [c.count for c in counters] == [L, L, L, len(params), L, L]
+        # fp16, head dim 16: every attention launch on the tensor-core route
+        assert [c.count for c in counters] == [L, L, L, len(params), L, L,
+                                               L]
         with autograd.record():
             ref_loss = loss_fn(ref(tok).reshape(-1, V), lab.reshape(-1))
         autograd.backward(ref_loss * scale)
