@@ -16,9 +16,12 @@ end, failing on the first phase that fails:
    same 16-bit inputs, its plain version, ``scaled_dot_product_attention``
    (a yardstick only) and its bound;
 4. backward check — the dQ and dK/dV passes against the plain backward
-   on both routes (fp16/bf16 on the tensor-core kernels, fp32 and odd head
-   dims on the CUDA-core ones), timed beside it, the backward of
-   ``scaled_dot_product_attention`` and their bounds;
+   on their three routes (fp16/bf16 on the tensor-core kernels, fp32 with
+   D <= 64 on the fp32 tensor-core kernels over bf16 planes, odd head dims
+   and fp32 with D > 64 on the CUDA-core ones), timed beside the CUDA-core
+   kernels on the same inputs, the plain backward, the backward of
+   ``scaled_dot_product_attention`` and their bounds; and the fp32 route's
+   split kernel against its plain version, bit for bit;
 5. optimizer check — the mixed-precision SGD kernel against its plain
    version at the sizes of BERT-base's parameters, bit for bit;
 6. serving slice — BERT-base (full width, fp32, random weights from a
@@ -33,13 +36,19 @@ end, failing on the first phase that fails:
    on the tensor-core route), every parameter with a gradient, a
    finite and falling loss, and two steps against a reference run with
    dense attention and the plain update; step time, tokens/s, peak memory
-   and a per-step breakdown.
+   and a per-step breakdown;
+8. fp32 training slice — the same model in fp32 (the dtype ``BERTModel``
+   takes by default), plain SGD with momentum and no loss scale: 12/12/12
+   launches per step, every dQ and dK/dV launch on the fp32 tensor-core
+   route (12 split launches) and no mixed-precision update, then two steps
+   against a reference run with dense attention, and the same breakdown.
 
 The last three lines are the card (``nvidia-smi``), ``{"kernels": [...]}``
 and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import ctypes
 import json
 import re
 import subprocess
@@ -89,21 +98,46 @@ TRAIN_LR, TRAIN_MOMENTUM, LOSS_SCALE = 0.2, 0.9, 8.0
 # Master weights: the update (w32 after - before) agrees to 2e-2 relative
 # L2 over the model and to 1e-1 for each parameter.
 TRAIN_LOSS_TOL, TRAIN_UPD_TOL, TRAIN_UPD_TOL_EACH = 1e-2, 2e-2, 1e-1
+# fp32 training: the same model and batch in fp32, plain SGD with momentum
+# (the same update in both runs), no loss scale. Both runs share every fp32
+# product (no TF32) and dropout mask; only attention differs, the kernels
+# against dense attention, both fp32-grade (within 1e-4 max abs at unit
+# scale, a few 1e-6 seen), so two steps move the ~10.4 loss and the update
+# by fp32 roundings (~1e-6 relative). The limits are a tenth of the fp16
+# phase's: 1e-3 on the loss, 2e-3 / 1e-2 relative L2 on the update (over
+# the model / for each parameter).
+TRAIN32_STEPS = 4
+TRAIN32_LOSS_TOL, TRAIN32_UPD_TOL, TRAIN32_UPD_TOL_EACH = 1e-3, 2e-3, 1e-2
 SGD_SIZES = (23_440_896, 2_359_296, 768, 1_000_003)
 LADDER = "batch:1,2,4,8;seq:128,256,512"
 N_REQUESTS, CONCURRENCY = 24, 4
 HEADS, HEAD_DIM = 12, 64
 
-# Published dense peaks (NVIDIA data sheets): fp32 without tensor cores,
-# bf16 on tensor cores, device-memory bytes/s. Matched on the card's name.
+# Published dense peaks (NVIDIA data sheets): fp32 without tensor cores
+# (FFMA), bf16 on tensor cores, device-memory bytes/s. Matched on the card's
+# name. "float32_tc" is the fastest fp32-grade product the card offers: the
+# bf16 tensor cores on three bf16 planes of each fp32 operand, six plane
+# products per product (csrc/flash_bwd_tc32.cu), i.e. the 16-bit peak / 6,
+# 2.5x the FFMA peak. An fp32 bound is of the work, not of the design, so it
+# takes the larger of the two rates (ffma_bound_ms keeps the FFMA one).
 PEAKS = (
     ("H100 PCIe", {"float32": 51.2e12, "bfloat16": 756e12, "float16": 756e12,
-                   "bytes": 2.0e12}),
+                   "float32_tc": 756e12 / 6, "bytes": 2.0e12}),
     ("H100 NVL", {"float32": 60e12, "bfloat16": 835e12, "float16": 835e12,
-                  "bytes": 3.9e12}),
+                  "float32_tc": 835e12 / 6, "bytes": 3.9e12}),
     ("H100", {"float32": 67e12, "bfloat16": 989e12, "float16": 989e12,
-              "bytes": 3.35e12}),
+              "float32_tc": 989e12 / 6, "bytes": 3.35e12}),
 )
+
+
+def op_peak(dtype, peaks, ffma=False):
+    """FLOP/s of the fastest products of ``dtype`` the card offers: for
+    fp32 the larger of the FFMA peak and ``float32_tc`` (only the FFMA
+    peak if ``ffma``)."""
+    name = str(dtype).replace("torch.", "")
+    if name == "float32" and not ffma:
+        return max(peaks["float32"], peaks["float32_tc"])
+    return peaks[name]
 
 
 def log(*a):
@@ -146,31 +180,49 @@ def phase_device():
     return card, name, peaks
 
 
+def _kernel_symbol(line):
+    """The kernel's name in a mangled symbol (its length-prefixed
+    identifier ending in ``_kernel``) and the 24 characters after it (the
+    template arguments, cut short)."""
+    m = re.search(r"_kernel\w{0,24}", line)
+    if m is None:
+        return line
+    for n in range(len("_kernel") + 1, m.start() + len("_kernel")):
+        start = m.start() + len("_kernel") - n
+        if line[:start].endswith(str(n)):
+            return line[start:m.end()]
+    return m.group()
+
+
 def phase_build():
     from mxnet_tpu_torch import _build
     t0 = time.perf_counter()
     report = _build.build_all()
     for name, rep in report.items():
-        # per entry function (its mangled name from the kernel's name on,
-        # cut short): registers, spills, static shared memory
-        regs = [re.search(r"[a-z_]+_kernel\w{0,24}", ln).group()
-                if "entry function" in ln else ln.split(":", 1)[-1].strip()
+        # per entry function: registers, spills, static shared memory
+        regs = [_kernel_symbol(ln) if "entry function" in ln
+                else ln.split(":", 1)[-1].strip()
                 for ln in rep["log"].splitlines()
                 if "entry function" in ln or "registers" in ln
                 or "spill" in ln]
         log(f"[build] {name}: {rep['seconds']:.2f} s; ptxas: {regs}")
+    lib = _build.load("flash_bwd_tc32")
+    lib.mx_flash_bwd_tc32_smem_bytes.restype = ctypes.c_longlong
+    log(f"[build] flash_bwd_tc32: each pass asks for "
+        f"{lib.mx_flash_bwd_tc32_smem_bytes()} B of dynamic shared memory")
     log(f"[build] all kernels built in {time.perf_counter() - t0:.2f} s")
 
 
-def attention_bound(B, H, Tq, Tk, D, causal, dtype, peaks):
+def attention_bound(B, H, Tq, Tk, D, causal, dtype, peaks, ffma=False):
     """Least time the card needs for the function: flops over the peak for
-    the dtype vs bytes (q, k, v read once; out, lse written once) over the
-    memory rate. Causal counts only the (q, k) pairs the mask keeps."""
+    the dtype (:func:`op_peak`) vs bytes (q, k, v read once; out, lse
+    written once) over the memory rate. Causal counts only the (q, k) pairs
+    the mask keeps."""
     flops = 4.0 * B * H * D * _pairs(Tq, Tk, causal)
     itemsize = torch.empty((), dtype=dtype).element_size()
     nbytes = (2 * B * H * Tq * D + 2 * B * H * Tk * D) * itemsize \
         + 4 * B * H * Tq
-    t_ops = flops / peaks[str(dtype).replace("torch.", "")]
+    t_ops = flops / op_peak(dtype, peaks, ffma)
     t_bytes = nbytes / peaks["bytes"]
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
                                        else "bytes")
@@ -233,6 +285,9 @@ def phase_kernel_check(peaks):
         if shape in timed:
             bound_ms, bound_by = attention_bound(
                 B, H, Tq, Tk, D, causal, dtype, peaks)
+            if dtype == torch.float32:
+                row["ffma_bound_ms"] = attention_bound(
+                    B, H, Tq, Tk, D, causal, dtype, peaks, ffma=True)[0]
             if route == "tc":  # the CUDA-core kernel on the same inputs
                 o2, l2 = torch.empty_like(out), torch.empty_like(lse)
                 row["cc_ms"] = cuda_ms(lambda: _fwd_pass(
@@ -259,15 +314,15 @@ def _pairs(Tq, Tk, causal):
     return sum(min(i + 1, Tk) for i in range(Tq)) if causal else Tq * Tk
 
 
-def backward_bounds(B, H, Tq, Tk, D, causal, dtype, peaks):
+def backward_bounds(B, H, Tq, Tk, D, causal, dtype, peaks, ffma=False):
     """Least times for the dQ pass, the dK/dV pass and both: FA2's count
     (2*D flops per kept (q, k) pair and product: S and dP recomputed by
-    both, then dQ; dV and dK) over the dtype's peak, against the bytes of
-    q, k, v, o, dO, lse, delta read once and dq, dk, dv written once.
-    Returns ``{name: (ms, bound_by)}``."""
+    both, then dQ; dV and dK) over the dtype's peak (:func:`op_peak`),
+    against the bytes of q, k, v, o, dO, lse, delta read once and dq, dk,
+    dv written once. Returns ``{name: (ms, bound_by)}``."""
     it = torch.empty((), dtype=dtype).element_size()
     BH, pairs = B * H, _pairs(Tq, Tk, causal)
-    peak = peaks[str(dtype).replace("torch.", "")]
+    peak = op_peak(dtype, peaks, ffma)
     q_b, k_b, rows = BH * Tq * D * it, BH * Tk * D * it, 8 * BH * Tq
     work = {  # name: (products, bytes read and written)
         "flash_bwd_dq": (3, 2 * q_b + 2 * k_b + rows + q_b),
@@ -285,17 +340,21 @@ def backward_bounds(B, H, Tq, Tk, D, causal, dtype, peaks):
 def phase_backward_check(peaks):
     """B3 (dQ) and B4 (dK/dV) against the plain backward on the same
     inputs (the kernel forward's out and lse, one dO), each launched once
-    per case on the route ``_bwd_route`` picks: fp16/bf16 (tensor cores)
-    and fp32 (CUDA cores) at the training rung and the edge cases (ragged
-    T, D = 96, Tq != Tk), fp16/bf16 at D = 128, and one fp16 case with
-    D % 8 != 0 (CUDA cores). Timed at the training rung in every dtype,
-    fp16/bf16 also on the CUDA-core kernels for comparison. Every case is
-    run and logged before a disagreement fails the phase."""
+    per case on the route ``_bwd_route`` picks: fp16/bf16 (tensor cores),
+    fp32 with D <= 64 (tensor cores on bf16 planes, after one split
+    launch) and fp32 with D = 96 (CUDA cores) at the training rung and the
+    edge cases (ragged T, D = 96, Tq != Tk), fp16/bf16 at D = 128, and one
+    fp16 case with D % 8 != 0 (CUDA cores). Every fp32 case on the tensor
+    cores also runs the CUDA-core passes on the same inputs and logs their
+    error beside its own. Timed at the training rung in every dtype, full
+    and causal, the tensor-core routes also on the CUDA-core kernels. Every
+    case is run and logged before a disagreement fails the phase."""
     import torch.nn.functional as F
     from mxnet_tpu_torch.ops.flash_attention import (
-        LAUNCHES_DKV, LAUNCHES_DKV_TC, LAUNCHES_DQ, LAUNCHES_DQ_TC,
-        _bwd_pass, _bwd_route, flash_attention_bwd, flash_attention_fwd,
-        flash_attention_ref_bwd)
+        LAUNCHES_DKV, LAUNCHES_DKV_TC, LAUNCHES_DKV_TC32, LAUNCHES_DQ,
+        LAUNCHES_DQ_TC, LAUNCHES_DQ_TC32, LAUNCHES_SPLIT, _bwd_pass,
+        _bwd_route, flash_attention_bwd, flash_attention_fwd,
+        flash_attention_ref_bwd, split_bf16x3)
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     rung = (8, HEADS, 512, 512, HEAD_DIM)
     every = (torch.float32, torch.float16, torch.bfloat16)
@@ -307,6 +366,9 @@ def phase_backward_check(peaks):
     cases += [((4, HEADS, 512, 512, 128), dt, c)
               for dt in (torch.float16, torch.bfloat16) for c in (False, True)]
     cases += [((8, HEADS, 256, 256, 36), torch.float16, False)]
+    counters = (LAUNCHES_DQ, LAUNCHES_DKV, LAUNCHES_DQ_TC, LAUNCHES_DKV_TC,
+                LAUNCHES_DQ_TC32, LAUNCHES_DKV_TC32, LAUNCHES_SPLIT)
+    names = ("dq", "dk", "dv")
     rows, bad = [], []
     for shape, dtype, causal in cases:
         B, H, Tq, Tk, D = shape
@@ -316,8 +378,6 @@ def phase_backward_check(peaks):
         dout = torch.randn(q.shape, device="cuda", generator=gen).to(dtype)
         out, lse = flash_attention_fwd(q, k, v, causal)
         route = _bwd_route(dtype, D, True)  # torch's allocations are aligned
-        counters = (LAUNCHES_DQ, LAUNCHES_DKV, LAUNCHES_DQ_TC,
-                    LAUNCHES_DKV_TC)
         before = [c.count for c in counters]
         grads = flash_attention_bwd(q, k, v, out, lse, dout, causal)
         torch.cuda.synchronize()
@@ -330,28 +390,51 @@ def phase_backward_check(peaks):
         # the largest share of its limit any element of dq, dk, dv uses
         share = max((e / (atol + rtol * r.abs())).max().item()
                     for e, r in zip(errs, ref))
-        on_route = [1, 1] if route == "tc" else [0, 0]
-        ok = launches == [1, 1] + on_route and share <= 1.0 and all(
+        want = ([1, 1] + [int(route == "tc")] * 2
+                + [int(route == "tc32")] * 3)
+        ok = launches == want and share <= 1.0 and all(
             bool(torch.isfinite(g).all()) for g in grads)
         row = {"shape": list(shape), "dtype": name, "causal": causal,
                "route": route, "launches": launches[:2],
-               "launches_tc": launches[2:],
+               "launches_tc": launches[2:4], "launches_tc32": launches[4:6],
+               "launches_split": launches[6],
                "max_abs_err": {n: e.max().item()
-                               for n, e in zip(("dq", "dk", "dv"), errs)},
+                               for n, e in zip(names, errs)},
                "tol": {"atol": atol, "rtol": rtol}, "limit_share": share}
+        # each pass alone, on the wrapper's delta and outputs
+        delta = torch.sum(dout.float() * out.float(), dim=-1)
+        s = 1 / D ** 0.5
+        if route == "tc32":  # the CUDA-core passes' error on the same inputs
+            cc = [torch.empty_like(t) for t in (q, k, v)]
+            _bwd_pass("dq", "cc", q, k, v, out, dout, lse, delta, cc[:1],
+                      causal, s)
+            _bwd_pass("dkv", "cc", q, k, v, out, dout, lse, delta, cc[1:],
+                      causal, s)
+            row["cc_max_abs_err"] = {n: (g - r).abs().max().item()
+                                     for n, g, r in zip(names, cc, ref)}
+            row["err_over_cc"] = max(
+                row["max_abs_err"][n] / max(row["cc_max_abs_err"][n], 1e-30)
+                for n in names)
         if shape == rung:
             bounds = backward_bounds(B, H, Tq, Tk, D, causal, dtype, peaks)
-            # each pass alone, on the wrapper's delta and outputs
-            delta = torch.sum(dout.float() * out.float(), dim=-1)
-            s = 1 / D ** 0.5
+            planes = split_bf16x3(q, k, v, dout) if route == "tc32" else None
 
             def one(which, rt):
                 return cuda_ms(lambda: _bwd_pass(
                     which, rt, q, k, v, out, dout, lse, delta,
-                    grads[:1] if which == "dq" else grads[1:], causal, s))
-            if route == "tc":  # the CUDA-core kernels on the same inputs
+                    grads[:1] if which == "dq" else grads[1:], causal, s,
+                    planes))
+            if route != "cc":  # the CUDA-core kernels on the same inputs
                 row.update(cc_dq_ms=one("dq", "cc"),
                            cc_dkv_ms=one("dkv", "cc"))
+            if route == "tc32":
+                ffma = backward_bounds(B, H, Tq, Tk, D, causal, dtype, peaks,
+                                       ffma=True)
+                row.update(
+                    split_ms=cuda_ms(lambda: split_bf16x3(q, k, v, dout)),
+                    ffma_bound_ms=ffma["both"][0],
+                    dq_ffma_bound_ms=ffma["flash_bwd_dq"][0],
+                    dkv_ffma_bound_ms=ffma["flash_bwd_dkv"][0])
             row.update(
                 ms=cuda_ms(lambda: flash_attention_bwd(q, k, v, out, lse,
                                                        dout, causal)),
@@ -368,9 +451,58 @@ def phase_backward_check(peaks):
         if not ok:
             bad.append(row)
         rows.append(row)
+    worst = max(r["err_over_cc"] for r in rows if "err_over_cc" in r)
+    log(f"[kernel] flash_bwd fp32: the tensor-core route's max abs error is "
+        f"at most {worst:.2f}x the CUDA-core route's on the same inputs"
+        + (" (over 4x)" if worst > 4 else ""))
     if bad:
         raise SystemExit(f"chip_smoke: flash backward disagrees with its "
                          f"plain version in {len(bad)} cases: {bad}")
+    return rows
+
+
+def phase_split_check(peaks):
+    """The fp32 tensor-core backward's split kernel against its plain
+    version, bit for bit: on the training rung's q, k, v and dO (one
+    launch, as the backward makes it), and on values across the whole
+    range (+-0, subnormals, the largest finite fp32 values, where bf16
+    rounding overflows and the leading plane is truncated). Timed at the
+    rung beside the plain version and its bound (4 bytes read and 6
+    written per element)."""
+    from mxnet_tpu_torch.ops.flash_attention import (LAUNCHES_SPLIT,
+                                                     split_bf16x3,
+                                                     split_bf16x3_ref)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    rung = [torch.randn(8, HEADS, 512, HEAD_DIM, device="cuda",
+                        generator=gen) for _ in range(4)]
+    edges = torch.tensor([0.0, -0.0, 2.0 ** -149, -(2.0 ** -140),
+                          2.0 ** -126, 2.0 ** -110, 1e-30, 1.0, -65504.0,
+                          3.38e38, 3.3961e38, -3.4028235e38], device="cuda")
+    wide = torch.randn(4096, device="cuda", generator=gen) * torch.exp2(
+        torch.randint(-140, 127, (4096,), device="cuda",
+                      generator=gen).float())
+    rows = []
+    for name, xs in (("rung", rung), ("edges", [edges, wide])):
+        before = LAUNCHES_SPLIT.count
+        got = split_bf16x3(*xs)
+        torch.cuda.synchronize()
+        launches = LAUNCHES_SPLIT.count - before
+        want = split_bf16x3_ref(*xs)
+        n = sum(x.numel() for x in xs)
+        row = {"inputs": name, "elements": n, "launches": launches,
+               "bit_equal": torch.equal(got.view(torch.int16),
+                                        want.view(torch.int16)),
+               "max_abs_err": (got.float() - want.float()).abs().max().item()}
+        if name == "rung":
+            row.update(ms=cuda_ms(lambda: split_bf16x3(*xs)),
+                       plain_ms=cuda_ms(lambda: split_bf16x3_ref(*xs)),
+                       bound_ms=10 * n / peaks["bytes"] * 1e3,
+                       bound_by="bytes", library_ms=None)
+        log("[kernel] split_bf16x3 " + json.dumps(row))
+        if launches != 1 or not row["bit_equal"]:
+            raise SystemExit(f"chip_smoke: split_bf16x3 disagrees with its "
+                             f"plain version: {row}")
+        rows.append(row)
     return rows
 
 
@@ -553,13 +685,13 @@ def phase_slice(card):
     return launches
 
 
-def _seeded_bert_fp16():
-    """BERT-base at full width and depth in fp16, seeded weights and
+def _seeded_bert(dtype):
+    """BERT-base at full width and depth in ``dtype``, seeded weights and
     dropout masks (each Dropout layer's generator from SEED + its index)."""
     from mxnet_tpu_torch.convert import params_from_mxnet_tpu
     from mxnet_tpu_torch.gluon.nn import Dropout
     from mxnet_tpu_torch.models import BERTModel
-    model = BERTModel(device="cuda", dtype=torch.float16)
+    model = BERTModel(device="cuda", dtype=dtype)
     model.load_state_dict(params_from_mxnet_tpu(seeded_weights(model, SEED),
                                                 model))
     drops = [m for m in model.modules() if isinstance(m, Dropout)]
@@ -568,17 +700,18 @@ def _seeded_bert_fp16():
     return model
 
 
-def _train_step(model, loss_fn, tokens, labels, update, events=None):
-    """One ``record -> backward -> update`` step; returns the mean loss
-    (a device tensor). ``events`` (4 CUDA events) mark forward, backward
-    and update."""
+def _train_step(model, loss_fn, tokens, labels, update, events=None,
+                scale=LOSS_SCALE):
+    """One ``record -> backward -> update`` step on the loss times
+    ``scale``; returns the mean loss (a device tensor). ``events`` (4 CUDA
+    events) mark forward, backward and update."""
     from mxnet_tpu_torch import autograd
     vocab = model.head.weight.shape[0]
     if events:
         events[0].record()
     with autograd.record():
         loss = loss_fn(model(tokens).reshape(-1, vocab), labels.reshape(-1))
-        scaled = loss * LOSS_SCALE
+        scaled = loss * scale
     if events:
         events[1].record()
     autograd.backward(scaled)
@@ -590,31 +723,139 @@ def _train_step(model, loss_fn, tokens, labels, update, events=None):
     return loss.detach().float().mean()
 
 
+def _train_batch(vocab):
+    rng = np.random.default_rng(SEED)
+    return tuple(torch.from_numpy(rng.integers(0, vocab, (TRAIN_B, TRAIN_T))
+                                  ).cuda() for _ in range(2))
+
+
+def _train_counters():
+    """Every launch counter a training step moves, by name."""
+    from mxnet_tpu_torch.ops.flash_attention import (
+        LAUNCHES, LAUNCHES_DKV, LAUNCHES_DKV_TC, LAUNCHES_DKV_TC32,
+        LAUNCHES_DQ, LAUNCHES_DQ_TC, LAUNCHES_DQ_TC32, LAUNCHES_SPLIT,
+        LAUNCHES_TC)
+    from mxnet_tpu_torch.opt import kernels as opt_kernels
+    return {"flash_fwd": LAUNCHES, "flash_bwd_dq": LAUNCHES_DQ,
+            "flash_bwd_dkv": LAUNCHES_DKV, "mp_sgd": opt_kernels.LAUNCHES,
+            "flash_fwd_tc": LAUNCHES_TC, "flash_bwd_dq_tc": LAUNCHES_DQ_TC,
+            "flash_bwd_dkv_tc": LAUNCHES_DKV_TC,
+            "flash_bwd_dq_tc32": LAUNCHES_DQ_TC32,
+            "flash_bwd_dkv_tc32": LAUNCHES_DKV_TC32,
+            "split_bf16x3": LAUNCHES_SPLIT}
+
+
+def _checked(update, params, missing):
+    """``update``, after noting in ``missing`` every trainable parameter
+    without a gradient."""
+    def run():
+        missing.extend(n for n, p in params.items()
+                       if p.requires_grad and p.grad is None)
+        update()
+    return run
+
+
+def _run_steps(tag, steps, step, missing, want, after=None):
+    """``steps`` timed steps of ``step(events)``: each step's launches must
+    equal ``want``, and ``missing`` (see :func:`_checked`) must stay empty.
+    Returns the losses, walls, event windows, launch totals and peak
+    memory. ``after(i)`` runs after step ``i``."""
+    counters = _train_counters()
+    totals = dict.fromkeys(counters, 0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, walls, parts = [], [], []
+    for i in range(steps):
+        for c in counters.values():
+            c.reset()
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        t0 = time.perf_counter()
+        loss = step(events)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        parts.append([events[j].elapsed_time(events[j + 1])
+                      for j in range(3)])
+        losses.append(loss.item())
+        counts = {n: c.count for n, c in counters.items()}
+        for n in counts:
+            totals[n] += counts[n]
+        log(f"[{tag}] step {i}: loss {losses[-1]:.6f}, wall "
+            f"{walls[-1]:.2f} ms, forward/backward/optimizer "
+            f"{[round(x, 3) for x in parts[-1]]} ms, launches {counts}")
+        if counts != want:
+            raise SystemExit(f"chip_smoke: {tag}: launches per step "
+                             f"{counts}, expected {want}")
+        if missing:
+            raise SystemExit(f"chip_smoke: {tag}: no gradient for "
+                             f"{missing[:8]}")
+        if after:
+            after(i)
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise SystemExit(f"chip_smoke: {tag}: loss not finite and falling: "
+                         f"{losses}")
+    return losses, walls, parts, totals, torch.cuda.max_memory_allocated()
+
+
+def _step_breakdown(tag, walls, parts, step, path):
+    """Medians over the steps after the first, and one more step profiled:
+    the device's kernel time, each port kernel's (every kernel of
+    ``path`` must show device time) and the eight largest."""
+    steady = range(1, len(walls))
+    wall_ms = float(np.median([walls[i] for i in steady]))
+    fwd_ms, bwd_ms, opt_ms = (float(np.median([parts[i][j] for i in steady]))
+                              for j in range(3))
+    kernel_ms, ours, top = profiled_step(step)
+    if not all(ours[name] > 0 for name in path):
+        raise SystemExit(f"chip_smoke: {tag}: the profiler found no device "
+                         f"time for a kernel of the step (symbols renamed?): "
+                         f"{ours}")
+    return {
+        "step_wall_ms_median": wall_ms, "step_wall_ms": walls,
+        "step_event_ms_median": fwd_ms + bwd_ms + opt_ms,
+        "tokens_per_s": TRAIN_B * TRAIN_T / (wall_ms / 1e3),
+        "forward_ms": fwd_ms, "backward_ms": bwd_ms, "optimizer_ms": opt_ms,
+        "profiled_kernel_ms": kernel_ms,
+        "device_busy_share": kernel_ms / wall_ms,
+        "top_kernels_ms": top, "kernel_ms_in_step": ours,
+        "b2_share_of_forward": ours["flash_fwd"] / fwd_ms,
+        "b3_b4_share_of_backward":
+            (ours["flash_bwd_dq"] + ours["flash_bwd_dkv"]) / bwd_ms,
+        "b1_share_of_optimizer": ours["mp_sgd"] / opt_ms}
+
+
+def _update_diff(got, ref, init, names):
+    """Relative L2 difference of two runs' updates (after - init) over the
+    model, and the worst parameter's, as (value, name)."""
+    diff2 = upd2 = 0.0
+    worst = (0.0, "")
+    for name, a, b, w0 in zip(names, got, ref, init):
+        d = (a - b).norm().item()
+        u = (b - w0).norm().item()
+        diff2, upd2 = diff2 + d * d, upd2 + u * u
+        if u > 0 and d / u > worst[0]:
+            worst = (d / u, name)
+    return (diff2 / upd2) ** 0.5, worst
+
+
 def phase_train(card):
     """BERT-base in fp16 trained through the Gluon entry points, then two
     steps of a reference run (dense attention, plain update) from the same
     weights, batch and dropout generators."""
     from mxnet_tpu_torch.gluon import Trainer, collect_params
     from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
-    from mxnet_tpu_torch.ops.flash_attention import (
-        LAUNCHES, LAUNCHES_DKV, LAUNCHES_DKV_TC, LAUNCHES_DQ, LAUNCHES_DQ_TC,
-        LAUNCHES_TC, flash_attention_ref)
+    from mxnet_tpu_torch.ops.flash_attention import flash_attention_ref
     from mxnet_tpu_torch.opt import kernels as opt_kernels
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
-    model = _seeded_bert_fp16()
+    model = _seeded_bert(torch.float16)
     params = collect_params(model)
     layers, vocab = len(model.layers), model.head.weight.shape[0]
     trainer = Trainer(params, "sgd", {"learning_rate": TRAIN_LR,
                                       "momentum": TRAIN_MOMENTUM,
                                       "multi_precision": True})
     loss_fn = SoftmaxCrossEntropyLoss()
-    rng = np.random.default_rng(SEED)
-    tokens = torch.from_numpy(rng.integers(0, vocab, (TRAIN_B, TRAIN_T))
-                              ).cuda()
-    labels = torch.from_numpy(rng.integers(0, vocab, (TRAIN_B, TRAIN_T))
-                              ).cuda()
+    tokens, labels = _train_batch(vocab)
     batch = TRAIN_B * TRAIN_T
     log(f"[train] BERTModel(dtype=float16): {len(params)} parameters "
         f"({sum(p.numel() for p in params.values())} values), {layers} "
@@ -622,59 +863,30 @@ def phase_train(card):
         f"{TRAIN_MOMENTUM} multi_precision; loss scale {LOSS_SCALE}; built "
         f"in {time.perf_counter() - t0:.2f} s")
 
-    counters = {"flash_fwd": LAUNCHES, "flash_bwd_dq": LAUNCHES_DQ,
-                "flash_bwd_dkv": LAUNCHES_DKV, "mp_sgd": opt_kernels.LAUNCHES,
-                "flash_fwd_tc": LAUNCHES_TC,
-                "flash_bwd_dq_tc": LAUNCHES_DQ_TC,
-                "flash_bwd_dkv_tc": LAUNCHES_DKV_TC}
     # every forward, dQ and dK/dV launch of the fp16 step takes the
     # tensor-core route
-    want = {"flash_fwd": layers, "flash_bwd_dq": layers,
-            "flash_bwd_dkv": layers, "mp_sgd": len(params),
-            "flash_fwd_tc": layers, "flash_bwd_dq_tc": layers,
-            "flash_bwd_dkv_tc": layers}
-    totals = dict.fromkeys(counters, 0)
-    missing = []
+    want = dict.fromkeys(_train_counters(), 0)
+    want.update({"flash_fwd": layers, "flash_bwd_dq": layers,
+                 "flash_bwd_dkv": layers, "mp_sgd": len(params),
+                 "flash_fwd_tc": layers, "flash_bwd_dq_tc": layers,
+                 "flash_bwd_dkv_tc": layers})
+    masters, missing = [], []
+    update = _checked(lambda: trainer.step(batch * LOSS_SCALE), params,
+                      missing)
 
-    def update():
-        missing.extend(n for n, p in params.items()
-                       if p.requires_grad and p.grad is None)
-        trainer.step(batch * LOSS_SCALE)
+    def step(events=None):
+        return _train_step(model, loss_fn, tokens, labels, update, events)
 
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    losses, walls, parts, masters = [], [], [], None
-    for step in range(TRAIN_STEPS):
-        for c in counters.values():
-            c.reset()
-        events = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
-        t0 = time.perf_counter()
-        loss = _train_step(model, loss_fn, tokens, labels, update, events)
-        torch.cuda.synchronize()
-        walls.append((time.perf_counter() - t0) * 1e3)
-        parts.append([events[i].elapsed_time(events[i + 1])
-                      for i in range(3)])
-        losses.append(loss.item())
-        counts = {n: c.count for n, c in counters.items()}
-        for n in counts:
-            totals[n] += counts[n]
-        log(f"[train] step {step}: loss {losses[-1]:.6f}, wall "
-            f"{walls[-1]:.2f} ms, forward/backward/optimizer "
-            f"{[round(x, 3) for x in parts[-1]]} ms, launches {counts}")
-        if counts != want:
-            raise SystemExit(f"chip_smoke: launches per step {counts}, "
-                             f"expected {want}")
-        if missing:
-            raise SystemExit(f"chip_smoke: no gradient for {missing[:8]}")
-        if step == REF_STEPS - 1:
-            masters = [trainer._updaters[0].states[i][0].clone()
-                       for i in range(len(params))]
-    peak = torch.cuda.max_memory_allocated()
-    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
-        raise SystemExit(f"chip_smoke: loss not finite and falling: {losses}")
+    def after(i):
+        if i == REF_STEPS - 1:
+            masters.extend(trainer._updaters[0].states[j][0].clone()
+                           for j in range(len(params)))
+
+    losses, walls, parts, totals, peak = _run_steps(
+        "train", TRAIN_STEPS, step, missing, want, after)
 
     # reference run: dense attention, plain update, same start
-    ref = _seeded_bert_fp16()
+    ref = _seeded_bert(torch.float16)
     for layer in ref.layers:
         layer.attn.attention = flash_attention_ref
     ref_params = list(collect_params(ref).values())
@@ -695,15 +907,8 @@ def phase_train(card):
     ref_losses = [_train_step(ref, loss_fn, tokens, labels, ref_update).item()
                   for _ in range(REF_STEPS)]
     loss_err = max(abs(a - b) for a, b in zip(losses, ref_losses))
-    diff2 = upd2 = 0.0
-    worst = (0.0, "")
-    for name, got, (w32, _), w0 in zip(params, masters, ref_state, init):
-        d = (got - w32).norm().item()
-        u = (w32 - w0).norm().item()
-        diff2, upd2 = diff2 + d * d, upd2 + u * u
-        if u > 0 and d / u > worst[0]:
-            worst = (d / u, name)
-    upd_err = (diff2 / upd2) ** 0.5
+    upd_err, worst = _update_diff(masters, [w for w, _ in ref_state], init,
+                                  list(params))
     log(f"[train] reference run (dense attention, plain update): losses "
         f"{ref_losses}; max loss diff {loss_err:.3e} (limit "
         f"{TRAIN_LOSS_TOL}); master-weight update rel. L2 diff {upd_err:.3e} "
@@ -715,31 +920,12 @@ def phase_train(card):
                          "run")
     del ref, ref_params, ref_state, init
 
-    # breakdown: medians over the steps after the first
-    steady = range(1, TRAIN_STEPS)
-    wall_ms = float(np.median([walls[i] for i in steady]))
-    fwd_ms, bwd_ms, opt_ms = (float(np.median([parts[i][j] for i in steady]))
-                              for j in range(3))
-    kernel_ms, ours, top = profiled_step(lambda: _train_step(
-        model, loss_fn, tokens, labels, update))
-    if not all(ms > 0 for ms in ours.values()):
-        raise SystemExit(f"chip_smoke: the profiler found no device time for "
-                         f"a kernel of the step (symbols renamed?): {ours}")
     summary = {
         "card": card, "batch": [TRAIN_B, TRAIN_T], "steps": TRAIN_STEPS,
         "losses": losses, "ref_losses": ref_losses,
-        "step_wall_ms_median": wall_ms, "step_wall_ms": walls,
-        "step_event_ms_median": fwd_ms + bwd_ms + opt_ms,
-        "tokens_per_s": batch / (wall_ms / 1e3),
-        "forward_ms": fwd_ms, "backward_ms": bwd_ms, "optimizer_ms": opt_ms,
-        "profiled_kernel_ms": kernel_ms,
-        "device_busy_share": kernel_ms / wall_ms,
-        "top_kernels_ms": top,
-        "kernel_ms_in_step": ours,
-        "b2_share_of_forward": ours["flash_fwd"] / fwd_ms,
-        "b3_b4_share_of_backward":
-            (ours["flash_bwd_dq"] + ours["flash_bwd_dkv"]) / bwd_ms,
-        "b1_share_of_optimizer": ours["mp_sgd"] / opt_ms,
+        **_step_breakdown("train", walls, parts, step,
+                          ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+                           "mp_sgd")),
         "peak_memory_bytes": peak, "launches": totals,
         "loss_max_abs_diff_vs_ref": loss_err,
         "master_update_rel_l2_diff_vs_ref": upd_err,
@@ -748,13 +934,103 @@ def phase_train(card):
     return totals
 
 
-# each port kernel's symbols in the profiler (substrings): both designs of
-# the forward and of the backward passes count under one name
+def phase_train_fp32(card):
+    """BERT-base in fp32 (no loss scale, plain SGD with momentum) trained
+    through the Gluon entry points: every dQ and dK/dV launch on the fp32
+    tensor-core route; then two steps of a reference run (dense attention,
+    the same update) from the same weights, batch and dropout
+    generators."""
+    from mxnet_tpu_torch.gluon import Trainer, collect_params
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.ops.flash_attention import flash_attention_ref
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    sgd = {"learning_rate": TRAIN_LR, "momentum": TRAIN_MOMENTUM}
+
+    def build(attention=None):
+        model = _seeded_bert(torch.float32)
+        if attention is not None:
+            for layer in model.layers:
+                layer.attn.attention = attention
+        params = collect_params(model)
+        return model, params, Trainer(params, "sgd", dict(sgd))
+
+    t0 = time.perf_counter()
+    model, params, trainer = build()
+    layers, vocab = len(model.layers), model.head.weight.shape[0]
+    loss_fn = SoftmaxCrossEntropyLoss()
+    tokens, labels = _train_batch(vocab)
+    batch = TRAIN_B * TRAIN_T
+    init = [p.detach().clone() for p in params.values()]
+    log(f"[train32] BERTModel(): {len(params)} parameters "
+        f"({sum(p.numel() for p in params.values())} values), {layers} "
+        f"layers, float32; batch {TRAIN_B} x {TRAIN_T}; SGD lr {TRAIN_LR} "
+        f"momentum {TRAIN_MOMENTUM}; no loss scale; built in "
+        f"{time.perf_counter() - t0:.2f} s")
+
+    # the forward on the CUDA cores, every backward pass on the fp32
+    # tensor-core route after one split, and no mixed-precision update
+    want = dict.fromkeys(_train_counters(), 0)
+    want.update({"flash_fwd": layers, "flash_bwd_dq": layers,
+                 "flash_bwd_dkv": layers, "flash_bwd_dq_tc32": layers,
+                 "flash_bwd_dkv_tc32": layers, "split_bf16x3": layers})
+    after2, missing = [], []
+    update = _checked(lambda: trainer.step(batch), params, missing)
+
+    def step(events=None):
+        return _train_step(model, loss_fn, tokens, labels, update, events,
+                           scale=1.0)
+
+    def after(i):
+        if i == REF_STEPS - 1:
+            after2.extend(p.detach().clone() for p in params.values())
+
+    losses, walls, parts, totals, peak = _run_steps(
+        "train32", TRAIN32_STEPS, step, missing, want, after)
+
+    ref, ref_params, ref_trainer = build(flash_attention_ref)
+    ref_losses = [_train_step(ref, loss_fn, tokens, labels,
+                              lambda: ref_trainer.step(batch),
+                              scale=1.0).item() for _ in range(REF_STEPS)]
+    loss_err = max(abs(a - b) for a, b in zip(losses, ref_losses))
+    upd_err, worst = _update_diff(after2, [p.detach() for p in
+                                           ref_params.values()], init,
+                                  list(params))
+    log(f"[train32] reference run (dense attention, the same update): "
+        f"losses {ref_losses}; max loss diff {loss_err:.3e} (limit "
+        f"{TRAIN32_LOSS_TOL}); update rel. L2 diff {upd_err:.3e} (limit "
+        f"{TRAIN32_UPD_TOL}), worst parameter {worst[1]} {worst[0]:.3e} "
+        f"(limit {TRAIN32_UPD_TOL_EACH})")
+    if (loss_err > TRAIN32_LOSS_TOL or upd_err > TRAIN32_UPD_TOL
+            or worst[0] > TRAIN32_UPD_TOL_EACH):
+        raise SystemExit("chip_smoke: fp32 training disagrees with the "
+                         "reference run")
+    del ref, ref_params, ref_trainer, init, after2
+
+    summary = {
+        "card": card, "batch": [TRAIN_B, TRAIN_T], "steps": TRAIN32_STEPS,
+        "dtype": "float32", "losses": losses, "ref_losses": ref_losses,
+        **_step_breakdown("train32", walls, parts, step,
+                          ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+                           "split_bf16x3")),
+        "peak_memory_bytes": peak, "launches": totals,
+        "loss_max_abs_diff_vs_ref": loss_err,
+        "update_rel_l2_diff_vs_ref": upd_err,
+        "worst_parameter_rel_diff": list(worst)}
+    log("[train32] " + json.dumps(summary))
+    return totals
+
+
+# each port kernel's symbols in the profiler (substrings): every design of
+# the forward and of the backward passes counts under one name
 KERNEL_NAMES = {"flash_fwd": ("flash_fwd_kernel", "flash_fwd_tc_kernel"),
                 "flash_bwd_dq": ("flash_bwd_dq_kernel",
-                                 "flash_bwd_tc_dq_kernel"),
+                                 "flash_bwd_tc_dq_kernel",
+                                 "flash_bwd_tc32_dq_kernel"),
                 "flash_bwd_dkv": ("flash_bwd_dkv_kernel",
-                                  "flash_bwd_tc_dkv_kernel"),
+                                  "flash_bwd_tc_dkv_kernel",
+                                  "flash_bwd_tc32_dkv_kernel"),
+                "split_bf16x3": ("split_bf16x3_kernel",),
                 "mp_sgd": ("mp_sgd_mom_kernel",)}
 
 
@@ -816,9 +1092,11 @@ def main():
     phase_build()
     rows = phase_kernel_check(peaks)
     bwd_rows = phase_backward_check(peaks)
+    split_rows = phase_split_check(peaks)
     sgd_rows = phase_sgd_check(peaks)
     serve_launches = phase_slice(card)
-    train_launches = phase_train(card)
+    train = phase_train(card)
+    train32 = phase_train_fp32(card)
 
     def pick(table, **want):
         return next(r for r in table if "ms" in r
@@ -830,23 +1108,28 @@ def main():
                  dtype="float16", causal=False)
     bwd16 = pick(bwd_rows, dtype="float16", causal=False)
     bwd32 = pick(bwd_rows, dtype="float32", causal=False)
+    split = pick(split_rows, inputs="rung")
     sgd = pick(sgd_rows, n=max(SGD_SIZES))
 
-    def bwd_err(which, **want):
+    def bwd_err(which, key="max_abs_err", **want):
         grads = ("dq",) if which == "dq" else ("dk", "dv")
-        return max(r["max_abs_err"][g] for r in bwd_rows for g in grads
-                   if all(r[k] == v for k, v in want.items()))
+        return max(r[key][g] for r in bwd_rows for g in grads
+                   if key in r and all(r[k] == v for k, v in want.items()))
+
+    def launches(name):
+        return {"train_fp16": train[name], "train_fp32": train32[name]}
     common = {"card": card}
-    # the training path's design (tensor cores, fp16), with the fp32 design
-    # (CUDA cores, flash_fwd.cu; the serving path's) beside it
+    # the fp16 training path's design (tensor cores), with the fp32 design
+    # (CUDA cores, flash_fwd.cu; the serving and fp32 training paths') beside
     kernels = [{
         "name": "flash_fwd", "route": "cuda",
         "source": "mxnet_tpu_torch/csrc/flash_fwd_tc.cu",
         "replaces": "mxnet_tpu/ops/pallas_kernels.py:126",
-        "launches": serve_launches + train_launches["flash_fwd"],
+        "launches": serve_launches + train["flash_fwd"]
+        + train32["flash_fwd"],
         "launches_by_path": {"serve": serve_launches,
-                             "train": train_launches["flash_fwd"]},
-        "launches_tensor_core": train_launches["flash_fwd_tc"],
+                             **launches("flash_fwd")},
+        "launches_tensor_core": train["flash_fwd_tc"],
         "max_abs_err": max(r["max_abs_err"] for r in rows
                            if r["route"] == "tc"),
         "ms": fwd16["ms"], "cuda_core_ms": fwd16["cc_ms"],
@@ -856,23 +1139,28 @@ def main():
         "shape": fwd16["shape"], "dtype": "float16",
         "float32": {
             "source": "mxnet_tpu_torch/csrc/flash_fwd.cu",
+            "launches": serve_launches + train32["flash_fwd"],
             "max_abs_err": max(r["max_abs_err"] for r in rows
                                if r["dtype"] == "float32"),
             **{k: fwd32[k] for k in ("ms", "plain_ms", "bound_ms",
-                                     "bound_by", "library_ms")}},
+                                     "bound_by", "ffma_bound_ms",
+                                     "library_ms")}},
         **common}]
     for which, line in (("dq", "pallas_kernels.py:257"),
                         ("dkv", "pallas_kernels.py:277")):
-        # the training path's design (tensor cores, fp16), with the fp32
-        # design (CUDA cores, flash_bwd.cu) beside it
+        # the fp16 training path's design (tensor cores), with the fp32
+        # training path's (tensor cores on bf16 planes) beside it
         kernels.append({
             "name": f"flash_bwd_{which}", "route": "cuda",
             "source": "mxnet_tpu_torch/csrc/flash_bwd_tc.cu",
             "replaces": f"mxnet_tpu/ops/{line}",
-            "launches": train_launches[f"flash_bwd_{which}"],
-            "launches_tensor_core": train_launches[f"flash_bwd_{which}_tc"],
+            "launches": train[f"flash_bwd_{which}"]
+            + train32[f"flash_bwd_{which}"],
+            "launches_by_path": launches(f"flash_bwd_{which}"),
+            "launches_tensor_core": train[f"flash_bwd_{which}_tc"],
             "max_abs_err": bwd_err(which, route="tc"),
             "ms": bwd16[f"{which}_ms"],
+            "cuda_core_ms": bwd16[f"cc_{which}_ms"],
             "plain_ms": bwd16["plain_ms"],
             "bound_ms": bwd16[f"{which}_bound_ms"],
             "bound_by": bwd16[f"{which}_bound_by"],
@@ -880,18 +1168,40 @@ def main():
             "plain_and_library_cover": "flash_bwd_dq + flash_bwd_dkv",
             "shape": bwd16["shape"], "dtype": "float16",
             "float32": {
-                "source": "mxnet_tpu_torch/csrc/flash_bwd.cu",
-                "max_abs_err": bwd_err(which, dtype="float32"),
-                "ms": bwd32[f"{which}_ms"], "plain_ms": bwd32["plain_ms"],
+                "source": "mxnet_tpu_torch/csrc/flash_bwd_tc32.cu",
+                "route": "cuda",
+                "launches": train32[f"flash_bwd_{which}_tc32"],
+                "max_abs_err": bwd_err(which, route="tc32"),
+                "cuda_core_max_abs_err": bwd_err(which, "cc_max_abs_err",
+                                                 route="tc32"),
+                "ms": bwd32[f"{which}_ms"],
+                "cuda_core_ms": bwd32[f"cc_{which}_ms"],
+                "cuda_core_source": "mxnet_tpu_torch/csrc/flash_bwd.cu",
+                "plain_ms": bwd32["plain_ms"],
                 "bound_ms": bwd32[f"{which}_bound_ms"],
                 "bound_by": bwd32[f"{which}_bound_by"],
+                "ffma_bound_ms": bwd32[f"{which}_ffma_bound_ms"],
                 "library_ms": bwd32["library_ms"]},
             **common})
+    kernels.append({
+        "name": "split_bf16x3", "route": "cuda",
+        "source": "mxnet_tpu_torch/csrc/flash_bwd_tc32.cu",
+        "replaces": "mxnet_tpu/ops/pallas_kernels.py:243",
+        "part_of": "flash_bwd_dq and flash_bwd_dkv in float32",
+        "launches": train32["split_bf16x3"],
+        "max_abs_err": max(r["max_abs_err"] for r in split_rows),
+        "ms": split["ms"], "plain_ms": split["plain_ms"],
+        "bound_ms": split["bound_ms"], "bound_by": split["bound_by"],
+        "library_ms": None,
+        "library_none_because": "no single PyTorch call splits a tensor "
+                                "into bf16 planes",
+        "shape": [split["elements"]], "dtype": "float32 -> 3 x bfloat16",
+        **common})
     kernels.append({
         "name": "mp_sgd", "route": "cuda",
         "source": "mxnet_tpu_torch/csrc/mp_sgd.cu",
         "replaces": "mxnet_tpu/opt/kernels.py:95",
-        "launches": train_launches["mp_sgd"],
+        "launches": train["mp_sgd"],
         "max_abs_err": max(r["max_abs_err"] for r in sgd_rows),
         "ms": sgd["ms"], "plain_ms": sgd["plain_ms"],
         "bound_ms": sgd["bound_ms"], "bound_by": sgd["bound_by"],

@@ -1,8 +1,9 @@
 // What the tensor-core flash-attention kernels (flash_fwd_tc.cu,
-// flash_bwd_tc.cu) share: PTX wrappers for TMA, mbarriers and the
-// m64n64k16 wgmma (A and B from shared memory, or A from registers with B
-// transposed), 16-bit packing, the fp32 accumulator layout of a 64 x 64
-// tile, and on the host the 3-D tensor maps and argument checks. Tiles are
+// flash_bwd_tc.cu, flash_bwd_tc32.cu) share: PTX wrappers for TMA, mbarriers
+// and the m64n64k16 wgmma (A and B from shared memory, or A from registers
+// with B transposed), 16-bit packing, the fp32 accumulator layout of a
+// 64 x 64 tile and its stores, and on the host the 3-D tensor maps and
+// argument checks. Tiles are
 // 64 rows (q rows or keys) of DP = 64 or 128 16-bit columns, held in shared
 // memory in the 128-byte swizzle TMA writes, one 64-column half (8 KB)
 // after the other.
@@ -154,31 +155,31 @@ __device__ __forceinline__ void mma_ss<__nv_bfloat16>(float (&d)[32], uint64_t d
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
-// d += A . B, m64n64k16, A from registers (four 16-bit pairs), B MN-major
-// in shared memory (transpose flag set).
+// d (+)= A . B, m64n64k16, A from registers (four 16-bit pairs), B MN-major
+// in shared memory (transpose flag set). scale_d == 0 overwrites d.
 template <typename T>
 __device__ __forceinline__ void mma_rs(float (&d)[32], const uint32_t (&a)[4],
-                                       uint64_t db);
+                                       uint64_t db, int scale_d = 1);
 template <>
 __device__ __forceinline__ void mma_rs<__half>(float (&d)[32], const uint32_t (&a)[4],
-                                               uint64_t db) {
+                                               uint64_t db, int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 " MX_D32
       ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
       : MX_ACC32(d)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 template <>
 __device__ __forceinline__ void mma_rs<__nv_bfloat16>(float (&d)[32],
                                                       const uint32_t (&a)[4],
-                                                      uint64_t db) {
+                                                      uint64_t db, int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " MX_D32
       ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
       : MX_ACC32(d)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 
 // ------------------------------------------------------------- 16-bit values
@@ -222,6 +223,17 @@ __device__ __forceinline__ void to_a(const float (&d)[32], uint32_t (&a)[4][4]) 
 __device__ __forceinline__ int acc_row(int i) { return 8 * ((i >> 1) & 1); }
 __device__ __forceinline__ int acc_col(int i) { return 8 * (i >> 2) + (i & 1); }
 
+// Two adjacent elements of an output, rounded to its type T (fp16, bf16 or
+// fp32).
+template <typename T>
+__device__ __forceinline__ void store2(T* p, float lo, float hi) {
+  *reinterpret_cast<uint32_t*>(p) = pack2<T>(lo, hi);
+}
+template <>
+__device__ __forceinline__ void store2<float>(float* p, float lo, float hi) {
+  *reinterpret_cast<float2*>(p) = make_float2(lo, hi);
+}
+
 // Store rows [r0, r0 + 64) of a (nrows, D) output from a thread's
 // accumulators (DP/64 column halves), times mul, dropping rows >= nrows.
 template <typename T, int DP>
@@ -235,9 +247,16 @@ __device__ __forceinline__ void store_tile(T* out, const float (&acc)[DP / 64][3
       const int row = r0 + 16 * warp + (lane >> 2) + acc_row(i);
       const int col = h * 64 + acc_col(i) + 2 * (lane & 3);
       if (row < nrows && col < D)  // D % 8 == 0, so col + 1 < D too
-        *reinterpret_cast<uint32_t*>(out + (size_t)row * D + col) =
-            pack2<T>(acc[h][i] * mul, acc[h][i + 1] * mul);
+        store2<T>(out + (size_t)row * D + col, acc[h][i] * mul, acc[h][i + 1] * mul);
     }
+}
+
+// L = lse * log2(e) of a backward pass's row, +inf past the last row or where
+// lse is -inf (p = 0).
+__device__ __forceinline__ float row_L(const float* lse, int row, int T) {
+  if (row >= T) return INFINITY;
+  const float l = lse[row];
+  return l == -INFINITY ? INFINITY : l * LOG2E;
 }
 
 // ------------------------------------------------------------------ host side

@@ -2,13 +2,20 @@
 
 Counterpart of ``mxnet_tpu/ops/pallas_kernels.py``'s ``flash_attention``
 (a ``custom_vjp`` over ``_flash_fwd`` and ``_flash_bwd``). The kernels are
-hand-written for Hopper, two designs of the forward and of the backward's
-dQ pass and dK/dV pass, chosen per call by :func:`_fwd_route` and
-:func:`_bwd_route` with one rule: ``csrc/flash_fwd_tc.cu`` and
-``csrc/flash_bwd_tc.cu`` (tensor cores, wgmma and TMA) for fp16/bf16 with
-``D % 8 == 0`` and 16-byte-aligned pointers, ``csrc/flash_fwd.cu`` and
-``csrc/flash_bwd.cu`` (CUDA cores) for the rest (fp32, odd head dims). The
-source notes give the bounds and the designs. The wrappers take
+hand-written for Hopper, chosen per call by :func:`_fwd_route` and
+:func:`_bwd_route`:
+
+- the forward: ``csrc/flash_fwd_tc.cu`` (tensor cores, wgmma and TMA) for
+  fp16/bf16 with ``D % 8 == 0`` and 16-byte-aligned pointers,
+  ``csrc/flash_fwd.cu`` (CUDA cores) for the rest (fp32, odd head dims);
+- the backward's dQ pass and dK/dV pass: the same two designs
+  (``csrc/flash_bwd_tc.cu``, ``csrc/flash_bwd.cu``), and a third for fp32
+  with ``D % 8 == 0``, ``D <= 64`` and aligned pointers,
+  ``csrc/flash_bwd_tc32.cu``: the tensor cores on bf16 planes of the fp32
+  operands (:func:`split_bf16x3`), six plane products per product, which
+  keeps fp32's accuracy.
+
+The source notes give the bounds and the designs. The wrappers take
 ``(B, H, T, D)`` tensors:
 
 - on CUDA tensors they launch the kernels or raise; nothing falls back;
@@ -41,7 +48,9 @@ __all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_bwd",
            "flash_attention_ref", "flash_attention_ref_fwd",
            "flash_attention_ref_bwd", "LAUNCHES", "LAUNCHES_TC",
            "LAUNCHES_DQ", "LAUNCHES_DKV", "LAUNCHES_DQ_TC",
-           "LAUNCHES_DKV_TC", "MAX_HEAD_DIM"]
+           "LAUNCHES_DKV_TC", "LAUNCHES_DQ_TC32", "LAUNCHES_DKV_TC32",
+           "LAUNCHES_SPLIT", "split_bf16x3", "split_bf16x3_ref",
+           "MAX_HEAD_DIM"]
 
 MAX_HEAD_DIM = 128
 LAUNCHES = _build.LaunchCounter("flash_fwd")
@@ -52,6 +61,11 @@ LAUNCHES_DKV = _build.LaunchCounter("flash_bwd_dkv")
 LAUNCHES_TC = _build.LaunchCounter("flash_fwd_tc")
 LAUNCHES_DQ_TC = _build.LaunchCounter("flash_bwd_tc_dq")
 LAUNCHES_DKV_TC = _build.LaunchCounter("flash_bwd_tc_dkv")
+# the backward launches that took the fp32 tensor-core route (also counted in
+# LAUNCHES_DQ / LAUNCHES_DKV), and the launches of its split kernel
+LAUNCHES_DQ_TC32 = _build.LaunchCounter("flash_bwd_tc32_dq")
+LAUNCHES_DKV_TC32 = _build.LaunchCounter("flash_bwd_tc32_dkv")
+LAUNCHES_SPLIT = _build.LaunchCounter("split_bf16x3")
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
@@ -124,6 +138,25 @@ def flash_attention_ref_bwd(q, k, v, out, lse, dout, causal: bool = False,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def split_bf16x3_ref(*xs) -> torch.Tensor:
+    """Plain version of :func:`split_bf16x3`: the three bf16 planes of the
+    fp32 tensors ``xs``, one ``(3, N)`` tensor (``N`` their elements, back
+    to back in each plane): ``x0 = bf16(x)``, ``x1 = bf16(x - x0)``,
+    ``x2 = bf16(x - x0 - x1)``, each rounded to nearest even. Each plane
+    takes the next 8 significant bits, so ``x0 + x1 + x2 == x`` exactly
+    but for what lies below bf16's smallest subnormal (2^-133). Where
+    ``bf16(x)`` would overflow, ``x0`` is ``x`` truncated instead, so that
+    the planes stay finite."""
+    x = torch.cat([t.reshape(-1) for t in xs]).float()
+    x0 = x.to(torch.bfloat16)
+    trunc = (x.view(torch.int32) & -65536).view(torch.float32)
+    x0 = torch.where(torch.isinf(x0) & torch.isfinite(x),
+                     trunc.to(torch.bfloat16), x0)
+    r = x - x0.float()
+    x1 = r.to(torch.bfloat16)
+    return torch.stack([x0, x1, (r - x1.float()).to(torch.bfloat16)])
+
+
 def _check_launch(named, dtype) -> None:
     """What every kernel of this module refuses: another dtype, a
     non-contiguous operand, a CPU tensor or a second device."""
@@ -166,20 +199,75 @@ def _fn(lib, name: str, argtypes):
     return fn
 
 
+_SPLIT_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 4 \
+    + [ctypes.c_void_p] * 2
+
+
+def split_bf16x3(*xs) -> torch.Tensor:
+    """The three bf16 planes of up to four fp32 tensors, as
+    :func:`split_bf16x3_ref` computes them: the operands of the fp32
+    tensor-core backward (``csrc/flash_bwd_tc32.cu``). CUDA tensors
+    (contiguous, on one device, 16-byte aligned, each with a multiple of
+    4 elements) launch its split kernel once, bit-equal to the plain
+    version; CPU tensors take the plain version."""
+    if not 1 <= len(xs) <= 4:
+        raise MXNetError(f"split_bf16x3 takes 1 to 4 tensors, not {len(xs)}")
+    for x in xs:
+        if x.dtype != torch.float32 or not x.is_contiguous():
+            raise MXNetError("split_bf16x3 takes contiguous float32 tensors")
+    if _on_cpu(*xs):
+        return split_bf16x3_ref(*xs)
+    device = xs[0].device
+    for x in xs:
+        if not x.is_cuda or x.device != device or x.numel() % 4 \
+                or x.data_ptr() % 16:
+            raise MXNetError("split_bf16x3 takes CUDA tensors on one "
+                             "device, 16-byte aligned, each with a "
+                             "multiple of 4 elements")
+    planes = torch.empty((3, sum(x.numel() for x in xs)),
+                         dtype=torch.bfloat16, device=device)
+    lib = _build.load("flash_bwd_tc32")
+    fn = _fn(lib, "mx_split_bf16x3", _SPLIT_ARGS)
+    pad = 4 - len(xs)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(*(x.data_ptr() for x in xs), *([None] * pad),
+                 *(x.numel() for x in xs), *([0] * pad), planes.data_ptr(),
+                 stream)
+    _build.check(lib, err, "split_bf16x3 launch")
+    LAUNCHES_SPLIT.add()
+    return planes
+
+
 def _fwd_route(dtype, D: int, aligned: bool) -> str:
-    """Which design takes a launch of the forward or of a backward pass:
-    ``"tc"`` (``csrc/flash_fwd_tc.cu``, ``csrc/flash_bwd_tc.cu``: tensor
-    cores) for fp16/bf16 with ``D % 8 == 0`` (TMA needs 16-byte row
-    strides) and every pointer 16-byte aligned; ``"cc"``
-    (``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``: CUDA cores) for the
-    rest: fp32, which must hold 1e-4 and so cannot take 16-bit operands,
-    and odd head dims."""
+    """Which design takes a launch of the forward: ``"tc"``
+    (``csrc/flash_fwd_tc.cu``: tensor cores) for fp16/bf16 with
+    ``D % 8 == 0`` (TMA needs 16-byte row strides) and every pointer
+    16-byte aligned; ``"cc"`` (``csrc/flash_fwd.cu``: CUDA cores) for the
+    rest: odd head dims, and fp32, which must hold 1e-4. One-pass TF32 or
+    16-bit operands cannot; products split into bf16 planes can, as the
+    fp32 backward shows (:func:`_bwd_route`), and are the forward's next
+    design."""
     if dtype in (torch.float16, torch.bfloat16) and D % 8 == 0 and aligned:
         return "tc"
     return "cc"
 
 
-_bwd_route = _fwd_route  # one rule for the forward and the backward
+def _bwd_route(dtype, D: int, aligned: bool) -> str:
+    """Which design takes a launch of a backward pass: ``"tc"``
+    (``csrc/flash_bwd_tc.cu``) for fp16/bf16 and ``"tc32"``
+    (``csrc/flash_bwd_tc32.cu``: bf16 planes of the fp32 operands, six
+    plane products per product, fp32-grade) for fp32 with ``D <= 64``,
+    both with ``D % 8 == 0`` and every pointer 16-byte aligned; ``"cc"``
+    (``csrc/flash_bwd.cu``: CUDA cores) for the rest: odd head dims, and
+    fp32 with ``D > 64``, whose planes would not fit a double-buffered
+    ring in shared memory."""
+    if D % 8 == 0 and aligned:
+        if dtype in (torch.float16, torch.bfloat16):
+            return "tc"
+        if dtype == torch.float32 and D <= 64:
+            return "tc32"
+    return "cc"
 
 # q, k, v, out, lse; B*H, Tq, Tk, D; scale; causal, dtype (then the
 # CUDA-core kernel's vec); stream
@@ -231,45 +319,73 @@ _BWD_TAIL = ([ctypes.c_int] * 4 + [ctypes.c_float] + [ctypes.c_int] * 3
              + [ctypes.c_void_p])
 _TC_ARGS = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_float]
             + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+# planes of q, k, v, dout; plane stride; lse, delta, grads; B*H, Tq, Tk, D;
+# scale; causal; stream
+_TC32_HEAD = [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_void_p,
+                                      ctypes.c_void_p]
+_TC32_TAIL = ([ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int,
+                                    ctypes.c_void_p])
+
+
+def _ptrs(tensors):
+    return [t.data_ptr() for t in tensors]
 
 
 def _bwd_pass(which, route, q, k, v, out, dout, lse, delta, grads, causal,
-              scale):
+              scale, planes=None):
     """One launch of the dQ pass (``grads = (dq,)``) or the dK/dV pass
     (``grads = (dk, dv)``) of ``route``'s kernels on checked, contiguous
     CUDA tensors. ``delta`` (fp32, ``(B, H, Tq)``) is read, except by the
     tensor-core dQ pass, which computes it from ``out`` and ``dout`` and
-    writes it."""
+    writes it. The ``"tc32"`` route reads ``planes``, the
+    :func:`split_bf16x3` of ``(q, k, v, dout)``."""
     B, H, Tq, D = q.shape
-    scalars = (B * H, Tq, k.shape[2], D, float(scale), int(bool(causal)),
-               _DTYPES[q.dtype])
+    scalars = [B * H, Tq, k.shape[2], D, float(scale), int(bool(causal))]
     if route == "tc":
         lib = _build.load("flash_bwd_tc")
         fn = _fn(lib, f"mx_flash_bwd_tc_{which}", _TC_ARGS)
-        ptrs = ((q, k, v, out, dout, lse, delta) if which == "dq"
-                else (q, k, v, dout, lse, delta)) + tuple(grads)
-        tail = ()
+        args = _ptrs(((q, k, v, out, dout, lse, delta) if which == "dq"
+                     else (q, k, v, dout, lse, delta)) + tuple(grads)) \
+            + scalars + [_DTYPES[q.dtype]]
+    elif route == "tc32":
+        nq, nk = q.numel(), k.numel()
+        if planes is None or planes.dtype != torch.bfloat16 \
+                or not planes.is_contiguous() \
+                or tuple(planes.shape) != (3, 2 * nq + 2 * nk):
+            raise MXNetError(f"flash_bwd_{which} (tc32) takes the "
+                             "split_bf16x3 planes of q, k, v, dout")
+        lib = _build.load("flash_bwd_tc32")
+        fn = _fn(lib, f"mx_flash_bwd_tc32_{which}",
+                 _TC32_HEAD + [ctypes.c_void_p] * len(grads) + _TC32_TAIL)
+        at = planes.data_ptr()  # plane 0 of q, k, v, dout, 2 bytes each
+        args = [at, at + 2 * nq, at + 2 * (nq + nk), at + 2 * (nq + 2 * nk),
+                planes.shape[1]] + _ptrs((lse, delta) + tuple(grads)) \
+            + scalars
     else:
         lib = _build.load("flash_bwd")
         fn = _fn(lib, f"mx_flash_bwd_{which}",
                  _BWD_IN + [ctypes.c_void_p] * len(grads) + _BWD_TAIL)
-        ptrs = (q, k, v, dout, lse, delta) + tuple(grads)
-        tail = (_vec(D, (q, k, v, dout) + tuple(grads)),)
+        args = _ptrs((q, k, v, dout, lse, delta) + tuple(grads)) + scalars \
+            + [_DTYPES[q.dtype], _vec(D, (q, k, v, dout) + tuple(grads))]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(*(t.data_ptr() for t in ptrs), *scalars, *tail, stream)
+        err = fn(*args, stream)
     _build.check(lib, err, f"flash_bwd_{which} ({route}) launch")
     (LAUNCHES_DQ if which == "dq" else LAUNCHES_DKV).add()
     if route == "tc":
         (LAUNCHES_DQ_TC if which == "dq" else LAUNCHES_DKV_TC).add()
+    elif route == "tc32":
+        (LAUNCHES_DQ_TC32 if which == "dq" else LAUNCHES_DKV_TC32).add()
 
 
 def _launch_bwd(q, k, v, out, lse, dout, causal: bool, scale: float):
     """``(dq, dk, dv)`` from the two passes of the route
-    :func:`_bwd_route` picks. On the CUDA-core route ``delta =
-    rowsum(dO * O)`` is one fp32 torch reduction before them, as JAX
-    computes it in XLA outside its kernels; on the tensor-core route the
-    dQ pass computes it for its rows and the dK/dV pass reads it."""
+    :func:`_bwd_route` picks. On the CUDA-core and fp32 tensor-core routes
+    ``delta = rowsum(dO * O)`` is one fp32 torch reduction before them, as
+    JAX computes it in XLA outside its kernels; on the 16-bit tensor-core
+    route the dQ pass computes it for its rows and the dK/dV pass reads
+    it. The fp32 tensor-core route splits q, k, v and dO into bf16 planes
+    first (one launch of :func:`split_bf16x3`), read by both passes."""
     B, H, Tq, D = q.shape
     dt = q.dtype
     _check_launch([("q", q, dt), ("k", k, dt), ("v", v, dt), ("out", out, dt),
@@ -282,15 +398,18 @@ def _launch_bwd(q, k, v, out, lse, dout, causal: bool, scale: float):
                          f"do not match q {tuple(q.shape)}")
     route = _bwd_route(dt, D, all(t.data_ptr() % 16 == 0
                                   for t in (q, k, v, out, dout)))
+    planes = None
     if route == "tc":
         delta = torch.empty((B, H, Tq), device=q.device, dtype=torch.float32)
     else:
         delta = torch.sum(dout.float() * out.float(), dim=-1)
+        if route == "tc32":
+            planes = split_bf16x3(q, k, v, dout)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     _bwd_pass("dq", route, q, k, v, out, dout, lse, delta, (dq,), causal,
-              scale)
+              scale, planes)
     _bwd_pass("dkv", route, q, k, v, out, dout, lse, delta, (dk, dv), causal,
-              scale)
+              scale, planes)
     return dq, dk, dv
 
 

@@ -14,9 +14,12 @@ route, the rounding of p as an operand (forward: bf16 <= 2e-2, fp16 <=
 5e-3, chip_smoke's FWD_TOL; backward: |err| <= atol + rtol*|ref| with rtol four half-ulps of the type,
 fp16 2e-3 and bf16 1.6e-2, and atol 1e-3 / 1e-2 for sums that cancel; the
 same limits hold the tensor-core route, which also rounds p and dS to the
-input type as operands).
+input type as operands). The fp32 backward with D % 8 == 0 and D <= 64
+runs on the tensor cores over bf16 planes of its operands and holds the
+same 1e-4.
 The mixed-precision SGD kernel rounds each operation as its plain version
-does, so the two agree bit for bit.
+does, and the fp32 backward's split kernel rounds as its plain version
+does, so each agrees with it bit for bit.
 """
 import numpy as np
 import pytest
@@ -137,30 +140,80 @@ def _bwd_close(got, want, dtype):
                                    (2, 2, 300, 100, 40),
                                    (1, 1, 1, 7, 33),
                                    (2, 3, 160, 160, 96),
-                                   (1, 2, 256, 256, 128)])
+                                   (1, 2, 256, 256, 128),
+                                   (1, 2, 100, 260, 16),
+                                   (3, 2, 77, 77, 64)])
 def test_backward_kernels_match_plain_version(shape, causal, dtype):
-    """Both routes: fp16/bf16 with D % 8 == 0 on the tensor-core kernels,
-    fp32 and D = 33 on the CUDA-core ones."""
+    """The three routes: fp16/bf16 with D % 8 == 0 on the tensor-core
+    kernels, fp32 with D % 8 == 0 and D <= 64 on the fp32 tensor-core
+    kernels (one split launch first; Tq != Tk and ragged T among them),
+    fp32 with D > 64 and D = 33 on the CUDA-core ones."""
     _need_cuda()
     from mxnet_tpu_torch.ops.flash_attention import (
-        LAUNCHES_DKV, LAUNCHES_DKV_TC, LAUNCHES_DQ, LAUNCHES_DQ_TC,
-        flash_attention_bwd, flash_attention_fwd, flash_attention_ref_bwd)
+        LAUNCHES_DKV, LAUNCHES_DKV_TC, LAUNCHES_DKV_TC32, LAUNCHES_DQ,
+        LAUNCHES_DQ_TC, LAUNCHES_DQ_TC32, LAUNCHES_SPLIT, flash_attention_bwd,
+        flash_attention_fwd, flash_attention_ref_bwd)
     q, k, v = _qkv(1, *shape, dtype)
     g = torch.Generator().manual_seed(2)
     dout = torch.randn(q.shape, generator=g).cuda().to(dtype)
     out, lse = flash_attention_fwd(q, k, v, causal)
-    counters = (LAUNCHES_DQ, LAUNCHES_DKV, LAUNCHES_DQ_TC, LAUNCHES_DKV_TC)
+    counters = (LAUNCHES_DQ, LAUNCHES_DKV, LAUNCHES_DQ_TC, LAUNCHES_DKV_TC,
+                LAUNCHES_DQ_TC32, LAUNCHES_DKV_TC32, LAUNCHES_SPLIT)
     before = [c.count for c in counters]
     grads = flash_attention_bwd(q, k, v, out, lse, dout, causal)
     torch.cuda.synchronize()
-    tc = int(dtype != torch.float32 and shape[-1] % 8 == 0)
-    assert [c.count - b for c, b in zip(counters, before)] == [1, 1, tc, tc]
+    D = shape[-1]
+    tc = int(dtype != torch.float32 and D % 8 == 0)
+    tc32 = int(dtype == torch.float32 and D % 8 == 0 and D <= 64)
+    assert [c.count - b for c, b in zip(counters, before)] == \
+        [1, 1, tc, tc, tc32, tc32, tc32]
     want = flash_attention_ref_bwd(q.float(), k.float(), v.float(),
                                    out.float(), lse, dout.float(), causal)
     for got, ref in zip(grads, want):
         assert got.dtype == dtype and got.shape == ref.shape
         assert bool(torch.isfinite(got).all())
         _bwd_close(got, ref, dtype)
+
+
+@pytest.mark.parametrize("n", [4, 4096, 1_000_004])
+def test_split_kernel_is_bit_equal_to_plain_version(n):
+    """The fp32 backward's split into bf16 planes, on normal values, values
+    across the whole range and its edges (+-0, subnormals, the largest
+    finite values), one to four tensors per launch."""
+    _need_cuda()
+    from mxnet_tpu_torch.ops.flash_attention import (LAUNCHES_SPLIT,
+                                                     split_bf16x3,
+                                                     split_bf16x3_ref)
+    g = torch.Generator().manual_seed(n)
+    edges = torch.tensor([0.0, -0.0, 2.0 ** -149, -(2.0 ** -140),
+                          2.0 ** -126, 2.0 ** -110, 3.3961e38,
+                          -3.4028235e38])
+    wide = torch.randn(n, generator=g) * torch.exp2(
+        torch.randint(-140, 127, (n,), generator=g).float())
+    for xs in ([torch.randn(n, generator=g)],
+               [wide, edges, torch.randn(3, n, generator=g),
+                torch.randn(4, generator=g)]):
+        xs = [x.cuda() for x in xs]
+        before = LAUNCHES_SPLIT.count
+        got = split_bf16x3(*xs)
+        torch.cuda.synchronize()
+        assert LAUNCHES_SPLIT.count == before + 1
+        want = split_bf16x3_ref(*xs)
+        assert got.shape == want.shape == (3, sum(x.numel() for x in xs))
+        assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+
+
+def test_split_kernel_refuses_what_it_does_not_take():
+    _need_cuda()
+    from mxnet_tpu_torch import MXNetError
+    from mxnet_tpu_torch.ops.flash_attention import (LAUNCHES_SPLIT,
+                                                     split_bf16x3)
+    x = torch.zeros(16, device="cuda")
+    before = LAUNCHES_SPLIT.count
+    for args in [(x[:6],), (x[1:5],), (x, x.cpu()), (x.half(),)]:
+        with pytest.raises(MXNetError):
+            split_bf16x3(*args)
+    assert LAUNCHES_SPLIT.count == before
 
 
 def test_backward_takes_a_non_contiguous_output_gradient():
@@ -343,3 +396,62 @@ def test_trainer_steps_small_fp16_bert_through_the_kernels():
     for i, (w32, _) in enumerate(ref_state):
         got = trainer._updaters[0].states[i][0]
         torch.testing.assert_close(got, w32, rtol=1e-2, atol=1e-3)
+
+
+def test_trainer_steps_small_fp32_bert_through_the_kernels():
+    """record -> backward -> Trainer.step with plain SGD on an fp32 model:
+    launches per step are L forward (CUDA cores), L dQ and L dK/dV (all on
+    the fp32 tensor-core route, after L splits) and no mixed-precision
+    update; two steps agree with dense attention and the same update to
+    fp32's precision."""
+    _need_cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from mxnet_tpu_torch import autograd
+    from mxnet_tpu_torch.gluon import Trainer, collect_params
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.models import BERTModel
+    from mxnet_tpu_torch.ops.flash_attention import (
+        LAUNCHES, LAUNCHES_DKV, LAUNCHES_DKV_TC, LAUNCHES_DKV_TC32,
+        LAUNCHES_DQ, LAUNCHES_DQ_TC, LAUNCHES_DQ_TC32, LAUNCHES_SPLIT,
+        LAUNCHES_TC, flash_attention, flash_attention_ref)
+    from mxnet_tpu_torch.opt import kernels
+    V, L = 100, 2
+
+    def build(attention):
+        torch.manual_seed(0)
+        m = BERTModel(vocab_size=V, units=64, num_layers=L, num_heads=4,
+                      hidden_size=128, max_len=64, dropout=0.0,
+                      device="cuda")
+        for layer in m.layers:
+            layer.attn.attention = attention
+        params = collect_params(m)
+        return m, params, Trainer(params, "sgd", {"learning_rate": 0.1,
+                                                  "momentum": 0.9})
+
+    rng = np.random.RandomState(0)
+    tok = torch.from_numpy(rng.randint(0, V, (2, 48))).cuda()
+    lab = torch.from_numpy(rng.randint(0, V, (2, 48))).cuda()
+    loss_fn = SoftmaxCrossEntropyLoss()
+    runs = [build(flash_attention), build(flash_attention_ref)]
+    counters = (LAUNCHES, LAUNCHES_TC, LAUNCHES_DQ, LAUNCHES_DKV,
+                LAUNCHES_DQ_TC, LAUNCHES_DKV_TC, LAUNCHES_DQ_TC32,
+                LAUNCHES_DKV_TC32, LAUNCHES_SPLIT, kernels.LAUNCHES)
+    for _ in range(2):
+        losses = []
+        for model, params, trainer in runs:
+            for c in counters:
+                c.reset()
+            with autograd.record():
+                loss = loss_fn(model(tok).reshape(-1, V), lab.reshape(-1))
+            autograd.backward(loss)
+            assert all(p.grad is not None for p in params.values())
+            trainer.step(tok.numel())
+            losses.append(loss.mean().item())
+            if model is runs[0][0]:
+                # fp32, head dim 16: the backward on the fp32 tensor-core
+                # route, the forward on the CUDA cores
+                assert [c.count for c in counters] == [L, 0, L, L, 0, 0, L,
+                                                       L, L, 0]
+        assert abs(losses[0] - losses[1]) <= 1e-5
+    for a, b in zip(runs[0][1].values(), runs[1][1].values()):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)

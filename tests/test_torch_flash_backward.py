@@ -210,10 +210,15 @@ def test_rounded_operands_hold_the_card_tolerance(case, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float16,
                                    torch.bfloat16])
 def test_backward_route(dtype, D, aligned):
-    """Tensor cores for 16-bit types with D % 8 == 0 and aligned pointers;
+    """Tensor cores for 16-bit types with D % 8 == 0 and aligned pointers,
+    and for fp32 too up to D = 64 (on bf16 planes, csrc/flash_bwd_tc32.cu);
     the CUDA-core kernels for everything else."""
-    want = ("tc" if dtype != torch.float32 and D % 8 == 0 and aligned
-            else "cc")
+    if D % 8 or not aligned:
+        want = "cc"
+    elif dtype != torch.float32:
+        want = "tc"
+    else:
+        want = "tc32" if D <= 64 else "cc"
     assert _bwd_route(dtype, D, aligned) == want
 
 
