@@ -10,25 +10,30 @@ end, failing on the first phase that fails:
    CUDA versions; no CUDA device is a failure;
 2. build — every kernel under ``mxnet_tpu_torch/csrc/`` with ``nvcc``;
 3. kernel check — the flash-attention forward against its plain version
-   on the card on both routes (fp16/bf16 on the tensor-core kernel, fp32
-   and odd head dims on the CUDA-core one), at the serving and training
-   paths' shapes and edge cases, timed beside the CUDA-core kernel on the
-   same 16-bit inputs, its plain version, ``scaled_dot_product_attention``
-   (a yardstick only) and its bound;
+   on the card on its three routes (fp16/bf16 on the tensor-core kernel,
+   fp32 with D <= 64 on the fp32 tensor-core kernel over bf16 planes, odd
+   head dims and fp32 with D > 64 on the CUDA-core one), at the serving and
+   training paths' shapes and edge cases, timed beside the CUDA-core
+   kernel on the same inputs, its plain version,
+   ``scaled_dot_product_attention`` (a yardstick only) and its bound;
 4. backward check — the dQ and dK/dV passes against the plain backward
-   on their three routes (fp16/bf16 on the tensor-core kernels, fp32 with
-   D <= 64 on the fp32 tensor-core kernels over bf16 planes, odd head dims
-   and fp32 with D > 64 on the CUDA-core ones), timed beside the CUDA-core
-   kernels on the same inputs, the plain backward, the backward of
-   ``scaled_dot_product_attention`` and their bounds; and the fp32 route's
-   split kernel against its plain version, bit for bit;
+   on their three routes (the same split of dtypes and head dims), timed
+   beside the CUDA-core kernels on the same inputs, the plain backward,
+   the backward of ``scaled_dot_product_attention`` and their bounds (fp32
+   also at D = 96 and 128, where the CUDA-core passes are the only route);
+   and the fp32 routes' split kernel against its plain version, bit for
+   bit;
+   then the inputs of two repaired faults: q, k, v in the strided layout a
+   (B, T, H, D) projection gives, through the forward and backward, bit
+   for bit against contiguous copies; and a model whose head dim (256) no
+   kernel takes, which picks dense attention by shape and launches none;
 5. optimizer check — the mixed-precision SGD kernel against its plain
    version at the sizes of BERT-base's parameters, bit for bit;
 6. serving slice — BERT-base (full width, fp32, random weights from a
    seed) served by ``ServingEngine``: warmup over the ladder, closed-loop
    load, zero new signatures after warmup, 12 forward launches per
-   dispatch, and one request's logits against the same model with dense
-   attention;
+   dispatch (all on the fp32 tensor-core route, after 12 splits), and one
+   request's logits against the same model with dense attention;
 7. training slice — BERT-base (full width and depth, fp16 weights,
    dropout 0.1) trained through ``autograd.record`` -> ``backward`` ->
    ``Trainer.step`` with multi-precision SGD and a static loss scale:
@@ -39,9 +44,10 @@ end, failing on the first phase that fails:
    and a per-step breakdown;
 8. fp32 training slice — the same model in fp32 (the dtype ``BERTModel``
    takes by default), plain SGD with momentum and no loss scale: 12/12/12
-   launches per step, every dQ and dK/dV launch on the fp32 tensor-core
-   route (12 split launches) and no mixed-precision update, then two steps
-   against a reference run with dense attention, and the same breakdown.
+   launches per step, every forward, dQ and dK/dV launch on the fp32
+   tensor-core route (24 split launches: one per forward, one per
+   backward) and no mixed-precision update, then two steps against a
+   reference run with dense attention, and the same breakdown.
 
 The last three lines are the card (``nvidia-smi``), ``{"kernels": [...]}``
 and ``{"ok": true, "device": {...}}``.
@@ -61,7 +67,8 @@ import torch
 SEED = 0
 FP32_TOL = 1e-4   # max abs, unit-scale inputs: only the summation order differs
 # forward kernels vs the fp32 plain forward on the same rounded inputs, max
-# abs: fp32 (CUDA cores) summation order only. fp16/bf16: the output's own
+# abs: fp32 summation order only (the bf16x6 products drop terms below
+# 2^-26 of each product). fp16/bf16: the output's own
 # rounding, u*|out| <= u*max|v| (u = 2^-11 fp16, 2^-8 bf16; out is a convex
 # combination of v's rows), and on the tensor-core route the rounding of p
 # to the input type as the A operand of O += P.V: at most
@@ -118,8 +125,9 @@ HEADS, HEAD_DIM = 12, 64
 # name. "float32_tc" is the fastest fp32-grade product the card offers: the
 # bf16 tensor cores on three bf16 planes of each fp32 operand, six plane
 # products per product (csrc/flash_bwd_tc32.cu), i.e. the 16-bit peak / 6,
-# 2.5x the FFMA peak. An fp32 bound is of the work, not of the design, so it
-# takes the larger of the two rates (ffma_bound_ms keeps the FFMA one).
+# 2.5x the FFMA peak (csrc/flash_fwd_tc32.cu computes the same way). An fp32
+# bound is of the work, not of the design, so it takes the larger of the two
+# rates (ffma_bound_ms keeps the FFMA one).
 PEAKS = (
     ("H100 PCIe", {"float32": 51.2e12, "bfloat16": 756e12, "float16": 756e12,
                    "float32_tc": 756e12 / 6, "bytes": 2.0e12}),
@@ -210,6 +218,10 @@ def phase_build():
     lib.mx_flash_bwd_tc32_smem_bytes.restype = ctypes.c_longlong
     log(f"[build] flash_bwd_tc32: each pass asks for "
         f"{lib.mx_flash_bwd_tc32_smem_bytes()} B of dynamic shared memory")
+    lib = _build.load("flash_fwd_tc32")
+    lib.mx_flash_fwd_tc32_smem_bytes.restype = ctypes.c_longlong
+    log(f"[build] flash_fwd_tc32: the kernel asks for "
+        f"{lib.mx_flash_fwd_tc32_smem_bytes()} B of dynamic shared memory")
     log(f"[build] all kernels built in {time.perf_counter() - t0:.2f} s")
 
 
@@ -228,19 +240,42 @@ def attention_bound(B, H, Tq, Tk, D, causal, dtype, peaks, ffma=False):
                                        else "bytes")
 
 
+def fwd_tc32_one_wg(q, k, v, out, lse, causal, scale, planes):
+    """The fp32 tensor-core forward with one consumer warpgroup per block
+    (``mx_flash_fwd_tc32_one_wg``, ``csrc/flash_fwd_tc32.cu``): no route of
+    the port takes it; it is timed beside the route's two warpgroups to
+    measure what the second one buys."""
+    from mxnet_tpu_torch import _build
+    from mxnet_tpu_torch.ops.flash_attention import _FWD_TC32_ARGS, _fn
+    lib = _build.load("flash_fwd_tc32")
+    fn = _fn(lib, "mx_flash_fwd_tc32_one_wg", _FWD_TC32_ARGS)
+    B, H, Tq, D = q.shape
+    nq, nk, at = q.numel(), k.numel(), planes.data_ptr()
+    stream = torch.cuda.current_stream().cuda_stream
+    err = fn(at, at + 2 * nq, at + 2 * (nq + nk), planes.shape[1],
+             out.data_ptr(), lse.data_ptr(), B * H, Tq, k.shape[2], D,
+             float(scale), int(causal), stream)
+    _build.check(lib, err, "flash_fwd_tc32_one_wg launch")
+
+
 def phase_kernel_check(peaks):
     """B2 against its plain version, launched once per case on the route
-    ``_fwd_route`` picks: fp32 (CUDA cores) at the serving path's rungs and
+    ``_fwd_route`` picks: fp32 (tensor cores on bf16 planes, after one
+    split launch; D = 96 on the CUDA cores) at the serving path's rungs and
     the edge cases (ragged T, D = 96, Tq != Tk); bf16 (tensor cores) at
     the same timed shapes; fp16 (tensor cores) at the training rung and the
     edge cases; fp16 with D = 36 (CUDA cores). Timed cases are timed beside
-    the plain version, SDPA and the bound, and the 16-bit ones also on the
-    CUDA-core kernel on the same inputs. Every case is run and logged
-    before a disagreement fails the phase."""
+    the plain version, SDPA and the bound, and the tensor-core ones also on
+    the CUDA-core kernel on the same inputs. Every fp32 case on the tensor
+    cores also runs the CUDA-core kernel on the same inputs and logs its
+    error beside its own: in a timed case the route's error must stay
+    within 4x of it (``err_over_cc``). Every case is run and logged before
+    a disagreement fails the phase."""
     import torch.nn.functional as F
     from mxnet_tpu_torch.ops.flash_attention import (
-        LAUNCHES, LAUNCHES_TC, _fwd_pass, _fwd_route, flash_attention_fwd,
-        flash_attention_ref_fwd)
+        LAUNCHES, LAUNCHES_SPLIT, LAUNCHES_TC, LAUNCHES_TC32, _fwd_pass,
+        _fwd_route, flash_attention_fwd, flash_attention_ref_fwd,
+        split_bf16x3)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     # (B, H, Tq, Tk, D): the serving path's rungs at the top batch, the
     # edge cases (ragged T, head_dim 96, Tq != Tk), then every other
@@ -257,6 +292,7 @@ def phase_kernel_check(peaks):
               for b in (1, 2, 4) for t in (128, 256, 512)]
     cases += [((8, HEADS, 256, 256, 36), torch.float16, c)
               for c in (False, True)]
+    counters = (LAUNCHES, LAUNCHES_TC, LAUNCHES_TC32, LAUNCHES_SPLIT)
     rows, bad = [], []
     for shape, dtype, causal in cases:
         B, H, Tq, Tk, D = shape
@@ -264,34 +300,57 @@ def phase_kernel_check(peaks):
                                generator=gen).to(dtype)
                    for T in (Tq, Tk, Tk))
         route = _fwd_route(dtype, D, True)  # torch's allocations are aligned
-        before = (LAUNCHES.count, LAUNCHES_TC.count)
+        before = [c.count for c in counters]
         out, lse = flash_attention_fwd(q, k, v, causal)
         torch.cuda.synchronize()
-        launches = LAUNCHES.count - before[0]
-        launches_tc = LAUNCHES_TC.count - before[1]
+        launches = [c.count - b for c, b in zip(counters, before)]
         ref, ref_lse = flash_attention_ref_fwd(
             q.float(), k.float(), v.float(), causal)
         err = (out.float() - ref).abs().max().item()
         lse_err = (lse - ref_lse).abs().max().item()
         name = str(dtype).replace("torch.", "")
         tol = FWD_TOL[name]
-        ok = (err <= tol and lse_err <= FP32_TOL and launches == 1
-              and launches_tc == int(route == "tc")
+        ok = (err <= tol and lse_err <= FP32_TOL
+              and launches == [1, int(route == "tc")]
+              + [int(route == "tc32")] * 2
               and bool(torch.isfinite(out).all()))
         row = {"shape": list(shape), "dtype": name, "causal": causal,
-               "route": route, "launches": launches,
-               "launches_tc": launches_tc, "max_abs_err": err,
+               "route": route, "launches": launches[0],
+               "launches_tc": launches[1], "launches_tc32": launches[2],
+               "launches_split": launches[3], "max_abs_err": err,
                "lse_max_abs_err": lse_err, "tol": tol}
+        s = 1 / D ** 0.5
+        o2, l2 = torch.empty_like(out), torch.empty_like(lse)
+        if route == "tc32":  # the CUDA-core kernel's error on the same inputs
+            _fwd_pass("cc", q, k, v, o2, l2, causal, s)
+            row["cc_max_abs_err"] = (o2 - ref).abs().max().item()
+            row["cc_lse_max_abs_err"] = (l2 - ref_lse).abs().max().item()
+            row["err_over_cc"] = max(
+                err / max(row["cc_max_abs_err"], 1e-30),
+                lse_err / max(row["cc_lse_max_abs_err"], 1e-30))
         if shape in timed:
             bound_ms, bound_by = attention_bound(
                 B, H, Tq, Tk, D, causal, dtype, peaks)
             if dtype == torch.float32:
                 row["ffma_bound_ms"] = attention_bound(
                     B, H, Tq, Tk, D, causal, dtype, peaks, ffma=True)[0]
-            if route == "tc":  # the CUDA-core kernel on the same inputs
-                o2, l2 = torch.empty_like(out), torch.empty_like(lse)
+            if route != "cc":  # the CUDA-core kernel on the same inputs
                 row["cc_ms"] = cuda_ms(lambda: _fwd_pass(
-                    "cc", q, k, v, o2, l2, causal, 1 / D ** 0.5))
+                    "cc", q, k, v, o2, l2, causal, s))
+            if route == "tc32":  # the split and the kernel alone
+                planes = split_bf16x3(q, k, v)
+                fwd_tc32_one_wg(q, k, v, o2, l2, causal, s, planes)
+                row["one_wg_max_abs_err"] = max(
+                    (o2 - ref).abs().max().item(),
+                    (l2 - ref_lse).abs().max().item())
+                row.update(
+                    split_ms=cuda_ms(lambda: split_bf16x3(q, k, v)),
+                    kernel_ms=cuda_ms(lambda: _fwd_pass(
+                        "tc32", q, k, v, o2, l2, causal, s, planes)),
+                    one_wg_ms=cuda_ms(lambda: fwd_tc32_one_wg(
+                        q, k, v, o2, l2, causal, s, planes)))
+                ok = (ok and row["err_over_cc"] <= 4
+                      and row["one_wg_max_abs_err"] <= FP32_TOL)
             row.update(
                 ms=cuda_ms(lambda: flash_attention_fwd(q, k, v, causal)),
                 plain_ms=cuda_ms(lambda: flash_attention_ref_fwd(
@@ -304,9 +363,15 @@ def phase_kernel_check(peaks):
         if not ok:
             bad.append(row)
         rows.append(row)
+    worst = max(r["err_over_cc"] for r in rows if "err_over_cc" in r)
+    log(f"[kernel] flash_fwd fp32: the tensor-core route's max abs error "
+        f"(out or lse) is at most {worst:.2f}x the CUDA-core route's on the "
+        f"same inputs")
     if bad:
         raise SystemExit(f"chip_smoke: flash forward disagrees with its "
-                         f"plain version in {len(bad)} cases: {bad}")
+                         f"plain version (or, timed on the fp32 tensor-core "
+                         f"route, errs over 4x the CUDA-core kernel) in "
+                         f"{len(bad)} cases: {bad}")
     return rows
 
 
@@ -343,11 +408,13 @@ def phase_backward_check(peaks):
     per case on the route ``_bwd_route`` picks: fp16/bf16 (tensor cores),
     fp32 with D <= 64 (tensor cores on bf16 planes, after one split
     launch) and fp32 with D = 96 (CUDA cores) at the training rung and the
-    edge cases (ragged T, D = 96, Tq != Tk), fp16/bf16 at D = 128, and one
-    fp16 case with D % 8 != 0 (CUDA cores). Every fp32 case on the tensor
-    cores also runs the CUDA-core passes on the same inputs and logs their
-    error beside its own. Timed at the training rung in every dtype, full
-    and causal, the tensor-core routes also on the CUDA-core kernels. Every
+    edge cases (ragged T, D = 96, Tq != Tk), fp16/bf16 at D = 128, fp32 at
+    the training rung's B, H and T with D = 96 and 128 (CUDA cores, the
+    only fp32 route there), and one fp16 case with D % 8 != 0 (CUDA cores).
+    Every fp32 case on the tensor cores also runs the CUDA-core passes on
+    the same inputs and logs their error beside its own. Timed at the
+    training rung in every dtype and at fp32's D = 96 and 128, full and
+    causal, the tensor-core routes also on the CUDA-core kernels. Every
     case is run and logged before a disagreement fails the phase."""
     import torch.nn.functional as F
     from mxnet_tpu_torch.ops.flash_attention import (
@@ -365,6 +432,8 @@ def phase_backward_check(peaks):
               for dt in every for c in (False, True)]
     cases += [((4, HEADS, 512, 512, 128), dt, c)
               for dt in (torch.float16, torch.bfloat16) for c in (False, True)]
+    wide = [(8, HEADS, 512, 512, d) for d in (96, 128)]
+    cases += [(s, torch.float32, c) for s in wide for c in (False, True)]
     cases += [((8, HEADS, 256, 256, 36), torch.float16, False)]
     counters = (LAUNCHES_DQ, LAUNCHES_DKV, LAUNCHES_DQ_TC, LAUNCHES_DKV_TC,
                 LAUNCHES_DQ_TC32, LAUNCHES_DKV_TC32, LAUNCHES_SPLIT)
@@ -415,7 +484,7 @@ def phase_backward_check(peaks):
             row["err_over_cc"] = max(
                 row["max_abs_err"][n] / max(row["cc_max_abs_err"][n], 1e-30)
                 for n in names)
-        if shape == rung:
+        if shape == rung or shape in wide:
             bounds = backward_bounds(B, H, Tq, Tk, D, causal, dtype, peaks)
             planes = split_bf16x3(q, k, v, dout) if route == "tc32" else None
 
@@ -428,10 +497,12 @@ def phase_backward_check(peaks):
                 row.update(cc_dq_ms=one("dq", "cc"),
                            cc_dkv_ms=one("dkv", "cc"))
             if route == "tc32":
+                row["split_ms"] = cuda_ms(lambda: split_bf16x3(q, k, v,
+                                                               dout))
+            if dtype == torch.float32:
                 ffma = backward_bounds(B, H, Tq, Tk, D, causal, dtype, peaks,
                                        ffma=True)
                 row.update(
-                    split_ms=cuda_ms(lambda: split_bf16x3(q, k, v, dout)),
                     ffma_bound_ms=ffma["both"][0],
                     dq_ffma_bound_ms=ffma["flash_bwd_dq"][0],
                     dkv_ffma_bound_ms=ffma["flash_bwd_dkv"][0])
@@ -504,6 +575,76 @@ def phase_split_check(peaks):
                              f"plain version: {row}")
         rows.append(row)
     return rows
+
+
+def phase_repaired_faults():
+    """The inputs of the two attention faults the port repaired, on the
+    card: (1) q, k, v in the strided layout a (B, T, H, D) projection gives
+    (fp32 and fp16), through ``flash_attention`` and its backward, bit for
+    bit against the same calls on contiguous copies and within
+    ``FWD_TOL`` / ``BWD_TOL`` of the plain versions; (2) a model whose head
+    dim (1024 units / 4 heads = 256) no kernel takes: it picks dense
+    attention by shape, as the reference does, launches no flash kernel,
+    and matches the same model with the dense oracle within 1e-4."""
+    from mxnet_tpu_torch.convert import params_from_mxnet_tpu
+    from mxnet_tpu_torch.models import TransformerLM
+    from mxnet_tpu_torch.ops.flash_attention import (
+        LAUNCHES, flash_attention, flash_attention_fwd, flash_attention_ref,
+        flash_attention_ref_bwd, flash_attention_ref_fwd)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    for dtype in (torch.float32, torch.float16):
+        q, k, v, dout = (torch.randn(2, 128, 4, HEAD_DIM, device="cuda",
+                                     generator=gen).to(dtype).transpose(1, 2)
+                         for _ in range(4))
+
+        def run(*ts):
+            ts = [t.detach().requires_grad_() for t in ts]
+            out = flash_attention(*ts)
+            return (out,) + torch.autograd.grad(out, ts, dout)
+
+        got = run(q, k, v)
+        equal = all(torch.equal(a, b) for a, b in zip(
+            got, run(*(t.contiguous() for t in (q, k, v)))))
+        out, lse = flash_attention_fwd(q, k, v)
+        f32 = [t.float() for t in (q, k, v)]
+        name = str(dtype).replace("torch.", "")
+        atol, rtol = BWD_TOL[name]
+        err = (got[0].float() - flash_attention_ref_fwd(*f32)[0]).abs().max()
+        share = max(((a.float() - b).abs() / (atol + rtol * b.abs())).max()
+                    .item() for a, b in zip(got[1:], flash_attention_ref_bwd(
+                        *f32, out.float(), lse, dout.float())))
+        row = {"layout": "(B, T, H, D) transposed", "shape": list(q.shape),
+               "strides": list(q.stride()), "dtype": name,
+               "bit_equal_to_contiguous": equal,
+               "max_abs_err": err.item(), "tol": FWD_TOL[name],
+               "grad_limit_share": share}
+        log("[faults] strided q/k/v " + json.dumps(row))
+        if not (equal and err.item() <= FWD_TOL[name] and share <= 1.0):
+            raise SystemExit(f"chip_smoke: strided q/k/v: {row}")
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = TransformerLM(vocab_size=30522, units=1024, num_layers=2,
+                          num_heads=4, hidden_size=4096, device="cuda")
+    model.load_state_dict(params_from_mxnet_tpu(seeded_weights(model, SEED),
+                                                model))
+    tokens = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, 30522, (2, 512))).cuda()
+    LAUNCHES.reset()
+    with torch.inference_mode():
+        got = model(tokens)
+        torch.cuda.synchronize()
+        launches = LAUNCHES.count
+        for layer in model.layers:
+            layer.attn.attention = flash_attention_ref
+        err = (got - model(tokens)).abs().max().item()
+    row = {"model": "TransformerLM(units=1024, num_heads=4, num_layers=2)",
+           "head_dim": 256, "tokens": list(tokens.shape),
+           "flash_fwd_launches": launches, "max_abs_err_vs_dense": err,
+           "tol": FP32_TOL, "finite": bool(torch.isfinite(got).all())}
+    log("[faults] head dim 256 " + json.dumps(row))
+    if launches != 0 or err > FP32_TOL or not row["finite"]:
+        raise SystemExit(f"chip_smoke: head dim 256: {row}")
+    del model, got
 
 
 def sdpa_backward_ms(F, q, k, v, dout, causal):
@@ -586,6 +727,8 @@ def phase_slice(card):
     from mxnet_tpu_torch.convert import params_from_mxnet_tpu
     from mxnet_tpu_torch.models import BERTModel
     from mxnet_tpu_torch.ops.flash_attention import (LAUNCHES,
+                                                     LAUNCHES_SPLIT,
+                                                     LAUNCHES_TC32,
                                                      flash_attention,
                                                      flash_attention_ref)
     from mxnet_tpu_torch.serve import (InputSpec, ServingEngine,
@@ -624,24 +767,30 @@ def phase_slice(card):
         results[i] = engine.predict(payloads[i])
 
     disp0 = engine.stats()["batcher"]["dispatches"]
-    LAUNCHES.reset()
+    counters = (LAUNCHES, LAUNCHES_TC32, LAUNCHES_SPLIT)
+    for c in counters:
+        c.reset()
     load = run_loadgen(fire, list(range(N_REQUESTS)), concurrency=CONCURRENCY)
-    launches = LAUNCHES.count
+    launches, launches_tc32, splits = (c.count for c in counters)
     stats = engine.stats()
     breakdown = top_rung_breakdown(engine, ladder, top_seq)
     engine.close()
     dispatches = stats["batcher"]["dispatches"] - disp0
     log(f"[slice] served {load['completed']}/{N_REQUESTS} requests in "
-        f"{dispatches} dispatches; flash_fwd launches {launches}; "
-        f"errors {load['errors']}")
+        f"{dispatches} dispatches; flash_fwd launches {launches} "
+        f"({launches_tc32} on the fp32 tensor-core route, after {splits} "
+        f"splits); errors {load['errors']}")
     if load["completed"] != N_REQUESTS or load["errors"]:
         raise SystemExit(f"chip_smoke: requests failed: {load['errors']}")
     if stats["recompiles_after_warmup"] != 0:
         raise SystemExit(f"chip_smoke: {stats['recompiles_after_warmup']} "
                          "new signatures after warmup")
-    if launches != layers * dispatches or dispatches == 0:
-        raise SystemExit(f"chip_smoke: {launches} flash_fwd launches for "
-                         f"{dispatches} dispatches of {layers} layers")
+    if (dispatches == 0 or launches != layers * dispatches
+            or launches_tc32 != launches or splits != launches):
+        raise SystemExit(f"chip_smoke: {launches} flash_fwd launches "
+                         f"({launches_tc32} on the fp32 tensor-core route, "
+                         f"{splits} splits) for {dispatches} dispatches of "
+                         f"{layers} layers")
     for i, p in enumerate(payloads):
         out = results[i]
         if out.shape != p.shape + (30522,) or not np.isfinite(out).all():
@@ -671,6 +820,7 @@ def phase_slice(card):
     summary = {
         "card": card, "requests": N_REQUESTS, "concurrency": CONCURRENCY,
         "dispatches": dispatches, "flash_fwd_launches": launches,
+        "flash_fwd_tc32_launches": launches_tc32, "split_launches": splits,
         "throughput_rps": load["throughput_rps"], "p50_ms": load["p50_ms"],
         "p99_ms": load["p99_ms"], "wall_s": load["wall_s"],
         "programs": stats["programs_compiled"],
@@ -734,11 +884,12 @@ def _train_counters():
     from mxnet_tpu_torch.ops.flash_attention import (
         LAUNCHES, LAUNCHES_DKV, LAUNCHES_DKV_TC, LAUNCHES_DKV_TC32,
         LAUNCHES_DQ, LAUNCHES_DQ_TC, LAUNCHES_DQ_TC32, LAUNCHES_SPLIT,
-        LAUNCHES_TC)
+        LAUNCHES_TC, LAUNCHES_TC32)
     from mxnet_tpu_torch.opt import kernels as opt_kernels
     return {"flash_fwd": LAUNCHES, "flash_bwd_dq": LAUNCHES_DQ,
             "flash_bwd_dkv": LAUNCHES_DKV, "mp_sgd": opt_kernels.LAUNCHES,
-            "flash_fwd_tc": LAUNCHES_TC, "flash_bwd_dq_tc": LAUNCHES_DQ_TC,
+            "flash_fwd_tc": LAUNCHES_TC, "flash_fwd_tc32": LAUNCHES_TC32,
+            "flash_bwd_dq_tc": LAUNCHES_DQ_TC,
             "flash_bwd_dkv_tc": LAUNCHES_DKV_TC,
             "flash_bwd_dq_tc32": LAUNCHES_DQ_TC32,
             "flash_bwd_dkv_tc32": LAUNCHES_DKV_TC32,
@@ -936,9 +1087,9 @@ def phase_train(card):
 
 def phase_train_fp32(card):
     """BERT-base in fp32 (no loss scale, plain SGD with momentum) trained
-    through the Gluon entry points: every dQ and dK/dV launch on the fp32
-    tensor-core route; then two steps of a reference run (dense attention,
-    the same update) from the same weights, batch and dropout
+    through the Gluon entry points: every forward, dQ and dK/dV launch on
+    the fp32 tensor-core route; then two steps of a reference run (dense
+    attention, the same update) from the same weights, batch and dropout
     generators."""
     from mxnet_tpu_torch.gluon import Trainer, collect_params
     from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
@@ -968,12 +1119,13 @@ def phase_train_fp32(card):
         f"momentum {TRAIN_MOMENTUM}; no loss scale; built in "
         f"{time.perf_counter() - t0:.2f} s")
 
-    # the forward on the CUDA cores, every backward pass on the fp32
-    # tensor-core route after one split, and no mixed-precision update
+    # the forward and every backward pass on the fp32 tensor-core route,
+    # each after one split, and no mixed-precision update
     want = dict.fromkeys(_train_counters(), 0)
-    want.update({"flash_fwd": layers, "flash_bwd_dq": layers,
-                 "flash_bwd_dkv": layers, "flash_bwd_dq_tc32": layers,
-                 "flash_bwd_dkv_tc32": layers, "split_bf16x3": layers})
+    want.update({"flash_fwd": layers, "flash_fwd_tc32": layers,
+                 "flash_bwd_dq": layers, "flash_bwd_dkv": layers,
+                 "flash_bwd_dq_tc32": layers, "flash_bwd_dkv_tc32": layers,
+                 "split_bf16x3": 2 * layers})
     after2, missing = [], []
     update = _checked(lambda: trainer.step(batch), params, missing)
 
@@ -1023,7 +1175,8 @@ def phase_train_fp32(card):
 
 # each port kernel's symbols in the profiler (substrings): every design of
 # the forward and of the backward passes counts under one name
-KERNEL_NAMES = {"flash_fwd": ("flash_fwd_kernel", "flash_fwd_tc_kernel"),
+KERNEL_NAMES = {"flash_fwd": ("flash_fwd_kernel", "flash_fwd_tc_kernel",
+                              "flash_fwd_tc32_kernel"),
                 "flash_bwd_dq": ("flash_bwd_dq_kernel",
                                  "flash_bwd_tc_dq_kernel",
                                  "flash_bwd_tc32_dq_kernel"),
@@ -1093,6 +1246,7 @@ def main():
     rows = phase_kernel_check(peaks)
     bwd_rows = phase_backward_check(peaks)
     split_rows = phase_split_check(peaks)
+    phase_repaired_faults()
     sgd_rows = phase_sgd_check(peaks)
     serve_launches = phase_slice(card)
     train = phase_train(card)
@@ -1107,7 +1261,8 @@ def main():
     fwd16 = pick(rows, shape=[8, HEADS, 512, 512, HEAD_DIM],
                  dtype="float16", causal=False)
     bwd16 = pick(bwd_rows, dtype="float16", causal=False)
-    bwd32 = pick(bwd_rows, dtype="float32", causal=False)
+    bwd32 = pick(bwd_rows, shape=[8, HEADS, 512, 512, HEAD_DIM],
+                 dtype="float32", causal=False)
     split = pick(split_rows, inputs="rung")
     sgd = pick(sgd_rows, n=max(SGD_SIZES))
 
@@ -1119,8 +1274,10 @@ def main():
     def launches(name):
         return {"train_fp16": train[name], "train_fp32": train32[name]}
     common = {"card": card}
+    fwd_over_cc = max(r["err_over_cc"] for r in rows if "err_over_cc" in r)
     # the fp16 training path's design (tensor cores), with the fp32 design
-    # (CUDA cores, flash_fwd.cu; the serving and fp32 training paths') beside
+    # (tensor cores on bf16 planes, flash_fwd_tc32.cu; the serving and fp32
+    # training paths') beside
     kernels = [{
         "name": "flash_fwd", "route": "cuda",
         "source": "mxnet_tpu_torch/csrc/flash_fwd_tc.cu",
@@ -1138,13 +1295,21 @@ def main():
         "library_ms": fwd16["library_ms"],
         "shape": fwd16["shape"], "dtype": "float16",
         "float32": {
-            "source": "mxnet_tpu_torch/csrc/flash_fwd.cu",
+            "source": "mxnet_tpu_torch/csrc/flash_fwd_tc32.cu",
+            "route": "cuda",
             "launches": serve_launches + train32["flash_fwd"],
+            "launches_tc32": serve_launches + train32["flash_fwd_tc32"],
             "max_abs_err": max(r["max_abs_err"] for r in rows
-                               if r["dtype"] == "float32"),
-            **{k: fwd32[k] for k in ("ms", "plain_ms", "bound_ms",
-                                     "bound_by", "ffma_bound_ms",
-                                     "library_ms")}},
+                               if r["route"] == "tc32"),
+            "cuda_core_max_abs_err": max(r["cc_max_abs_err"] for r in rows
+                                         if "cc_max_abs_err" in r),
+            "err_over_cc": fwd_over_cc,
+            "ms": fwd32["ms"], "kernel_ms": fwd32["kernel_ms"],
+            "split_ms": fwd32["split_ms"], "cuda_core_ms": fwd32["cc_ms"],
+            "one_warpgroup_kernel_ms": fwd32["one_wg_ms"],
+            "cuda_core_source": "mxnet_tpu_torch/csrc/flash_fwd.cu",
+            **{k: fwd32[k] for k in ("plain_ms", "bound_ms", "bound_by",
+                                     "ffma_bound_ms", "library_ms")}},
         **common}]
     for which, line in (("dq", "pallas_kernels.py:257"),
                         ("dkv", "pallas_kernels.py:277")):
@@ -1187,8 +1352,8 @@ def main():
         "name": "split_bf16x3", "route": "cuda",
         "source": "mxnet_tpu_torch/csrc/flash_bwd_tc32.cu",
         "replaces": "mxnet_tpu/ops/pallas_kernels.py:243",
-        "part_of": "flash_bwd_dq and flash_bwd_dkv in float32",
-        "launches": train32["split_bf16x3"],
+        "part_of": "flash_fwd, flash_bwd_dq and flash_bwd_dkv in float32",
+        "launches": serve_launches + train32["split_bf16x3"],
         "max_abs_err": max(r["max_abs_err"] for r in split_rows),
         "ms": split["ms"], "plain_ms": split["plain_ms"],
         "bound_ms": split["bound_ms"], "bound_by": split["bound_by"],

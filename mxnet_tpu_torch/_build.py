@@ -26,8 +26,8 @@ __all__ = ["SOURCES", "NVCC_FLAGS", "build_all", "load", "LaunchCounter"]
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
-SOURCES = ("flash_fwd", "flash_fwd_tc", "flash_bwd", "flash_bwd_tc",
-           "flash_bwd_tc32", "mp_sgd")
+SOURCES = ("flash_fwd", "flash_fwd_tc", "flash_fwd_tc32", "flash_bwd",
+           "flash_bwd_tc", "flash_bwd_tc32", "mp_sgd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -1,10 +1,10 @@
 // Flash-attention forward for Hopper (sm_90a), CUDA cores, fp32 accumulation.
 //
 // Replaces: the Pallas TPU kernel `_flash_fwd` / `_fwd_kernel` in
-// mxnet_tpu/ops/pallas_kernels.py:126 for fp32 inputs and for head dims with
-// D % 8 != 0 (or pointers not 16-byte aligned); fp16 and bf16 inputs
-// otherwise take the tensor-core kernel of flash_fwd_tc.cu
-// (ops/flash_attention.py::_fwd_route). It computes the same function:
+// mxnet_tpu/ops/pallas_kernels.py:126 for head dims with D % 8 != 0 (or
+// pointers not 16-byte aligned) and for fp32 inputs with D > 64; fp16 and
+// bf16 inputs otherwise take the tensor-core kernel of flash_fwd_tc.cu, fp32
+// inputs that of flash_fwd_tc32.cu (ops/flash_attention.py::_fwd_route). It computes the same function:
 //   out[r] = softmax(q[r] . K^T * scale  (causal / tail masked)) . V
 //   lse[r] = log sum_c exp(q[r] . k[c] * scale)          (fp32, natural log)
 // with online softmax, so no Tq x Tk matrix ever reaches device memory.

@@ -1,5 +1,5 @@
 // What the tensor-core flash-attention kernels (flash_fwd_tc.cu,
-// flash_bwd_tc.cu, flash_bwd_tc32.cu) share: PTX wrappers for TMA, mbarriers
+// flash_bwd_tc.cu, flash_fwd_tc32.cu, flash_bwd_tc32.cu) share: PTX wrappers for TMA, mbarriers
 // and the m64n64k16 wgmma (A and B from shared memory, or A from registers
 // with B transposed), 16-bit packing, the fp32 accumulator layout of a
 // 64 x 64 tile and its stores, and on the host the 3-D tensor maps and

@@ -6,13 +6,19 @@ the JAX package's (``embed``, ``pos_embed``, ``layers.N.attn.qkv``,
 parameter names line up with its ``_collect_params_with_prefix()`` and
 ``convert.params_from_mxnet_tpu`` maps one onto the other.
 
-Attention goes through :func:`~mxnet_tpu_torch.ops.flash_attention`: on
-CUDA every layer launches the hand-written flash kernels (the forward, and
-in a backward the dQ and dK/dV kernels), on the CPU it takes their plain
-versions. ``dtype=torch.float16`` builds the model for mixed-precision
-training. The JAX package's measured choice
-between flash and dense attention (``operator_tune``), context
-parallelism and the mixture-of-experts FFN come with later slices.
+Attention picks its function per shape, as the reference's
+``MultiHeadAttention`` does, before any launch: where
+:func:`~mxnet_tpu_torch.ops.flash_attention.flash_attention_available`
+holds for the layer's head dim (up to 128), it goes through
+:func:`~mxnet_tpu_torch.ops.flash_attention`: on CUDA every layer launches
+the hand-written flash kernels (the forward, and in a backward the dQ and
+dK/dV kernels; in fp16/bf16, and in fp32 with a head dim up to 64, on the
+tensor cores), on the CPU it takes their plain versions. Elsewhere it is
+dense :func:`~mxnet_tpu_torch.parallel.local_attention`.
+``dtype=torch.float16`` builds the model for mixed-precision training.
+The JAX package's measured choice between flash and dense attention on
+shapes both take (``operator_tune``), context parallelism and the
+mixture-of-experts FFN come with later slices.
 """
 from __future__ import annotations
 
@@ -22,7 +28,8 @@ from torch import nn
 from ..context import resolve_device
 from ..gluon.nn import (GELU, Dense, Dropout, Embedding, HybridSequential,
                         LayerNorm)
-from ..ops.flash_attention import flash_attention
+from ..ops.flash_attention import flash_attention, flash_attention_available
+from ..parallel.ring_attention import local_attention
 
 __all__ = ["MultiHeadAttention", "TransformerEncoderLayer", "TransformerLM",
            "BERTModel"]
@@ -32,8 +39,12 @@ class MultiHeadAttention(nn.Module):
     """Self-attention over ``(B, T, C)``.
 
     ``attention`` is the function applied to the ``(B, H, T, D)`` q/k/v,
-    :func:`flash_attention` by default; a caller that needs the dense
-    oracle (a reference run) assigns ``flash_attention_ref``."""
+    :func:`flash_attention` by default, which stands for the reference's
+    choice: the kernels where :func:`flash_attention_available` holds,
+    dense :func:`local_attention` elsewhere (mxnet_tpu/models/
+    transformer.py:88-104). A caller that needs another function (the
+    dense oracle of a reference run, ``flash_attention_ref``) assigns it,
+    and it is applied at every shape."""
 
     def __init__(self, units: int, num_heads: int, dropout: float = 0.0,
                  use_bias: bool = True, causal: bool = False, device="cuda",
@@ -57,7 +68,11 @@ class MultiHeadAttention(nn.Module):
         # each contiguous, as the kernel requires
         qkv = self.qkv(x).reshape(B, T, 3, self._num_heads, self._head_dim)
         q, k, v = qkv.permute(2, 0, 3, 1, 4).contiguous().unbind(0)
-        out = self.attention(q, k, v, causal=self.causal)   # (B, H, T, D)
+        attention = self.attention
+        if attention is flash_attention and not flash_attention_available(
+                T, T, self._head_dim):
+            attention = local_attention
+        out = attention(q, k, v, causal=self.causal)   # (B, H, T, D)
         out = out.transpose(1, 2).reshape(B, T, C)
         return self.drop(self.proj(out))
 

@@ -5,18 +5,20 @@ Counterpart of ``mxnet_tpu/ops/pallas_kernels.py``'s ``flash_attention``
 hand-written for Hopper, chosen per call by :func:`_fwd_route` and
 :func:`_bwd_route`:
 
-- the forward: ``csrc/flash_fwd_tc.cu`` (tensor cores, wgmma and TMA) for
-  fp16/bf16 with ``D % 8 == 0`` and 16-byte-aligned pointers,
-  ``csrc/flash_fwd.cu`` (CUDA cores) for the rest (fp32, odd head dims);
-- the backward's dQ pass and dK/dV pass: the same two designs
-  (``csrc/flash_bwd_tc.cu``, ``csrc/flash_bwd.cu``), and a third for fp32
-  with ``D % 8 == 0``, ``D <= 64`` and aligned pointers,
-  ``csrc/flash_bwd_tc32.cu``: the tensor cores on bf16 planes of the fp32
-  operands (:func:`split_bf16x3`), six plane products per product, which
-  keeps fp32's accuracy.
+- the forward and the backward's dQ and dK/dV passes each have three
+  designs: ``csrc/flash_fwd_tc.cu`` / ``csrc/flash_bwd_tc.cu`` (tensor
+  cores, wgmma and TMA) for fp16/bf16 with ``D % 8 == 0`` and 16-byte-aligned
+  pointers; ``csrc/flash_fwd_tc32.cu`` / ``csrc/flash_bwd_tc32.cu`` for
+  fp32 with ``D % 8 == 0``, ``D <= 64`` and aligned pointers: the tensor
+  cores on bf16 planes of the fp32 operands (:func:`split_bf16x3`), six
+  plane products per product, which keeps fp32's accuracy;
+  ``csrc/flash_fwd.cu`` / ``csrc/flash_bwd.cu`` (CUDA cores) for the rest
+  (odd head dims, fp32 with ``D > 64``).
 
 The source notes give the bounds and the designs. The wrappers take
-``(B, H, T, D)`` tensors:
+``(B, H, T, D)`` tensors of any strides (the kernels read contiguous
+copies) and head dims up to :data:`MAX_HEAD_DIM`, which
+:func:`flash_attention_available` tells a caller before it calls:
 
 - on CUDA tensors they launch the kernels or raise; nothing falls back;
 - on CPU tensors they compute the plain versions,
@@ -46,7 +48,8 @@ from ..base import MXNetError
 
 __all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_bwd",
            "flash_attention_ref", "flash_attention_ref_fwd",
-           "flash_attention_ref_bwd", "LAUNCHES", "LAUNCHES_TC",
+           "flash_attention_ref_bwd", "flash_attention_available",
+           "LAUNCHES", "LAUNCHES_TC", "LAUNCHES_TC32",
            "LAUNCHES_DQ", "LAUNCHES_DKV", "LAUNCHES_DQ_TC",
            "LAUNCHES_DKV_TC", "LAUNCHES_DQ_TC32", "LAUNCHES_DKV_TC32",
            "LAUNCHES_SPLIT", "split_bf16x3", "split_bf16x3_ref",
@@ -59,14 +62,29 @@ LAUNCHES_DKV = _build.LaunchCounter("flash_bwd_dkv")
 # the launches of each kernel that took the tensor-core route (also counted
 # in LAUNCHES / LAUNCHES_DQ / LAUNCHES_DKV)
 LAUNCHES_TC = _build.LaunchCounter("flash_fwd_tc")
+# the forward launches that took the fp32 tensor-core route (also counted in
+# LAUNCHES)
+LAUNCHES_TC32 = _build.LaunchCounter("flash_fwd_tc32")
 LAUNCHES_DQ_TC = _build.LaunchCounter("flash_bwd_tc_dq")
 LAUNCHES_DKV_TC = _build.LaunchCounter("flash_bwd_tc_dkv")
 # the backward launches that took the fp32 tensor-core route (also counted in
-# LAUNCHES_DQ / LAUNCHES_DKV), and the launches of its split kernel
+# LAUNCHES_DQ / LAUNCHES_DKV), and the launches of the split kernel (one per
+# fp32 tensor-core forward and one per such backward)
 LAUNCHES_DQ_TC32 = _build.LaunchCounter("flash_bwd_tc32_dq")
 LAUNCHES_DKV_TC32 = _build.LaunchCounter("flash_bwd_tc32_dkv")
 LAUNCHES_SPLIT = _build.LaunchCounter("split_bf16x3")
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
+
+def flash_attention_available(q_len: int, k_len: int, head_dim: int) -> bool:
+    """True where the kernels take the shape: ``head_dim <= MAX_HEAD_DIM``
+    (and nothing empty). Counterpart of ``pallas_kernels.py``'s
+    ``flash_attention_available``, by which a model picks the kernel or
+    dense attention before any launch. The reference also wants
+    ``min(q_len, k_len) >= 64``, because the TPU kernel pads sequences to
+    128-row blocks; the port's kernels mask ragged tiles instead of padding
+    them, so they take every length."""
+    return min(q_len, k_len, head_dim) >= 1 and head_dim <= MAX_HEAD_DIM
 
 
 def _check_shapes(q, k, v) -> None:
@@ -199,6 +217,10 @@ def _fn(lib, name: str, argtypes):
     return fn
 
 
+def _ptrs(tensors):
+    return [t.data_ptr() for t in tensors]
+
+
 _SPLIT_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 4 \
     + [ctypes.c_void_p] * 2
 
@@ -206,7 +228,8 @@ _SPLIT_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 4 \
 def split_bf16x3(*xs) -> torch.Tensor:
     """The three bf16 planes of up to four fp32 tensors, as
     :func:`split_bf16x3_ref` computes them: the operands of the fp32
-    tensor-core backward (``csrc/flash_bwd_tc32.cu``). CUDA tensors
+    tensor-core forward and backward (``csrc/flash_fwd_tc32.cu``,
+    ``csrc/flash_bwd_tc32.cu``). CUDA tensors
     (contiguous, on one device, 16-byte aligned, each with a multiple of
     4 elements) launch its split kernel once, bit-equal to the plain
     version; CPU tensors take the plain version."""
@@ -241,15 +264,19 @@ def split_bf16x3(*xs) -> torch.Tensor:
 
 def _fwd_route(dtype, D: int, aligned: bool) -> str:
     """Which design takes a launch of the forward: ``"tc"``
-    (``csrc/flash_fwd_tc.cu``: tensor cores) for fp16/bf16 with
-    ``D % 8 == 0`` (TMA needs 16-byte row strides) and every pointer
-    16-byte aligned; ``"cc"`` (``csrc/flash_fwd.cu``: CUDA cores) for the
-    rest: odd head dims, and fp32, which must hold 1e-4. One-pass TF32 or
-    16-bit operands cannot; products split into bf16 planes can, as the
-    fp32 backward shows (:func:`_bwd_route`), and are the forward's next
-    design."""
-    if dtype in (torch.float16, torch.bfloat16) and D % 8 == 0 and aligned:
-        return "tc"
+    (``csrc/flash_fwd_tc.cu``: tensor cores) for fp16/bf16 and ``"tc32"``
+    (``csrc/flash_fwd_tc32.cu``: bf16 planes of the fp32 operands, six
+    plane products per product, fp32-grade) for fp32 with ``D <= 64``,
+    both with ``D % 8 == 0`` (TMA needs 16-byte row strides) and every
+    pointer 16-byte aligned; ``"cc"`` (``csrc/flash_fwd.cu``: CUDA cores)
+    for the rest: odd head dims, and fp32 with ``D > 64``, whose planes
+    would need 288 KB of shared memory in the fp32 kernel's two-warpgroup
+    layout (the source note says why no other layout was taken)."""
+    if D % 8 == 0 and aligned:
+        if dtype in (torch.float16, torch.bfloat16):
+            return "tc"
+        if dtype == torch.float32 and D <= 64:
+            return "tc32"
     return "cc"
 
 
@@ -275,33 +302,60 @@ _FWD_ARGS = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_float]
              + [ctypes.c_int] * 2)
 
 
-def _fwd_pass(route, q, k, v, out, lse, causal, scale):
+# planes of q, k, v; plane stride; out, lse; B*H, Tq, Tk, D; scale; causal;
+# stream
+_FWD_TC32_ARGS = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong]
+                  + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4
+                  + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+
+
+def _check_planes(planes, n: int, what: str) -> None:
+    """``planes`` must be the :func:`split_bf16x3` of ``n`` elements."""
+    if planes is None or planes.dtype != torch.bfloat16 \
+            or not planes.is_contiguous() or tuple(planes.shape) != (3, n):
+        raise MXNetError(f"{what} (tc32) takes the split_bf16x3 planes of "
+                         "its operands")
+
+
+def _fwd_pass(route, q, k, v, out, lse, causal, scale, planes=None):
     """One launch of ``route``'s forward kernel on checked, contiguous CUDA
-    tensors, writing ``out`` and ``lse``."""
+    tensors, writing ``out`` and ``lse``. The ``"tc32"`` route reads
+    ``planes``, the :func:`split_bf16x3` of ``(q, k, v)``."""
     B, H, Tq, D = q.shape
-    scalars = (B * H, Tq, k.shape[2], D, float(scale), int(bool(causal)),
-               _DTYPES[q.dtype])
-    if route == "tc":
+    scalars = (B * H, Tq, k.shape[2], D, float(scale), int(bool(causal)))
+    if route == "tc32":
+        nq, nk = q.numel(), k.numel()
+        _check_planes(planes, nq + 2 * nk, "flash_fwd")
+        lib = _build.load("flash_fwd_tc32")
+        fn = _fn(lib, "mx_flash_fwd_tc32", _FWD_TC32_ARGS)
+        at = planes.data_ptr()  # plane 0 of q, k, v, 2 bytes each
+        args = (at, at + 2 * nq, at + 2 * (nq + nk), planes.shape[1],
+                out.data_ptr(), lse.data_ptr(), *scalars)
+    elif route == "tc":
         lib = _build.load("flash_fwd_tc")
         fn = _fn(lib, "mx_flash_fwd_tc", _FWD_ARGS + [ctypes.c_void_p])
-        tail = ()
+        args = (*_ptrs((q, k, v, out, lse)), *scalars, _DTYPES[q.dtype])
     else:
         lib = _build.load("flash_fwd")
         fn = _fn(lib, "mx_flash_fwd",
                  _FWD_ARGS + [ctypes.c_int, ctypes.c_void_p])
-        tail = (_vec(D, (q, k, v, out)),)
+        args = (*_ptrs((q, k, v, out, lse)), *scalars, _DTYPES[q.dtype],
+                _vec(D, (q, k, v, out)))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(*(t.data_ptr() for t in (q, k, v, out, lse)), *scalars,
-                 *tail, stream)
+        err = fn(*args, stream)
     _build.check(lib, err, f"flash_fwd ({route}) launch")
     LAUNCHES.add()
     if route == "tc":
         LAUNCHES_TC.add()
+    elif route == "tc32":
+        LAUNCHES_TC32.add()
 
 
 def _launch(q, k, v, causal: bool, scale: float):
-    """``(out, lse)`` from the forward kernel :func:`_fwd_route` picks."""
+    """``(out, lse)`` from the forward kernel :func:`_fwd_route` picks; the
+    fp32 tensor-core route splits q, k and v into bf16 planes first (one
+    launch of :func:`split_bf16x3`)."""
     B, H, Tq, D = q.shape
     _check_launch([("q", q, q.dtype), ("k", k, q.dtype), ("v", v, q.dtype)],
                   q.dtype)
@@ -310,7 +364,8 @@ def _launch(q, k, v, causal: bool, scale: float):
     lse = torch.empty((B, H, Tq), device=q.device, dtype=torch.float32)
     route = _fwd_route(q.dtype, D, all(t.data_ptr() % 16 == 0
                                        for t in (q, k, v, out)))
-    _fwd_pass(route, q, k, v, out, lse, causal, scale)
+    planes = split_bf16x3(q, k, v) if route == "tc32" else None
+    _fwd_pass(route, q, k, v, out, lse, causal, scale, planes)
     return out, lse
 
 
@@ -325,10 +380,6 @@ _TC32_HEAD = [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_void_p,
                                       ctypes.c_void_p]
 _TC32_TAIL = ([ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int,
                                     ctypes.c_void_p])
-
-
-def _ptrs(tensors):
-    return [t.data_ptr() for t in tensors]
 
 
 def _bwd_pass(which, route, q, k, v, out, dout, lse, delta, grads, causal,
@@ -349,11 +400,7 @@ def _bwd_pass(which, route, q, k, v, out, dout, lse, delta, grads, causal,
             + scalars + [_DTYPES[q.dtype]]
     elif route == "tc32":
         nq, nk = q.numel(), k.numel()
-        if planes is None or planes.dtype != torch.bfloat16 \
-                or not planes.is_contiguous() \
-                or tuple(planes.shape) != (3, 2 * nq + 2 * nk):
-            raise MXNetError(f"flash_bwd_{which} (tc32) takes the "
-                             "split_bf16x3 planes of q, k, v, dout")
+        _check_planes(planes, 2 * nq + 2 * nk, f"flash_bwd_{which}")
         lib = _build.load("flash_bwd_tc32")
         fn = _fn(lib, f"mx_flash_bwd_tc32_{which}",
                  _TC32_HEAD + [ctypes.c_void_p] * len(grads) + _TC32_TAIL)
@@ -413,18 +460,23 @@ def _launch_bwd(q, k, v, out, lse, dout, causal: bool, scale: float):
     return dq, dk, dv
 
 
+def _contiguous(*tensors):
+    return tuple(t.contiguous() for t in tensors)
+
+
 def flash_attention_fwd(q, k, v, causal: bool = False,
                         scale: Optional[float] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(out, lse)`` for ``(B, H, T, D)`` q/k/v (``Tq != Tk`` allowed).
     ``lse`` is the row log-sum-exp ``(B, H, Tq)`` in fp32, kept for the
-    backward. CUDA tensors launch the kernel; CPU tensors take the plain
-    version. Not differentiable: see :func:`flash_attention`."""
+    backward. CUDA tensors launch the kernel on contiguous copies (the
+    tensors themselves where they are contiguous); CPU tensors take the
+    plain version. Not differentiable: see :func:`flash_attention`."""
     _check_shapes(q, k, v)
     s = _scale(q, scale)
     if _on_cpu(q, k, v):
         return flash_attention_ref_fwd(q, k, v, causal, s)
-    return _launch(q, k, v, causal, s)
+    return _launch(*_contiguous(q, k, v), causal, s)
 
 
 def flash_attention_bwd(q, k, v, out, lse, dout, causal: bool = False,
@@ -432,21 +484,23 @@ def flash_attention_bwd(q, k, v, out, lse, dout, causal: bool = False,
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``(dq, dk, dv)`` given the forward's ``out`` and ``lse`` and the
     output gradient ``dout``. CUDA tensors launch the two backward kernels
-    (``dout`` is made contiguous first); CPU tensors take the plain
+    on contiguous copies, as the forward; CPU tensors take the plain
     version."""
     _check_shapes(q, k, v)
     s = _scale(q, scale)
     if _on_cpu(q, k, v, out, lse, dout):
         return flash_attention_ref_bwd(q, k, v, out, lse, dout, causal, s)
-    return _launch_bwd(q, k, v, out, lse, dout.contiguous(), causal, s)
+    return _launch_bwd(*_contiguous(q, k, v, out, lse, dout), causal, s)
 
 
 class _FlashAttention(torch.autograd.Function):
     """Counterpart of the ``custom_vjp``: the forward keeps ``q, k, v,
-    out, lse``; the backward recomputes ``p`` from ``lse`` per tile."""
+    out, lse`` (q, k, v as the contiguous tensors the kernel read); the
+    backward recomputes ``p`` from ``lse`` per tile."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, scale):
+        q, k, v = _contiguous(q, k, v)
         out, lse = flash_attention_fwd(q, k, v, causal, scale)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal, ctx.scale = causal, scale

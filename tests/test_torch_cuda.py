@@ -14,9 +14,9 @@ route, the rounding of p as an operand (forward: bf16 <= 2e-2, fp16 <=
 5e-3, chip_smoke's FWD_TOL; backward: |err| <= atol + rtol*|ref| with rtol four half-ulps of the type,
 fp16 2e-3 and bf16 1.6e-2, and atol 1e-3 / 1e-2 for sums that cancel; the
 same limits hold the tensor-core route, which also rounds p and dS to the
-input type as operands). The fp32 backward with D % 8 == 0 and D <= 64
-runs on the tensor cores over bf16 planes of its operands and holds the
-same 1e-4.
+input type as operands). The fp32 forward and backward with D % 8 == 0
+and D <= 64 run on the tensor cores over bf16 planes of their operands and
+hold the same 1e-4.
 The mixed-precision SGD kernel rounds each operation as its plain version
 does, and the fp32 backward's split kernel rounds as its plain version
 does, so each agrees with it bit for bit.
@@ -44,23 +44,28 @@ def _qkv(seed, B, H, Tq, Tk, D, dtype):
 @pytest.mark.parametrize("shape", [(2, 3, 200, 200, 64),
                                    (1, 2, 128, 384, 96),
                                    (2, 2, 300, 100, 40),
-                                   (1, 1, 1, 7, 33)])
+                                   (1, 1, 1, 7, 33),
+                                   (1, 2, 64, 64, 8)])
 def test_kernel_matches_plain_version(shape, causal, dtype, tol):
-    """Both routes: fp16/bf16 with D % 8 == 0 on the tensor-core kernel,
-    fp32 and D = 33 on the CUDA-core one."""
+    """The three routes: fp16/bf16 with D % 8 == 0 on the tensor-core
+    kernel, fp32 with D % 8 == 0 and D <= 64 on the fp32 tensor-core
+    kernel (one split launch first; a block's second q tile wholly past Tq
+    among them), fp32 with D = 96 and D = 33 on the CUDA-core one."""
     _need_cuda()
-    from mxnet_tpu_torch.ops.flash_attention import (LAUNCHES, LAUNCHES_TC,
-                                                     _fwd_route,
-                                                     flash_attention_fwd,
-                                                     flash_attention_ref_fwd)
+    from mxnet_tpu_torch.ops.flash_attention import (
+        LAUNCHES, LAUNCHES_SPLIT, LAUNCHES_TC, LAUNCHES_TC32, _fwd_route,
+        flash_attention_fwd, flash_attention_ref_fwd)
     q, k, v = _qkv(0, *shape, dtype)
-    tc = int(dtype != torch.float32 and shape[-1] % 8 == 0)
-    assert _fwd_route(dtype, shape[-1], True) == ("tc" if tc else "cc")
-    before = (LAUNCHES.count, LAUNCHES_TC.count)
+    D = shape[-1]
+    route = ("cc" if D % 8 else "tc" if dtype != torch.float32
+             else "tc32" if D <= 64 else "cc")
+    assert _fwd_route(dtype, D, True) == route
+    counters = (LAUNCHES, LAUNCHES_TC, LAUNCHES_TC32, LAUNCHES_SPLIT)
+    before = [c.count for c in counters]
     out, lse = flash_attention_fwd(q, k, v, causal)
     torch.cuda.synchronize()
-    assert (LAUNCHES.count, LAUNCHES_TC.count) == (before[0] + 1,
-                                                   before[1] + tc)
+    assert [c.count - b for c, b in zip(counters, before)] == \
+        [1, int(route == "tc"), int(route == "tc32"), int(route == "tc32")]
     assert out.dtype == dtype and lse.dtype == torch.float32
     ref, ref_lse = flash_attention_ref_fwd(q.float(), k.float(), v.float(),
                                            causal)
@@ -74,8 +79,7 @@ def test_kernel_refuses_what_it_does_not_take():
     from mxnet_tpu_torch.ops.flash_attention import LAUNCHES, flash_attention
     q = torch.zeros(1, 2, 8, 16, device="cuda")
     before = LAUNCHES.count
-    bad = [(q, q.transpose(2, 3).contiguous().transpose(2, 3), q),
-           (q.double(), q.double(), q.double()),
+    bad = [(q.double(), q.double(), q.double()),
            (q, q.cpu(), q)]
     big = torch.zeros(1, 2, 8, 160, device="cuda")
     bad.append((big, big, big))
@@ -83,6 +87,102 @@ def test_kernel_refuses_what_it_does_not_take():
         with pytest.raises(MXNetError):
             flash_attention(*args)
     assert LAUNCHES.count == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16])
+def test_attention_takes_non_contiguous_inputs(dtype):
+    """q, k, v in the layout a (B, T, H, D) projection gives: forward and
+    backward equal the same calls on contiguous copies bit for bit, and the
+    plain versions within the forward's and the backward's limits."""
+    _need_cuda()
+    from mxnet_tpu_torch.ops.flash_attention import (
+        flash_attention, flash_attention_fwd, flash_attention_ref_bwd,
+        flash_attention_ref_fwd)
+    g = torch.Generator(device="cuda").manual_seed(5)
+    q, k, v, dout = (torch.randn(2, 128, 4, 64, device="cuda", generator=g)
+                     .to(dtype).transpose(1, 2) for _ in range(4))
+    assert not any(t.is_contiguous() for t in (q, k, v, dout))
+
+    def run(*ts):
+        ts = [t.detach().requires_grad_() for t in ts]
+        out = flash_attention(*ts)
+        return (out,) + torch.autograd.grad(out, ts, dout)
+
+    got = run(q, k, v)
+    want = run(*(t.contiguous() for t in (q, k, v)))
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    out, lse = flash_attention_fwd(q, k, v)
+    assert torch.equal(out, got[0])
+    f32 = [t.float() for t in (q, k, v)]
+    ref, _ = flash_attention_ref_fwd(*f32)
+    tol = {torch.float32: 1e-4, torch.float16: 5e-3}[dtype]
+    assert (got[0].float() - ref).abs().max().item() <= tol
+    ref_grads = flash_attention_ref_bwd(*f32, out.float(), lse,
+                                        dout.float())
+    for a, b in zip(got[1:], ref_grads):
+        _bwd_close(a, b, dtype)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("shape", [(2, 3, 200, 200, 64),
+                                   (1, 2, 128, 384, 64),
+                                   (2, 2, 300, 100, 40)])
+def test_fp32_tensor_core_forward_feeds_the_backward(shape, causal):
+    """fp32 forward and backward through ``flash_attention``, both on the
+    fp32 tensor-core route (two splits): the forward's lse within 1e-4 of
+    the plain one, and the gradients the backward rebuilds from it within
+    1e-4 of the dense oracle's."""
+    _need_cuda()
+    from mxnet_tpu_torch.ops.flash_attention import (
+        LAUNCHES_DKV_TC32, LAUNCHES_DQ_TC32, LAUNCHES_SPLIT, LAUNCHES_TC32,
+        flash_attention, flash_attention_fwd, flash_attention_ref,
+        flash_attention_ref_fwd)
+    q, k, v = (t.requires_grad_() for t in _qkv(6, *shape, torch.float32))
+    g = torch.Generator().manual_seed(7)
+    dout = torch.randn(q.shape, generator=g).cuda()
+    _, lse = flash_attention_fwd(q.detach(), k.detach(), v.detach(), causal)
+    _, ref_lse = flash_attention_ref_fwd(q.detach(), k.detach(), v.detach(),
+                                         causal)
+    assert (lse - ref_lse).abs().max().item() <= 1e-4
+    counters = (LAUNCHES_TC32, LAUNCHES_DQ_TC32, LAUNCHES_DKV_TC32,
+                LAUNCHES_SPLIT)
+    before = [c.count for c in counters]
+    out = flash_attention(q, k, v, causal=causal)
+    got = torch.autograd.grad(out, (q, k, v), dout)
+    torch.cuda.synchronize()
+    assert [c.count - b for c, b in zip(counters, before)] == [1, 1, 1, 2]
+    ref = flash_attention_ref(q, k, v, causal=causal)
+    assert (out - ref).abs().max().item() <= 1e-4
+    want = torch.autograd.grad(ref, (q, k, v), dout)
+    for a, b in zip(got, want):
+        assert (a - b).abs().max().item() <= 1e-4
+
+
+def test_model_takes_dense_attention_where_no_kernel_serves():
+    """Head dim 256 (units 1024, 4 heads): the model picks dense attention
+    by shape, as the reference does, launches no flash kernel and matches
+    dense attention within 1e-4."""
+    _need_cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from mxnet_tpu_torch.models import TransformerLM
+    from mxnet_tpu_torch.ops.flash_attention import (LAUNCHES,
+                                                     flash_attention_ref)
+    torch.manual_seed(0)
+    model = TransformerLM(vocab_size=100, units=1024, num_layers=2,
+                          num_heads=4, max_len=64, device="cuda")
+    tok = torch.from_numpy(np.random.RandomState(0).randint(0, 100, (2, 48))
+                           ).cuda()
+    before = LAUNCHES.count
+    with torch.no_grad():
+        got = model(tok)
+        torch.cuda.synchronize()
+        assert LAUNCHES.count == before
+        for layer in model.layers:
+            layer.attn.attention = flash_attention_ref
+        want = model(tok)
+    assert got.shape == (2, 48, 100) and bool(torch.isfinite(got).all())
+    assert (got - want).abs().max().item() <= 1e-4
 
 
 def test_engine_serves_small_bert_through_the_kernel():
@@ -400,9 +500,8 @@ def test_trainer_steps_small_fp16_bert_through_the_kernels():
 
 def test_trainer_steps_small_fp32_bert_through_the_kernels():
     """record -> backward -> Trainer.step with plain SGD on an fp32 model:
-    launches per step are L forward (CUDA cores), L dQ and L dK/dV (all on
-    the fp32 tensor-core route, after L splits) and no mixed-precision
-    update; two steps agree with dense attention and the same update to
+    launches per step are L forward, L dQ and L dK/dV (all on the fp32
+    tensor-core route, after 2L splits) and no mixed-precision update; two steps agree with dense attention and the same update to
     fp32's precision."""
     _need_cuda()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -413,7 +512,7 @@ def test_trainer_steps_small_fp32_bert_through_the_kernels():
     from mxnet_tpu_torch.ops.flash_attention import (
         LAUNCHES, LAUNCHES_DKV, LAUNCHES_DKV_TC, LAUNCHES_DKV_TC32,
         LAUNCHES_DQ, LAUNCHES_DQ_TC, LAUNCHES_DQ_TC32, LAUNCHES_SPLIT,
-        LAUNCHES_TC, flash_attention, flash_attention_ref)
+        LAUNCHES_TC, LAUNCHES_TC32, flash_attention, flash_attention_ref)
     from mxnet_tpu_torch.opt import kernels
     V, L = 100, 2
 
@@ -433,9 +532,10 @@ def test_trainer_steps_small_fp32_bert_through_the_kernels():
     lab = torch.from_numpy(rng.randint(0, V, (2, 48))).cuda()
     loss_fn = SoftmaxCrossEntropyLoss()
     runs = [build(flash_attention), build(flash_attention_ref)]
-    counters = (LAUNCHES, LAUNCHES_TC, LAUNCHES_DQ, LAUNCHES_DKV,
-                LAUNCHES_DQ_TC, LAUNCHES_DKV_TC, LAUNCHES_DQ_TC32,
-                LAUNCHES_DKV_TC32, LAUNCHES_SPLIT, kernels.LAUNCHES)
+    counters = (LAUNCHES, LAUNCHES_TC, LAUNCHES_TC32, LAUNCHES_DQ,
+                LAUNCHES_DKV, LAUNCHES_DQ_TC, LAUNCHES_DKV_TC,
+                LAUNCHES_DQ_TC32, LAUNCHES_DKV_TC32, LAUNCHES_SPLIT,
+                kernels.LAUNCHES)
     for _ in range(2):
         losses = []
         for model, params, trainer in runs:
@@ -448,10 +548,10 @@ def test_trainer_steps_small_fp32_bert_through_the_kernels():
             trainer.step(tok.numel())
             losses.append(loss.mean().item())
             if model is runs[0][0]:
-                # fp32, head dim 16: the backward on the fp32 tensor-core
-                # route, the forward on the CUDA cores
-                assert [c.count for c in counters] == [L, 0, L, L, 0, 0, L,
-                                                       L, L, 0]
+                # fp32, head dim 16: the forward and the backward on the
+                # fp32 tensor-core route, one split each
+                assert [c.count for c in counters] == [L, 0, L, L, L, 0, 0,
+                                                       L, L, 2 * L, 0]
         assert abs(losses[0] - losses[1]) <= 1e-5
     for a, b in zip(runs[0][1].values(), runs[1][1].values()):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)

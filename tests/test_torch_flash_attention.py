@@ -18,8 +18,9 @@ from mxnet_tpu.ops.pallas_kernels import _fa_vjp_fwd
 from mxnet_tpu.ops.pallas_kernels import flash_attention as jax_flash
 from mxnet_tpu_torch import MXNetError
 from mxnet_tpu_torch.ops import flash_attention_fwd as torch_flash_fwd
-from mxnet_tpu_torch.ops.flash_attention import (LAUNCHES, _launch,
-                                                 flash_attention,
+from mxnet_tpu_torch.ops.flash_attention import (LAUNCHES, MAX_HEAD_DIM,
+                                                 _launch, flash_attention,
+                                                 flash_attention_available,
                                                  flash_attention_ref_fwd)
 from mxnet_tpu_torch.parallel import local_attention as torch_local
 
@@ -57,6 +58,45 @@ def test_flash_forward_matches_jax(case, causal):
                      None, 128, 128, True)
     got, _ = _port(q, k, v, causal)
     np.testing.assert_allclose(got, np.asarray(want), rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_non_contiguous_inputs_match_jax(causal):
+    """q, k, v in the layout a (B, T, H, D) projection gives, and the
+    gradient through them, agree with the JAX package on the same
+    values."""
+    import jax
+    rng = np.random.RandomState(5)
+    q, k, v, g = (rng.randn(2, 96, 4, 32).astype("float32") * s
+                  for s in (0.5, 0.5, 1.0, 1.0))
+    tq, tk, tv = (torch.from_numpy(a).transpose(1, 2).requires_grad_()
+                  for a in (q, k, v))
+    assert not tq.is_contiguous()
+    out = flash_attention(tq, tk, tv, causal)
+    grads = torch.autograd.grad(out, (tq, tk, tv),
+                                torch.from_numpy(g).transpose(1, 2))
+    jq, jk, jv, jg = (jnp.asarray(a.transpose(0, 2, 1, 3))
+                      for a in (q, k, v, g))
+    want, vjp = jax.vjp(lambda a, b, c: jax_flash(a, b, c, causal, None,
+                                                  128, 128, True), jq, jk, jv)
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(want),
+                               rtol=RTOL, atol=ATOL)
+    for got, w in zip(grads, vjp(jg)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(w), rtol=RTOL,
+                                   atol=ATOL)
+
+
+def test_flash_attention_available():
+    """The kernels take every head dim up to MAX_HEAD_DIM and every length
+    (they mask ragged tiles, so the reference's short-sequence rule does
+    not apply), nothing empty and nothing wider."""
+    assert MAX_HEAD_DIM == 128
+    for T, D in ((1, 1), (16, 64), (512, 64), (7, 128)):
+        assert flash_attention_available(T, T, D)
+    assert flash_attention_available(16, 384, 96)
+    for q_len, k_len, D in ((16, 16, 129), (512, 512, 256), (0, 16, 64),
+                            (16, 0, 64), (16, 16, 0)):
+        assert not flash_attention_available(q_len, k_len, D)
 
 
 @pytest.mark.parametrize("bq,bk", [(256, 128), (128, 256), (64, 128)])

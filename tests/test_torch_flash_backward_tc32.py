@@ -17,7 +17,8 @@ arithmetic:
   error stays within 2x of plain fp32's and one-pass TF32's does not;
 - the split: the planes sum back to ``x``;
 - the routes: fp32 with ``D % 8 == 0`` and ``D <= 64`` takes this design
-  in the backward, and the forward keeps fp32 on the CUDA cores.
+  in the backward, and its counterpart (csrc/flash_fwd_tc32.cu) in the
+  forward.
 """
 import functools
 
@@ -260,7 +261,7 @@ def test_cpu_fp32_backward_takes_the_plain_version():
 def test_fp32_routes(D, aligned):
     """The backward sends fp32 with D % 8 == 0, D <= 64 and aligned
     pointers to the tensor cores ("tc32") and the rest to the CUDA cores;
-    the forward keeps every fp32 launch on the CUDA cores."""
+    the forward takes the same routes."""
     want = "tc32" if D % 8 == 0 and D <= 64 and aligned else "cc"
     assert _bwd_route(torch.float32, D, aligned) == want
-    assert _fwd_route(torch.float32, D, aligned) == "cc"
+    assert _fwd_route(torch.float32, D, aligned) == want

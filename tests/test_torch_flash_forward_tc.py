@@ -4,7 +4,8 @@
 tests/test_torch_cuda.py hold it against the plain version. Here, on the
 CPU, three things are checked:
 
-- which design :func:`_fwd_route` picks for a launch;
+- which design :func:`_fwd_route` picks for a launch (fp32's tensor-core
+  route has its own file, tests/test_torch_flash_forward_tc32.py);
 - a rounding model of the kernel (the plain forward with p rounded to the
   input type before the P.V product and the output rounded once) against
   the JAX package's fp32 forward in interpret mode (as
@@ -112,8 +113,13 @@ def test_limit_covers_the_rounding(dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float16,
                                    torch.bfloat16])
 def test_forward_route(dtype, D, aligned):
-    """Tensor cores for 16-bit types with D % 8 == 0 and aligned pointers;
-    the CUDA-core kernel for everything else."""
-    want = ("tc" if dtype != torch.float32 and D % 8 == 0 and aligned
-            else "cc")
+    """Tensor cores for 16-bit types with D % 8 == 0 and aligned pointers,
+    and for fp32 with D % 8 == 0, D <= 64 and aligned pointers on bf16
+    planes ("tc32"); the CUDA-core kernel for everything else."""
+    want = "cc"
+    if D % 8 == 0 and aligned:
+        if dtype != torch.float32:
+            want = "tc"
+        elif D <= 64:
+            want = "tc32"
     assert _fwd_route(dtype, D, aligned) == want

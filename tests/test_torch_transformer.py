@@ -5,7 +5,8 @@ JAX block, and carried to the port through ``convert.params_from_mxnet_tpu``;
 the same token ids or activations go through both. Tolerance rtol 1e-4 /
 atol 1e-5: both sides compute in fp32, XLA:CPU and ATen sum in different
 orders. On the CPU the JAX attention is dense ``local_attention`` and the
-port's is the flash kernel's plain version.
+port's is the flash kernel's plain version, or ``local_attention`` too
+where the head dim is wider than the kernels take.
 """
 import numpy as np
 import pytest
@@ -18,6 +19,7 @@ from mxnet_tpu_torch.convert import (mxnet_tpu_shapes, params_from_mxnet_tpu,
                                      port_name)
 from mxnet_tpu_torch.gluon import nn as torch_nn
 from mxnet_tpu_torch.models import transformer as torch_tf
+from mxnet_tpu_torch.parallel import local_attention as torch_local
 
 RTOL, ATOL = 1e-4, 1e-5
 V, C, L, H, FFN, MAXLEN = 100, 64, 2, 4, 128, 64
@@ -130,6 +132,50 @@ def test_small_model_matches_jax(kind):
         got = tb(torch.from_numpy(tok)).numpy()
     assert got.shape == (3, 20, V)
     np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_wide_head_model_matches_jax(causal):
+    """Head dim 160 (units 320, 2 heads), over the kernels' 128: the port
+    takes dense attention for it, as the reference does, and agrees with
+    the JAX model."""
+    tok = _tokens(9, B=2, T=16)
+    jb = jax_tf.TransformerLM(V, 320, 1, 2, FFN, MAXLEN, causal=causal)
+    tb = torch_tf.TransformerLM(V, 320, 1, 2, FFN, MAXLEN, causal=causal,
+                                device="cpu")
+    _pair(jb, tb, mx.nd.array(tok, dtype="int32"), seed=10)
+    want = jb(mx.nd.array(tok, dtype="int32")).asnumpy()
+    with torch.no_grad():
+        got = tb(torch.from_numpy(tok)).numpy()
+    assert got.shape == (2, 16, V)
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("units,heads,dense", [(64, 4, False),
+                                               (512, 4, False),
+                                               (320, 2, True),
+                                               (1024, 4, True)])
+def test_attention_picks_dense_where_no_kernel_serves(monkeypatch, units,
+                                                      heads, dense):
+    """The choice is made by shape before any launch: head dims up to 128
+    go to ``flash_attention``, wider ones to ``local_attention``; a
+    function the caller assigns is applied at every shape."""
+    calls = []
+
+    def spy(q, k, v, causal=False):
+        calls.append(q.shape)
+        return torch_local(q, k, v, causal=causal)
+
+    monkeypatch.setattr(torch_tf, "local_attention", spy)
+    tb = torch_tf.MultiHeadAttention(units, heads, device="cpu")
+    x = torch.from_numpy(np.random.RandomState(11).randn(
+        1, 8, units).astype("float32"))
+    with torch.no_grad():
+        tb(x)
+        assert len(calls) == int(dense)
+        tb.attention = lambda q, k, v, causal=False: q
+        tb(x)
+    assert len(calls) == int(dense)
 
 
 def test_parameter_names_line_up_with_jax():
