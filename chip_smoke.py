@@ -15,14 +15,19 @@ end, failing on the first phase that fails:
    head dims and fp32 with D > 64 on the CUDA-core one), at the serving and
    training paths' shapes and edge cases, timed beside the CUDA-core
    kernel on the same inputs, its plain version,
-   ``scaled_dot_product_attention`` (a yardstick only) and its bound;
+   ``scaled_dot_product_attention`` (a yardstick only) and its bound (fp32
+   also at D = 128 and at the GPT path's shape, on the CUDA cores);
 4. backward check — the dQ and dK/dV passes against the plain backward
-   on their three routes (the same split of dtypes and head dims), timed
-   beside the CUDA-core kernels on the same inputs, the plain backward,
-   the backward of ``scaled_dot_product_attention`` and their bounds (fp32
-   also at D = 96 and 128, where the CUDA-core passes are the only route);
-   and the fp32 routes' split kernel against its plain version, bit for
-   bit;
+   on their three routes (fp16/bf16 on the tensor cores; fp32 with
+   D % 8 == 0 on the tensor cores over bf16 planes, ``flash_bwd_tc32.cu``
+   for D <= 64 and ``flash_bwd_tc32_d128.cu`` for D = 72-128; odd head
+   dims on the CUDA cores), timed beside the CUDA-core kernels on the same
+   inputs, the plain backward, the backward of
+   ``scaled_dot_product_attention`` and their bounds (fp32 also at D = 96
+   and 128 and at the GPT path's shape); every fp32 tensor-core case also
+   against an fp64 evaluation of the plain backward beside the CUDA-core
+   kernels; and the fp32 routes' split kernel against its plain version,
+   bit for bit;
    then the inputs of two repaired faults: q, k, v in the strided layout a
    (B, T, H, D) projection gives, through the forward and backward, bit
    for bit against contiguous copies; and a model whose head dim (256) no
@@ -47,7 +52,15 @@ end, failing on the first phase that fails:
    launches per step, every forward, dQ and dK/dV launch on the fp32
    tensor-core route (24 split launches: one per forward, one per
    backward) and no mixed-precision update, then two steps against a
-   reference run with dense attention, and the same breakdown.
+   reference run with dense attention, and the same breakdown;
+9. GPT training slice — a causal ``TransformerLM`` at Cerebras-GPT-1.3B's
+   published widths (24 layers, 2048 units, 16 heads of 128, FFN 8192,
+   vocab 50257, 2048 positions; random weights from a seed) trained in
+   fp32 on 2 x 2048 tokens with plain SGD and momentum: one warm step and
+   four more, 24/24/24 launches per step (the forward on the CUDA cores,
+   every dQ and dK/dV launch on ``flash_bwd_tc32_d128.cu`` after 24
+   splits), then two steps against a reference run with dense attention
+   (the kernel run freed first), and the same breakdown.
 
 The last three lines are the card (``nvidia-smi``), ``{"kernels": [...]}``
 and ``{"ok": true, "device": {...}}``.
@@ -115,6 +128,20 @@ TRAIN_LOSS_TOL, TRAIN_UPD_TOL, TRAIN_UPD_TOL_EACH = 1e-2, 2e-2, 1e-1
 # the model / for each parameter).
 TRAIN32_STEPS = 4
 TRAIN32_LOSS_TOL, TRAIN32_UPD_TOL, TRAIN32_UPD_TOL_EACH = 1e-3, 2e-3, 1e-2
+# the GPT path: Cerebras-GPT-1.3B's published widths (Dey et al. 2023,
+# arXiv:2304.03208, Table 1): 24 layers, d_model 2048, 16 heads (D = 128),
+# FFN 8192, vocab 50257, context 2048; causal, dropout 0, trained in fp32
+# with the fp32 phase's SGD and limits on 2 x 2048 tokens, one warm step
+# and GPT_STEPS - 1 more
+GPT = dict(vocab_size=50257, units=2048, num_layers=24, num_heads=16,
+           hidden_size=8192, max_len=2048)
+GPT_B, GPT_T, GPT_STEPS = 2, 2048, 5
+# the fp32 tensor-core backward's max abs error against an fp64 evaluation
+# of the plain backward, over the CUDA-core passes' on the same inputs, for
+# D > 64 (flash_bwd_tc32_d128.cu). Against the fp32 plain version the
+# ratio is not a measure of accuracy: cuBLAS and the CUDA-core passes sum
+# in the same order, so their roundings agree (logged as err_over_cc)
+ERR_OVER_CC = 2.0
 SGD_SIZES = (23_440_896, 2_359_296, 768, 1_000_003)
 LADDER = "batch:1,2,4,8;seq:128,256,512"
 N_REQUESTS, CONCURRENCY = 24, 4
@@ -218,6 +245,11 @@ def phase_build():
     lib.mx_flash_bwd_tc32_smem_bytes.restype = ctypes.c_longlong
     log(f"[build] flash_bwd_tc32: each pass asks for "
         f"{lib.mx_flash_bwd_tc32_smem_bytes()} B of dynamic shared memory")
+    lib = _build.load("flash_bwd_tc32_d128")
+    lib.mx_flash_bwd_tc32_d128_smem_bytes.restype = ctypes.c_longlong
+    log(f"[build] flash_bwd_tc32_d128: each pass asks for "
+        f"{lib.mx_flash_bwd_tc32_d128_smem_bytes()} B of dynamic shared "
+        f"memory")
     lib = _build.load("flash_fwd_tc32")
     lib.mx_flash_fwd_tc32_smem_bytes.restype = ctypes.c_longlong
     log(f"[build] flash_fwd_tc32: the kernel asks for "
@@ -264,7 +296,9 @@ def phase_kernel_check(peaks):
     split launch; D = 96 on the CUDA cores) at the serving path's rungs and
     the edge cases (ragged T, D = 96, Tq != Tk); bf16 (tensor cores) at
     the same timed shapes; fp16 (tensor cores) at the training rung and the
-    edge cases; fp16 with D = 36 (CUDA cores). Timed cases are timed beside
+    edge cases; fp16 with D = 36 (CUDA cores); fp32 with D = 128 (CUDA
+    cores) at the training rung's B, H, T and, causal, at the GPT path's
+    shape. Timed cases are timed beside
     the plain version, SDPA and the bound, and the tensor-core ones also on
     the CUDA-core kernel on the same inputs. Every fp32 case on the tensor
     cores also runs the CUDA-core kernel on the same inputs and logs its
@@ -292,6 +326,13 @@ def phase_kernel_check(peaks):
               for b in (1, 2, 4) for t in (128, 256, 512)]
     cases += [((8, HEADS, 256, 256, 36), torch.float16, c)
               for c in (False, True)]
+    # fp32 at D = 128 (CUDA cores): the training rung's B, H, T and the GPT
+    # path's shape
+    wide = [(8, HEADS, 512, 512, 128), (GPT_B, GPT["num_heads"], GPT_T,
+                                        GPT_T, 128)]
+    cases += [(s_, torch.float32, c) for s_ in wide for c in (False, True)
+              if c or s_ == wide[0]]
+    timed += wide
     counters = (LAUNCHES, LAUNCHES_TC, LAUNCHES_TC32, LAUNCHES_SPLIT)
     rows, bad = [], []
     for shape, dtype, causal in cases:
@@ -345,6 +386,9 @@ def phase_kernel_check(peaks):
                     (l2 - ref_lse).abs().max().item())
                 row.update(
                     split_ms=cuda_ms(lambda: split_bf16x3(q, k, v)),
+                    # 4 bytes read and 6 written per element of q, k, v
+                    split_bound_ms=10 * sum(t.numel() for t in (q, k, v))
+                    / peaks["bytes"] * 1e3,
                     kernel_ms=cuda_ms(lambda: _fwd_pass(
                         "tc32", q, k, v, o2, l2, causal, s, planes)),
                     one_wg_ms=cuda_ms(lambda: fwd_tc32_one_wg(
@@ -402,20 +446,43 @@ def backward_bounds(B, H, Tq, Tk, D, causal, dtype, peaks, ffma=False):
     return out
 
 
+def bwd_fp64(q, k, v, out, lse, dout, causal):
+    """The plain backward's formulas (``flash_attention_ref_bwd``)
+    evaluated in fp64 on the same fp32 inputs: the yardstick of the fp32
+    routes' accuracy."""
+    q, k, v, out, dout = (t.double() for t in (q, k, v, out, dout))
+    s = 1 / q.shape[-1] ** 0.5
+    logits = torch.matmul(q, k.transpose(-1, -2)) * s
+    if causal:
+        Tq, Tk = q.shape[2], k.shape[2]
+        keep = (torch.arange(Tq, device=q.device)[:, None]
+                >= torch.arange(Tk, device=q.device)[None, :])
+        logits = logits.masked_fill(~keep, float("-inf"))
+    p = torch.exp(logits - lse.double()[..., None])
+    ds = p * (torch.matmul(dout, v.transpose(-1, -2))
+              - (dout * out).sum(-1, keepdim=True))
+    return (torch.matmul(ds, k) * s, torch.matmul(ds.transpose(-1, -2), q) * s,
+            torch.matmul(p.transpose(-1, -2), dout))
+
+
 def phase_backward_check(peaks):
     """B3 (dQ) and B4 (dK/dV) against the plain backward on the same
     inputs (the kernel forward's out and lse, one dO), each launched once
-    per case on the route ``_bwd_route`` picks: fp16/bf16 (tensor cores),
-    fp32 with D <= 64 (tensor cores on bf16 planes, after one split
-    launch) and fp32 with D = 96 (CUDA cores) at the training rung and the
-    edge cases (ragged T, D = 96, Tq != Tk), fp16/bf16 at D = 128, fp32 at
-    the training rung's B, H and T with D = 96 and 128 (CUDA cores, the
-    only fp32 route there), and one fp16 case with D % 8 != 0 (CUDA cores).
-    Every fp32 case on the tensor cores also runs the CUDA-core passes on
-    the same inputs and logs their error beside its own. Timed at the
-    training rung in every dtype and at fp32's D = 96 and 128, full and
-    causal, the tensor-core routes also on the CUDA-core kernels. Every
-    case is run and logged before a disagreement fails the phase."""
+    per case on the route ``_bwd_route`` picks: fp16/bf16 (tensor cores)
+    and fp32 with D % 8 == 0 (tensor cores on bf16 planes, after one split
+    launch; ``flash_bwd_tc32.cu`` up to D = 64, ``flash_bwd_tc32_d128.cu``
+    above) at the training rung and the edge cases (ragged T, D = 96,
+    Tq != Tk), fp16/bf16 at D = 128, fp32 with D = 72 and 80 at ragged T and
+    Tq != Tk, fp32 at the training rung's B, H and T with D = 96 and 128,
+    fp32 at the GPT path's shape (causal), and one fp16 case with
+    D % 8 != 0 (CUDA cores). Every fp32 case on the tensor cores also runs
+    the CUDA-core passes on the same inputs and logs both routes' errors
+    against the fp32 plain version and against an fp64 evaluation of it
+    (:func:`bwd_fp64`); with D > 64 the route's fp64 error must stay within
+    ``ERR_OVER_CC`` times the CUDA-core passes'. Timed at the training rung
+    in every dtype, at fp32's D = 96 and 128, full and causal, and at the
+    GPT path's shape, the tensor-core routes also on the CUDA-core kernels.
+    Every case is run and logged before a disagreement fails the phase."""
     import torch.nn.functional as F
     from mxnet_tpu_torch.ops.flash_attention import (
         LAUNCHES_DKV, LAUNCHES_DKV_TC, LAUNCHES_DKV_TC32, LAUNCHES_DQ,
@@ -432,8 +499,13 @@ def phase_backward_check(peaks):
               for dt in every for c in (False, True)]
     cases += [((4, HEADS, 512, 512, 128), dt, c)
               for dt in (torch.float16, torch.bfloat16) for c in (False, True)]
+    cases += [((8, HEADS, t, t2, d), torch.float32, c) for d in (72, 80)
+              for t, t2 in ((200, 200), (128, 384)) for c in (False, True)]
     wide = [(8, HEADS, 512, 512, d) for d in (96, 128)]
     cases += [(s, torch.float32, c) for s in wide for c in (False, True)]
+    gpt = (GPT_B, GPT["num_heads"], GPT_T, GPT_T, 128)
+    cases += [(gpt, torch.float32, True)]
+    wide.append(gpt)
     cases += [((8, HEADS, 256, 256, 36), torch.float16, False)]
     counters = (LAUNCHES_DQ, LAUNCHES_DKV, LAUNCHES_DQ_TC, LAUNCHES_DKV_TC,
                 LAUNCHES_DQ_TC32, LAUNCHES_DKV_TC32, LAUNCHES_SPLIT)
@@ -484,6 +556,18 @@ def phase_backward_check(peaks):
             row["err_over_cc"] = max(
                 row["max_abs_err"][n] / max(row["cc_max_abs_err"][n], 1e-30)
                 for n in names)
+            exact = bwd_fp64(q, k, v, out, lse, dout, causal)
+            for key, got in (("fp64_max_abs_err", grads),
+                             ("cc_fp64_max_abs_err", cc),
+                             ("plain_fp64_max_abs_err", ref)):
+                row[key] = {n: (g.double() - r).abs().max().item()
+                            for n, g, r in zip(names, got, exact)}
+            del exact
+            row["err_over_cc_fp64"] = max(
+                row["fp64_max_abs_err"][n]
+                / max(row["cc_fp64_max_abs_err"][n], 1e-30) for n in names)
+            if D > 64:
+                ok = ok and row["err_over_cc_fp64"] <= ERR_OVER_CC
         if shape == rung or shape in wide:
             bounds = backward_bounds(B, H, Tq, Tk, D, causal, dtype, peaks)
             planes = split_bf16x3(q, k, v, dout) if route == "tc32" else None
@@ -522,13 +606,20 @@ def phase_backward_check(peaks):
         if not ok:
             bad.append(row)
         rows.append(row)
-    worst = max(r["err_over_cc"] for r in rows if "err_over_cc" in r)
-    log(f"[kernel] flash_bwd fp32: the tensor-core route's max abs error is "
-        f"at most {worst:.2f}x the CUDA-core route's on the same inputs"
-        + (" (over 4x)" if worst > 4 else ""))
+    for wide_d in (False, True):
+        sel = [r for r in rows if "err_over_cc" in r
+               and (r["shape"][4] > 64) == wide_d]
+        log(f"[kernel] flash_bwd fp32, D {'72-128' if wide_d else '<= 64'}: "
+            f"the tensor-core route's max abs error is at most "
+            f"{max(r['err_over_cc'] for r in sel):.2f}x the CUDA-core "
+            f"route's against the fp32 plain version and "
+            f"{max(r['err_over_cc_fp64'] for r in sel):.2f}x against fp64, "
+            f"on the same inputs")
     if bad:
         raise SystemExit(f"chip_smoke: flash backward disagrees with its "
-                         f"plain version in {len(bad)} cases: {bad}")
+                         f"plain version (or, fp32 with D > 64, errs over "
+                         f"{ERR_OVER_CC}x the CUDA-core passes against "
+                         f"fp64) in {len(bad)} cases: {bad}")
     return rows
 
 
@@ -873,10 +964,10 @@ def _train_step(model, loss_fn, tokens, labels, update, events=None,
     return loss.detach().float().mean()
 
 
-def _train_batch(vocab):
+def _train_batch(vocab, B=TRAIN_B, T=TRAIN_T):
     rng = np.random.default_rng(SEED)
-    return tuple(torch.from_numpy(rng.integers(0, vocab, (TRAIN_B, TRAIN_T))
-                                  ).cuda() for _ in range(2))
+    return tuple(torch.from_numpy(rng.integers(0, vocab, (B, T))).cuda()
+                 for _ in range(2))
 
 
 def _train_counters():
@@ -947,10 +1038,11 @@ def _run_steps(tag, steps, step, missing, want, after=None):
     return losses, walls, parts, totals, torch.cuda.max_memory_allocated()
 
 
-def _step_breakdown(tag, walls, parts, step, path):
+def _step_breakdown(tag, walls, parts, step, path, tokens=TRAIN_B * TRAIN_T):
     """Medians over the steps after the first, and one more step profiled:
     the device's kernel time, each port kernel's (every kernel of
-    ``path`` must show device time) and the eight largest."""
+    ``path`` must show device time), the attention kernels' share of it
+    and the eight largest."""
     steady = range(1, len(walls))
     wall_ms = float(np.median([walls[i] for i in steady]))
     fwd_ms, bwd_ms, opt_ms = (float(np.median([parts[i][j] for i in steady]))
@@ -963,7 +1055,7 @@ def _step_breakdown(tag, walls, parts, step, path):
     return {
         "step_wall_ms_median": wall_ms, "step_wall_ms": walls,
         "step_event_ms_median": fwd_ms + bwd_ms + opt_ms,
-        "tokens_per_s": TRAIN_B * TRAIN_T / (wall_ms / 1e3),
+        "tokens_per_s": tokens / (wall_ms / 1e3),
         "forward_ms": fwd_ms, "backward_ms": bwd_ms, "optimizer_ms": opt_ms,
         "profiled_kernel_ms": kernel_ms,
         "device_busy_share": kernel_ms / wall_ms,
@@ -971,7 +1063,10 @@ def _step_breakdown(tag, walls, parts, step, path):
         "b2_share_of_forward": ours["flash_fwd"] / fwd_ms,
         "b3_b4_share_of_backward":
             (ours["flash_bwd_dq"] + ours["flash_bwd_dkv"]) / bwd_ms,
-        "b1_share_of_optimizer": ours["mp_sgd"] / opt_ms}
+        "b1_share_of_optimizer": ours["mp_sgd"] / opt_ms,
+        "attention_share_of_device": sum(
+            ours[n] for n in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+                              "split_bf16x3")) / kernel_ms}
 
 
 def _update_diff(got, ref, init, names):
@@ -980,8 +1075,8 @@ def _update_diff(got, ref, init, names):
     diff2 = upd2 = 0.0
     worst = (0.0, "")
     for name, a, b, w0 in zip(names, got, ref, init):
-        d = (a - b).norm().item()
-        u = (b - w0).norm().item()
+        d = (a.to(b.device) - b).norm().item()
+        u = (b - w0.to(b.device)).norm().item()
         diff2, upd2 = diff2 + d * d, upd2 + u * u
         if u > 0 and d / u > worst[0]:
             worst = (d / u, name)
@@ -1173,16 +1268,136 @@ def phase_train_fp32(card):
     return totals
 
 
+def _seeded_gpt(attention=None):
+    """The GPT path's model (``GPT``, causal, fp32, dropout 0) with random
+    weights from SEED, drawn on the card: N(0, 0.02) matrices and
+    embeddings, zero biases, LayerNorm 1/0. ``attention`` replaces every
+    layer's attention function (the dense oracle of the reference run)."""
+    from mxnet_tpu_torch.models import TransformerLM
+    model = TransformerLM(**GPT, dropout=0.0, causal=True, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if p.dim() > 1:
+                p.normal_(0.0, 0.02, generator=gen)
+            elif name.endswith("bias"):
+                p.zero_()
+            else:  # a LayerNorm's gamma
+                p.fill_(1.0)
+    if attention is not None:
+        for layer in model.layers:
+            layer.attn.attention = attention
+    return model
+
+
+def phase_train_gpt32(card):
+    """A causal GPT at Cerebras-GPT-1.3B's widths trained in fp32 through
+    the Gluon entry points: one warm step and GPT_STEPS - 1 more, each with
+    every forward launch on the CUDA-core route (D = 128) and every dQ and
+    dK/dV launch on the fp32 tensor-core route (``flash_bwd_tc32_d128.cu``,
+    one split per backward); the breakdown of one more step; then, with the
+    kernel run freed (what the comparison needs kept on the host), two steps
+    of a reference run with dense attention from the same weights and
+    batch."""
+    import gc
+    from mxnet_tpu_torch.gluon import Trainer, collect_params
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.ops.flash_attention import flash_attention_ref
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gc.collect()
+    torch.cuda.empty_cache()
+    sgd = {"learning_rate": TRAIN_LR, "momentum": TRAIN_MOMENTUM}
+    t0 = time.perf_counter()
+    model = _seeded_gpt()
+    params = collect_params(model)
+    trainer = Trainer(params, "sgd", dict(sgd))
+    layers, vocab = len(model.layers), GPT["vocab_size"]
+    loss_fn = SoftmaxCrossEntropyLoss()
+    tokens, labels = _train_batch(vocab, GPT_B, GPT_T)
+    batch = GPT_B * GPT_T
+    init = [p.detach().cpu() for p in params.values()]
+    n_values = sum(p.numel() for p in init)
+    log(f"[gpt32] TransformerLM({GPT}, causal=True): {len(params)} "
+        f"parameters ({n_values} values), float32; batch {GPT_B} x {GPT_T}; "
+        f"SGD lr {TRAIN_LR} momentum {TRAIN_MOMENTUM}; built in "
+        f"{time.perf_counter() - t0:.2f} s")
+
+    # the forward on the CUDA cores (fp32, D = 128), the dQ and dK/dV passes
+    # on the fp32 tensor-core route, one split per backward
+    want = dict.fromkeys(_train_counters(), 0)
+    want.update({"flash_fwd": layers, "flash_bwd_dq": layers,
+                 "flash_bwd_dkv": layers, "flash_bwd_dq_tc32": layers,
+                 "flash_bwd_dkv_tc32": layers, "split_bf16x3": layers})
+    after2, missing = [], []
+    update = _checked(lambda: trainer.step(batch), params, missing)
+
+    def step(events=None):
+        return _train_step(model, loss_fn, tokens, labels, update, events,
+                           scale=1.0)
+
+    def after(i):
+        if i == REF_STEPS - 1:
+            after2.extend(p.detach().cpu() for p in params.values())
+
+    losses, walls, parts, totals, peak = _run_steps(
+        "gpt32", GPT_STEPS, step, missing, want, after)
+    breakdown = _step_breakdown("gpt32", walls, parts, step,
+                                ("flash_fwd", "flash_bwd_dq",
+                                 "flash_bwd_dkv", "split_bf16x3"), batch)
+    names = list(params)
+    del model, params, trainer, update, step, after
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    ref = _seeded_gpt(flash_attention_ref)
+    ref_params = collect_params(ref)
+    ref_trainer = Trainer(ref_params, "sgd", dict(sgd))
+    ref_losses = [_train_step(ref, loss_fn, tokens, labels,
+                              lambda: ref_trainer.step(batch),
+                              scale=1.0).item() for _ in range(REF_STEPS)]
+    ref_peak = torch.cuda.max_memory_allocated()
+    loss_err = max(abs(a - b) for a, b in zip(losses, ref_losses))
+    upd_err, worst = _update_diff(after2, [p.detach() for p in
+                                           ref_params.values()], init, names)
+    log(f"[gpt32] reference run (dense attention, the same update): losses "
+        f"{ref_losses}; max loss diff {loss_err:.3e} (limit "
+        f"{TRAIN32_LOSS_TOL}); update rel. L2 diff {upd_err:.3e} (limit "
+        f"{TRAIN32_UPD_TOL}), worst parameter {worst[1]} {worst[0]:.3e} "
+        f"(limit {TRAIN32_UPD_TOL_EACH}); peak memory {ref_peak} B")
+    del ref, ref_params, ref_trainer, init, after2
+    gc.collect()
+    torch.cuda.empty_cache()
+    if (loss_err > TRAIN32_LOSS_TOL or upd_err > TRAIN32_UPD_TOL
+            or worst[0] > TRAIN32_UPD_TOL_EACH):
+        raise SystemExit("chip_smoke: GPT fp32 training disagrees with the "
+                         "reference run")
+
+    summary = {
+        "card": card, "model": GPT, "causal": True, "parameters": n_values,
+        "batch": [GPT_B, GPT_T], "steps": GPT_STEPS, "dtype": "float32",
+        "losses": losses, "ref_losses": ref_losses, **breakdown,
+        "peak_memory_bytes": peak, "ref_peak_memory_bytes": ref_peak,
+        "launches": totals, "loss_max_abs_diff_vs_ref": loss_err,
+        "update_rel_l2_diff_vs_ref": upd_err,
+        "worst_parameter_rel_diff": list(worst)}
+    log("[gpt32] " + json.dumps(summary))
+    return totals
+
+
 # each port kernel's symbols in the profiler (substrings): every design of
 # the forward and of the backward passes counts under one name
 KERNEL_NAMES = {"flash_fwd": ("flash_fwd_kernel", "flash_fwd_tc_kernel",
                               "flash_fwd_tc32_kernel"),
                 "flash_bwd_dq": ("flash_bwd_dq_kernel",
                                  "flash_bwd_tc_dq_kernel",
-                                 "flash_bwd_tc32_dq_kernel"),
+                                 "flash_bwd_tc32_dq_kernel",
+                                 "flash_bwd_tc32_d128_dq_kernel"),
                 "flash_bwd_dkv": ("flash_bwd_dkv_kernel",
                                   "flash_bwd_tc_dkv_kernel",
-                                  "flash_bwd_tc32_dkv_kernel"),
+                                  "flash_bwd_tc32_dkv_kernel",
+                                  "flash_bwd_tc32_d128_dkv_kernel"),
                 "split_bf16x3": ("split_bf16x3_kernel",),
                 "mp_sgd": ("mp_sgd_mom_kernel",)}
 
@@ -1251,6 +1466,7 @@ def main():
     serve_launches = phase_slice(card)
     train = phase_train(card)
     train32 = phase_train_fp32(card)
+    gpt = phase_train_gpt32(card)
 
     def pick(table, **want):
         return next(r for r in table if "ms" in r
@@ -1263,16 +1479,23 @@ def main():
     bwd16 = pick(bwd_rows, dtype="float16", causal=False)
     bwd32 = pick(bwd_rows, shape=[8, HEADS, 512, 512, HEAD_DIM],
                  dtype="float32", causal=False)
+    gpt_shape = [GPT_B, GPT["num_heads"], GPT_T, GPT_T, 128]
+    fwd_gpt = pick(rows, shape=gpt_shape, dtype="float32", causal=True)
+    bwd_gpt = pick(bwd_rows, shape=gpt_shape, dtype="float32", causal=True)
     split = pick(split_rows, inputs="rung")
     sgd = pick(sgd_rows, n=max(SGD_SIZES))
 
-    def bwd_err(which, key="max_abs_err", **want):
+    def bwd_err(which, key="max_abs_err", wide=False, **want):
+        """The largest error of the pass's outputs over the cases that
+        match ``want``, with D > 64 (``wide``) or D <= 64."""
         grads = ("dq",) if which == "dq" else ("dk", "dv")
         return max(r[key][g] for r in bwd_rows for g in grads
-                   if key in r and all(r[k] == v for k, v in want.items()))
+                   if key in r and (r["shape"][4] > 64) == wide
+                   and all(r[k] == v for k, v in want.items()))
 
     def launches(name):
-        return {"train_fp16": train[name], "train_fp32": train32[name]}
+        return {"train_fp16": train[name], "train_fp32": train32[name],
+                "train_gpt_fp32": gpt[name]}
     common = {"card": card}
     fwd_over_cc = max(r["err_over_cc"] for r in rows if "err_over_cc" in r)
     # the fp16 training path's design (tensor cores), with the fp32 design
@@ -1283,7 +1506,7 @@ def main():
         "source": "mxnet_tpu_torch/csrc/flash_fwd_tc.cu",
         "replaces": "mxnet_tpu/ops/pallas_kernels.py:126",
         "launches": serve_launches + train["flash_fwd"]
-        + train32["flash_fwd"],
+        + train32["flash_fwd"] + gpt["flash_fwd"],
         "launches_by_path": {"serve": serve_launches,
                              **launches("flash_fwd")},
         "launches_tensor_core": train["flash_fwd_tc"],
@@ -1305,11 +1528,24 @@ def main():
                                          if "cc_max_abs_err" in r),
             "err_over_cc": fwd_over_cc,
             "ms": fwd32["ms"], "kernel_ms": fwd32["kernel_ms"],
-            "split_ms": fwd32["split_ms"], "cuda_core_ms": fwd32["cc_ms"],
+            "split_ms": fwd32["split_ms"],
+            "split_bound_ms": fwd32["split_bound_ms"],
+            "cuda_core_ms": fwd32["cc_ms"],
             "one_warpgroup_kernel_ms": fwd32["one_wg_ms"],
             "cuda_core_source": "mxnet_tpu_torch/csrc/flash_fwd.cu",
             **{k: fwd32[k] for k in ("plain_ms", "bound_ms", "bound_by",
                                      "ffma_bound_ms", "library_ms")}},
+        # the GPT path's forward: fp32 with D = 128 on the CUDA cores
+        "float32_d128": {
+            "source": "mxnet_tpu_torch/csrc/flash_fwd.cu", "route": "cuda",
+            "launches": gpt["flash_fwd"],
+            "max_abs_err": max(r["max_abs_err"] for r in rows
+                               if r["dtype"] == "float32"
+                               and r["shape"][4] == 128),
+            "shape": gpt_shape, "causal": True,
+            **{k: fwd_gpt[k] for k in ("ms", "plain_ms", "bound_ms",
+                                       "bound_by", "ffma_bound_ms",
+                                       "library_ms")}},
         **common}]
     for which, line in (("dq", "pallas_kernels.py:257"),
                         ("dkv", "pallas_kernels.py:277")):
@@ -1320,7 +1556,7 @@ def main():
             "source": "mxnet_tpu_torch/csrc/flash_bwd_tc.cu",
             "replaces": f"mxnet_tpu/ops/{line}",
             "launches": train[f"flash_bwd_{which}"]
-            + train32[f"flash_bwd_{which}"],
+            + train32[f"flash_bwd_{which}"] + gpt[f"flash_bwd_{which}"],
             "launches_by_path": launches(f"flash_bwd_{which}"),
             "launches_tensor_core": train[f"flash_bwd_{which}_tc"],
             "max_abs_err": bwd_err(which, route="tc"),
@@ -1339,6 +1575,7 @@ def main():
                 "max_abs_err": bwd_err(which, route="tc32"),
                 "cuda_core_max_abs_err": bwd_err(which, "cc_max_abs_err",
                                                  route="tc32"),
+                "head_dims": "D <= 64, D % 8 == 0",
                 "ms": bwd32[f"{which}_ms"],
                 "cuda_core_ms": bwd32[f"cc_{which}_ms"],
                 "cuda_core_source": "mxnet_tpu_torch/csrc/flash_bwd.cu",
@@ -1347,13 +1584,36 @@ def main():
                 "bound_by": bwd32[f"{which}_bound_by"],
                 "ffma_bound_ms": bwd32[f"{which}_ffma_bound_ms"],
                 "library_ms": bwd32["library_ms"]},
+            # fp32 with D = 72-128 (the GPT path's), timed at its shape
+            "float32_d128": {
+                "source": "mxnet_tpu_torch/csrc/flash_bwd_tc32_d128.cu",
+                "route": "cuda",
+                "launches": gpt[f"flash_bwd_{which}_tc32"],
+                "max_abs_err": bwd_err(which, route="tc32", wide=True),
+                "cuda_core_max_abs_err": bwd_err(
+                    which, "cc_max_abs_err", route="tc32", wide=True),
+                "fp64_max_abs_err": bwd_err(
+                    which, "fp64_max_abs_err", route="tc32", wide=True),
+                "cuda_core_fp64_max_abs_err": bwd_err(
+                    which, "cc_fp64_max_abs_err", route="tc32", wide=True),
+                "ms": bwd_gpt[f"{which}_ms"],
+                "cuda_core_ms": bwd_gpt[f"cc_{which}_ms"],
+                "cuda_core_source": "mxnet_tpu_torch/csrc/flash_bwd.cu",
+                "plain_ms": bwd_gpt["plain_ms"],
+                "bound_ms": bwd_gpt[f"{which}_bound_ms"],
+                "bound_by": bwd_gpt[f"{which}_bound_by"],
+                "ffma_bound_ms": bwd_gpt[f"{which}_ffma_bound_ms"],
+                "library_ms": bwd_gpt["library_ms"],
+                "head_dims": "64 < D <= 128, D % 8 == 0",
+                "shape": gpt_shape, "causal": True},
             **common})
     kernels.append({
         "name": "split_bf16x3", "route": "cuda",
         "source": "mxnet_tpu_torch/csrc/flash_bwd_tc32.cu",
         "replaces": "mxnet_tpu/ops/pallas_kernels.py:243",
         "part_of": "flash_fwd, flash_bwd_dq and flash_bwd_dkv in float32",
-        "launches": serve_launches + train32["split_bf16x3"],
+        "launches": serve_launches + train32["split_bf16x3"]
+        + gpt["split_bf16x3"],
         "max_abs_err": max(r["max_abs_err"] for r in split_rows),
         "ms": split["ms"], "plain_ms": split["plain_ms"],
         "bound_ms": split["bound_ms"], "bound_by": split["bound_by"],

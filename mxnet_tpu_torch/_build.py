@@ -27,7 +27,7 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
 SOURCES = ("flash_fwd", "flash_fwd_tc", "flash_fwd_tc32", "flash_bwd",
-           "flash_bwd_tc", "flash_bwd_tc32", "mp_sgd")
+           "flash_bwd_tc", "flash_bwd_tc32", "flash_bwd_tc32_d128", "mp_sgd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

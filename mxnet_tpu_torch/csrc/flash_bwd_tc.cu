@@ -13,10 +13,11 @@
 //       dv = p^T . dO,  dk = scale * ds^T . q.
 // Both recompute p = exp(q.k^T*scale - lse) from the forward's row
 // log-sum-exp and ds = p * (dO.v^T - delta). No Tq x Tk matrix reaches
-// device memory. fp32 inputs go to flash_bwd_tc32.cu (D <= 64) or the
-// CUDA-core kernels of flash_bwd.cu: they must hold 1e-4 against the plain
-// version, which one-pass TF32 and 16-bit operands do not, and products
-// split into three bf16 planes (flash_bwd_tc32.cu) do.
+// device memory. fp32 inputs go to flash_bwd_tc32.cu (D <= 64),
+// flash_bwd_tc32_d128.cu (64 < D <= 128) or, for odd D, the CUDA-core
+// kernels of flash_bwd.cu: they must hold 1e-4 against the plain version,
+// which one-pass TF32 and 16-bit operands do not, and products split into
+// three bf16 planes (flash_bwd_tc32.cu) do.
 //
 // Bound on an H100 SXM (700 W): the dQ pass does 3 products (S, dP, dQ),
 // the dK/dV pass 4 (S, dP, dV, dK), each 2*BH*Tq*Tk*D flops (halved for

@@ -50,9 +50,11 @@
 //   per operand; completion through `mbarrier`s; thread 0 issues them. At
 //   D <= 64 a tile is 3 x 8 KB and each pass holds two resident operands and
 //   two double-buffered ones: 18 planes, 144 KB, one block per SM, tile i+1
-//   loading while tile i computes. D > 64 stays on flash_bwd.cu: the ring
-//   would need 288 KB, and the dK/dV pass's accumulators would not fit the
-//   registers beside the planes of P and dS.
+//   loading while tile i computes. 64 < D <= 128 goes to
+//   flash_bwd_tc32_d128.cu: in this layout its ring would need 288 KB, and
+//   the dK/dV pass's accumulators would not fit the registers beside the
+//   planes of P and dS; that file sweeps 32-row tiles one 64-column half of
+//   the outputs at a time.
 // - Overlap inside a tile: S and dP are two wgmma groups, and P is computed
 //   and split while dP is in flight. The products that sum over tiles (dQ,
 //   dV, dK) each start a fresh accumulator per tile, added to the running

@@ -1,9 +1,9 @@
 // What the fp32 tensor-core flash-attention kernels (flash_fwd_tc32.cu,
-// flash_bwd_tc32.cu) share: the bf16 planes of an fp32 tile, the register
-// split of an fp32 accumulator into the A planes of the next product, the
-// six plane products of one fp32-grade product (A and B from shared
-// memory, or A from registers with B transposed), the per-tile sum on the
-// CUDA cores, and the 4-D TMA maps and copies of the planes.
+// flash_bwd_tc32.cu, flash_bwd_tc32_d128.cu) share: the bf16 planes of an
+// fp32 tile, the register split of an fp32 accumulator into the A planes of
+// the next product, the six plane products of one fp32-grade product (A and
+// B from shared memory, or A from registers with B transposed), the per-tile
+// sum on the CUDA cores, and the 4-D TMA maps and copies of the planes.
 //
 // Each fp32 operand x is held as three bf16 planes, x0 = bf16(x),
 // x1 = bf16(x - x0), x2 = bf16(x - x0 - x1) (mx_split_bf16x3 in
@@ -11,7 +11,8 @@
 // product a.b is the six plane products ai.bj with i + j <= 2, each exact
 // in fp32, summed in the fp32 accumulator smallest first. A tile is 64 rows
 // of three planes of 64 bf16 columns, each plane one 128-byte-swizzled
-// 8 KB block as TMA writes it.
+// 8 KB block as TMA writes it (flash_bwd_tc32_d128.cu lays out its own
+// tiles of two 64-column halves per plane).
 #pragma once
 
 #include "flash_tc_common.cuh"
@@ -109,13 +110,15 @@ __device__ __forceinline__ void add_tile(float (&sum)[32], const float (&t)[32])
 
 // ------------------------------------------------------------ copies
 
-// One 64 x 64 box of plane p of a (D, T, BH, 3) map at (row r, head bh).
+// One box (64 columns x the map's rows) of plane p of a (D, T, BH, 3) map at
+// (column c, row r, head bh).
 __device__ __forceinline__ void tma_plane(uint32_t dst, const CUtensorMap* map,
-                                          uint32_t bar, int r, int bh, int p) {
+                                          uint32_t bar, int r, int bh, int p,
+                                          int c = 0) {
   asm volatile(
       "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(0), "r"(r), "r"(bh), "r"(p)
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c), "r"(r), "r"(bh), "r"(p)
       : "memory");
 }
 
@@ -129,16 +132,16 @@ __device__ __forceinline__ void tma_planes(uint32_t dst, const CUtensorMap* map,
 // ------------------------------------------------------------------ host side
 
 // The (D, T, BH, 3) map of the bf16 planes of a (BH, T, D) operand, the
-// planes `plane` elements apart: 64 x 64 boxes of one plane, 128-byte
-// swizzle, zero fill out of bounds.
+// planes `plane` elements apart: boxes of 64 columns x `rows` rows of one
+// plane, 128-byte swizzle, zero fill out of bounds.
 inline cudaError_t make_planes_map(CUtensorMap* map, const void* ptr, int BH, int T, int D,
-                                   long long plane) {
+                                   long long plane, int rows = TILE) {
   const EncodeTiled enc = encode_tiled();
   if (enc == nullptr) return cudaErrorNotSupported;
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)T, (cuuint64_t)BH, 3};
   const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)T * D * 2,
                                  (cuuint64_t)plane * 2};
-  const cuuint32_t box[4] = {64, TILE, 1, 1};
+  const cuuint32_t box[4] = {64, (cuuint32_t)rows, 1, 1};
   const cuuint32_t estr[4] = {1, 1, 1, 1};
   const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
                          dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
@@ -147,10 +150,11 @@ inline cudaError_t make_planes_map(CUtensorMap* map, const void* ptr, int BH, in
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-// What the fp32 tensor-core kernels take: D <= 64 with D % 8 == 0 (TMA needs
-// 16-byte row strides of the planes).
-inline bool bad_dims(int BH, int Tq, int Tk, int D) {
-  return BH <= 0 || Tq <= 0 || Tk <= 0 || D <= 0 || D > 64 || D % 8 != 0;
+// What the fp32 tensor-core kernels take: D <= max_d (64, or 128 for
+// flash_bwd_tc32_d128.cu) with D % 8 == 0 (TMA needs 16-byte row strides of
+// the planes).
+inline bool bad_dims(int BH, int Tq, int Tk, int D, int max_d = 64) {
+  return BH <= 0 || Tq <= 0 || Tk <= 0 || D <= 0 || D > max_d || D % 8 != 0;
 }
 
 }  // namespace tc32

@@ -12,9 +12,10 @@ Attention picks its function per shape, as the reference's
 holds for the layer's head dim (up to 128), it goes through
 :func:`~mxnet_tpu_torch.ops.flash_attention`: on CUDA every layer launches
 the hand-written flash kernels (the forward, and in a backward the dQ and
-dK/dV kernels; in fp16/bf16, and in fp32 with a head dim up to 64, on the
-tensor cores), on the CPU it takes their plain versions. Elsewhere it is
-dense :func:`~mxnet_tpu_torch.parallel.local_attention`.
+dK/dV kernels; on the tensor cores in fp16/bf16, and in fp32 for a head
+dim up to 64 in the forward and up to 128 in the backward), on the CPU it
+takes their plain versions. Elsewhere it is dense
+:func:`~mxnet_tpu_torch.parallel.local_attention`.
 ``dtype=torch.float16`` builds the model for mixed-precision training.
 The JAX package's measured choice between flash and dense attention on
 shapes both take (``operator_tune``), context parallelism and the

@@ -8,12 +8,14 @@ hand-written for Hopper, chosen per call by :func:`_fwd_route` and
 - the forward and the backward's dQ and dK/dV passes each have three
   designs: ``csrc/flash_fwd_tc.cu`` / ``csrc/flash_bwd_tc.cu`` (tensor
   cores, wgmma and TMA) for fp16/bf16 with ``D % 8 == 0`` and 16-byte-aligned
-  pointers; ``csrc/flash_fwd_tc32.cu`` / ``csrc/flash_bwd_tc32.cu`` for
-  fp32 with ``D % 8 == 0``, ``D <= 64`` and aligned pointers: the tensor
+  pointers; for fp32 with ``D % 8 == 0`` and aligned pointers, the tensor
   cores on bf16 planes of the fp32 operands (:func:`split_bf16x3`), six
-  plane products per product, which keeps fp32's accuracy;
+  plane products per product, which keeps fp32's accuracy:
+  ``csrc/flash_fwd_tc32.cu`` (forward, ``D <= 64``),
+  ``csrc/flash_bwd_tc32.cu`` (backward, ``D <= 64``) and
+  ``csrc/flash_bwd_tc32_d128.cu`` (backward, ``64 < D <= 128``);
   ``csrc/flash_fwd.cu`` / ``csrc/flash_bwd.cu`` (CUDA cores) for the rest
-  (odd head dims, fp32 with ``D > 64``).
+  (odd head dims, and the fp32 forward with ``D > 64``).
 
 The source notes give the bounds and the designs. The wrappers take
 ``(B, H, T, D)`` tensors of any strides (the kernels read contiguous
@@ -67,9 +69,10 @@ LAUNCHES_TC = _build.LaunchCounter("flash_fwd_tc")
 LAUNCHES_TC32 = _build.LaunchCounter("flash_fwd_tc32")
 LAUNCHES_DQ_TC = _build.LaunchCounter("flash_bwd_tc_dq")
 LAUNCHES_DKV_TC = _build.LaunchCounter("flash_bwd_tc_dkv")
-# the backward launches that took the fp32 tensor-core route (also counted in
-# LAUNCHES_DQ / LAUNCHES_DKV), and the launches of the split kernel (one per
-# fp32 tensor-core forward and one per such backward)
+# the backward launches that took the fp32 tensor-core route, in either of
+# its files (also counted in LAUNCHES_DQ / LAUNCHES_DKV), and the launches of
+# the split kernel (one per fp32 tensor-core forward and one per such
+# backward)
 LAUNCHES_DQ_TC32 = _build.LaunchCounter("flash_bwd_tc32_dq")
 LAUNCHES_DKV_TC32 = _build.LaunchCounter("flash_bwd_tc32_dkv")
 LAUNCHES_SPLIT = _build.LaunchCounter("split_bf16x3")
@@ -229,10 +232,10 @@ def split_bf16x3(*xs) -> torch.Tensor:
     """The three bf16 planes of up to four fp32 tensors, as
     :func:`split_bf16x3_ref` computes them: the operands of the fp32
     tensor-core forward and backward (``csrc/flash_fwd_tc32.cu``,
-    ``csrc/flash_bwd_tc32.cu``). CUDA tensors
-    (contiguous, on one device, 16-byte aligned, each with a multiple of
-    4 elements) launch its split kernel once, bit-equal to the plain
-    version; CPU tensors take the plain version."""
+    ``csrc/flash_bwd_tc32.cu``, ``csrc/flash_bwd_tc32_d128.cu``). CUDA
+    tensors (contiguous, on one device, 16-byte aligned, each with a
+    multiple of 4 elements) launch its split kernel once, bit-equal to the
+    plain version; CPU tensors take the plain version."""
     if not 1 <= len(xs) <= 4:
         raise MXNetError(f"split_bf16x3 takes 1 to 4 tensors, not {len(xs)}")
     for x in xs:
@@ -282,17 +285,17 @@ def _fwd_route(dtype, D: int, aligned: bool) -> str:
 
 def _bwd_route(dtype, D: int, aligned: bool) -> str:
     """Which design takes a launch of a backward pass: ``"tc"``
-    (``csrc/flash_bwd_tc.cu``) for fp16/bf16 and ``"tc32"``
-    (``csrc/flash_bwd_tc32.cu``: bf16 planes of the fp32 operands, six
-    plane products per product, fp32-grade) for fp32 with ``D <= 64``,
-    both with ``D % 8 == 0`` and every pointer 16-byte aligned; ``"cc"``
-    (``csrc/flash_bwd.cu``: CUDA cores) for the rest: odd head dims, and
-    fp32 with ``D > 64``, whose planes would not fit a double-buffered
-    ring in shared memory."""
+    (``csrc/flash_bwd_tc.cu``) for fp16/bf16 and ``"tc32"`` (bf16 planes
+    of the fp32 operands, six plane products per product, fp32-grade:
+    ``csrc/flash_bwd_tc32.cu`` for ``D <= 64``,
+    ``csrc/flash_bwd_tc32_d128.cu``, on tiles two 64-column halves wide,
+    for ``64 < D <= 128``) for fp32, both with ``D % 8 == 0`` and every
+    pointer 16-byte aligned; ``"cc"`` (``csrc/flash_bwd.cu``: CUDA cores)
+    for the rest: odd head dims and unaligned tensors."""
     if D % 8 == 0 and aligned:
         if dtype in (torch.float16, torch.bfloat16):
             return "tc"
-        if dtype == torch.float32 and D <= 64:
+        if dtype == torch.float32:
             return "tc32"
     return "cc"
 
@@ -401,8 +404,9 @@ def _bwd_pass(which, route, q, k, v, out, dout, lse, delta, grads, causal,
     elif route == "tc32":
         nq, nk = q.numel(), k.numel()
         _check_planes(planes, 2 * nq + 2 * nk, f"flash_bwd_{which}")
-        lib = _build.load("flash_bwd_tc32")
-        fn = _fn(lib, f"mx_flash_bwd_tc32_{which}",
+        name = "flash_bwd_tc32" if D <= 64 else "flash_bwd_tc32_d128"
+        lib = _build.load(name)
+        fn = _fn(lib, f"mx_{name}_{which}",
                  _TC32_HEAD + [ctypes.c_void_p] * len(grads) + _TC32_TAIL)
         at = planes.data_ptr()  # plane 0 of q, k, v, dout, 2 bytes each
         args = [at, at + 2 * nq, at + 2 * (nq + nk), at + 2 * (nq + 2 * nk),

@@ -14,9 +14,9 @@ route, the rounding of p as an operand (forward: bf16 <= 2e-2, fp16 <=
 5e-3, chip_smoke's FWD_TOL; backward: |err| <= atol + rtol*|ref| with rtol four half-ulps of the type,
 fp16 2e-3 and bf16 1.6e-2, and atol 1e-3 / 1e-2 for sums that cancel; the
 same limits hold the tensor-core route, which also rounds p and dS to the
-input type as operands). The fp32 forward and backward with D % 8 == 0
-and D <= 64 run on the tensor cores over bf16 planes of their operands and
-hold the same 1e-4.
+input type as operands). The fp32 forward with D % 8 == 0 and D <= 64,
+and the fp32 backward with D % 8 == 0 and D <= 128, run on the tensor
+cores over bf16 planes of their operands and hold the same 1e-4.
 The mixed-precision SGD kernel rounds each operation as its plain version
 does, and the fp32 backward's split kernel rounds as its plain version
 does, so each agrees with it bit for bit.
@@ -242,12 +242,15 @@ def _bwd_close(got, want, dtype):
                                    (2, 3, 160, 160, 96),
                                    (1, 2, 256, 256, 128),
                                    (1, 2, 100, 260, 16),
-                                   (3, 2, 77, 77, 64)])
+                                   (3, 2, 77, 77, 64),
+                                   (2, 3, 200, 200, 72),
+                                   (2, 2, 300, 100, 96),
+                                   (1, 2, 100, 260, 128)])
 def test_backward_kernels_match_plain_version(shape, causal, dtype):
     """The three routes: fp16/bf16 with D % 8 == 0 on the tensor-core
-    kernels, fp32 with D % 8 == 0 and D <= 64 on the fp32 tensor-core
-    kernels (one split launch first; Tq != Tk and ragged T among them),
-    fp32 with D > 64 and D = 33 on the CUDA-core ones."""
+    kernels, fp32 with D % 8 == 0 on the fp32 tensor-core kernels (one
+    split launch first; D <= 64 and D = 72, 96, 128 on their two files;
+    Tq != Tk and ragged T among them), D = 33 on the CUDA-core ones."""
     _need_cuda()
     from mxnet_tpu_torch.ops.flash_attention import (
         LAUNCHES_DKV, LAUNCHES_DKV_TC, LAUNCHES_DKV_TC32, LAUNCHES_DQ,
@@ -264,7 +267,7 @@ def test_backward_kernels_match_plain_version(shape, causal, dtype):
     torch.cuda.synchronize()
     D = shape[-1]
     tc = int(dtype != torch.float32 and D % 8 == 0)
-    tc32 = int(dtype == torch.float32 and D % 8 == 0 and D <= 64)
+    tc32 = int(dtype == torch.float32 and D % 8 == 0)
     assert [c.count - b for c, b in zip(counters, before)] == \
         [1, 1, tc, tc, tc32, tc32, tc32]
     want = flash_attention_ref_bwd(q.float(), k.float(), v.float(),
@@ -273,6 +276,31 @@ def test_backward_kernels_match_plain_version(shape, causal, dtype):
         assert got.dtype == dtype and got.shape == ref.shape
         assert bool(torch.isfinite(got).all())
         _bwd_close(got, ref, dtype)
+
+
+def test_fp32_wide_head_backward_takes_non_contiguous_inputs():
+    """fp32 with D = 128 in the layout a (B, T, H, D) projection gives:
+    the backward through ``flash_attention`` equals the same call on
+    contiguous copies bit for bit."""
+    _need_cuda()
+    from mxnet_tpu_torch.ops.flash_attention import (LAUNCHES_DKV_TC32,
+                                                     flash_attention)
+    g = torch.Generator(device="cuda").manual_seed(10)
+    q, k, v, dout = (torch.randn(2, 160, 3, 128, device="cuda", generator=g)
+                     .transpose(1, 2) for _ in range(4))
+    assert not any(t.is_contiguous() for t in (q, k, v, dout))
+
+    def run(*ts):
+        ts = [t.detach().requires_grad_() for t in ts]
+        out = flash_attention(*ts, causal=True)
+        return (out,) + torch.autograd.grad(out, ts, dout)
+
+    before = LAUNCHES_DKV_TC32.count
+    got = run(q, k, v)
+    want = run(*(t.contiguous() for t in (q, k, v)))
+    assert LAUNCHES_DKV_TC32.count == before + 2
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("n", [4, 4096, 1_000_004])

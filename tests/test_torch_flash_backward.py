@@ -211,14 +211,15 @@ def test_rounded_operands_hold_the_card_tolerance(case, dtype):
                                    torch.bfloat16])
 def test_backward_route(dtype, D, aligned):
     """Tensor cores for 16-bit types with D % 8 == 0 and aligned pointers,
-    and for fp32 too up to D = 64 (on bf16 planes, csrc/flash_bwd_tc32.cu);
-    the CUDA-core kernels for everything else."""
+    and for fp32 too (on bf16 planes: csrc/flash_bwd_tc32.cu up to D = 64,
+    csrc/flash_bwd_tc32_d128.cu up to 128); the CUDA-core kernels for
+    everything else."""
     if D % 8 or not aligned:
         want = "cc"
     elif dtype != torch.float32:
         want = "tc"
     else:
-        want = "tc32" if D <= 64 else "cc"
+        want = "tc32"
     assert _bwd_route(dtype, D, aligned) == want
 
 

@@ -1,24 +1,28 @@
 """The fp32 tensor-core route of the port's flash-attention backward.
 
-``csrc/flash_bwd_tc32.cu`` computes the fp32 backward on the bf16 tensor
-cores: every fp32 operand is split into three bf16 planes
-(``split_bf16x3``: ``x0 = bf16(x)``, ``x1 = bf16(x - x0)``,
-``x2 = bf16(x - x0 - x1)``) and every product ``a.b`` into the six plane
-products ``ai.bj`` with ``i + j <= 2``, each exact in fp32, summed in the
-fp32 accumulator smallest first. The kernel runs only on the card
-(tests/test_torch_cuda.py, chip_smoke.py); this file holds a model of its
+``csrc/flash_bwd_tc32.cu`` (D <= 64) and ``csrc/flash_bwd_tc32_d128.cu``
+(64 < D <= 128) compute the fp32 backward on the bf16 tensor cores: every
+fp32 operand is split into three bf16 planes (``split_bf16x3``:
+``x0 = bf16(x)``, ``x1 = bf16(x - x0)``, ``x2 = bf16(x - x0 - x1)``) and
+every product ``a.b`` into the six plane products ``ai.bj`` with
+``i + j <= 2``, each exact in fp32, summed in the fp32 accumulator
+smallest first; dQ, dK and dV sum one tile of the swept operand (64 rows,
+or 32 for D > 64) at a time into a fresh accumulator and add it to the
+running fp32 sum. The kernels run only on the card
+(tests/test_torch_cuda.py, chip_smoke.py); this file holds a model of their
 arithmetic:
 
 - against the JAX package's fp32 backward (``jax.vjp`` of the Pallas
   ``flash_attention`` in interpret mode, as tests/test_pallas.py runs it),
   within the limit chip_smoke.py holds the card's fp32 backward to
   (``BWD_TOL["float32"]``: 1e-4 max abs);
-- against an fp64 evaluation at the training rung's T = 512, where its
-  error stays within 2x of plain fp32's and one-pass TF32's does not;
+- against an fp64 evaluation at the training rung's T = 512 (D = 64 and
+  128), where its error stays within 2x of plain fp32's and one-pass
+  TF32's does not;
 - the split: the planes sum back to ``x``;
-- the routes: fp32 with ``D % 8 == 0`` and ``D <= 64`` takes this design
-  in the backward, and its counterpart (csrc/flash_fwd_tc32.cu) in the
-  forward.
+- the routes: fp32 with ``D % 8 == 0`` takes this design in the backward
+  up to D = 128, and its counterpart (csrc/flash_fwd_tc32.cu) in the
+  forward up to D = 64.
 """
 import functools
 
@@ -48,6 +52,8 @@ CASES = {
     "ragged_T200_D96": (1, 2, 200, 200, 96),
     "Tq128_Tk256": (1, 1, 128, 256, 64),
     "T200_D40": (1, 2, 200, 200, 40),
+    "ragged_T200_D80": (1, 2, 200, 200, 80),
+    "T256_D128": (1, 2, 256, 256, 128),
 }
 
 # the six plane products (i, j) of a.b, in the kernel's order: smallest first
@@ -75,6 +81,22 @@ def mm_split(a, b, terms=TERMS):
     return out
 
 
+def mm_split_tiles(a, b, rows):
+    """``a.b`` as the kernels sum dQ, dK and dV: the contraction in tiles
+    of ``rows`` (64, or 32 for D > 64), each tile's six plane products
+    (:func:`mm_split`) in a fresh accumulator, added to the running fp32
+    sum in order."""
+    out = mm_split(a[..., :rows], b[..., :rows, :])
+    for i in range(rows, a.shape[-1], rows):
+        out = out + mm_split(a[..., i:i + rows], b[..., i:i + rows, :])
+    return out
+
+
+def _kernel_sum(D):
+    """The model of the kernel that serves head dim ``D``: its tile rows."""
+    return functools.partial(mm_split_tiles, rows=64 if D <= 64 else 32)
+
+
 def mm_split2(a, b):
     """``a.b`` on two planes per operand, three plane products: half the
     tensor-core work of :func:`mm_split`."""
@@ -91,9 +113,12 @@ def mm_tf32(a, b):
     return torch.matmul(_tf32(a), _tf32(b))
 
 
-def bwd_model(q, k, v, out, lse, dout, causal, mm=torch.matmul):
+def bwd_model(q, k, v, out, lse, dout, causal, mm=torch.matmul,
+              mm_sum=None):
     """``flash_attention_ref_bwd``'s formulas in the dtype of the inputs,
-    every product through ``mm``."""
+    every product through ``mm`` (dQ, dK and dV through ``mm_sum`` where
+    given)."""
+    mm_sum = mm_sum or mm
     s = 1.0 / np.sqrt(q.shape[-1])
     logits = mm(q, k.transpose(-1, -2)) * s
     if causal:
@@ -103,8 +128,8 @@ def bwd_model(q, k, v, out, lse, dout, causal, mm=torch.matmul):
     p = torch.exp(logits - lse[..., None])
     delta = (dout * out).sum(-1, keepdim=True)
     ds = p * (mm(dout, v.transpose(-1, -2)) - delta)
-    return (mm(ds, k) * s, mm(ds.transpose(-1, -2), q) * s,
-            mm(p.transpose(-1, -2), dout))
+    return (mm_sum(ds, k) * s, mm_sum(ds.transpose(-1, -2), q) * s,
+            mm_sum(p.transpose(-1, -2), dout))
 
 
 @functools.lru_cache(maxsize=None)
@@ -120,13 +145,15 @@ def _jax_case(case, causal):
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_split_model_holds_the_card_limit(case, causal):
-    """The model of the kernel's arithmetic against the JAX package's fp32
-    backward on the same inputs: within chip_smoke's BWD_TOL["float32"],
-    the limit the card's fp32 kernels meet."""
+    """The model of the arithmetic of the kernel that serves the case's
+    head dim against the JAX package's fp32 backward on the same inputs:
+    within chip_smoke's BWD_TOL["float32"], the limit the card's fp32
+    kernels meet."""
     arrays, want = _jax_case(case, causal)
     q, k, v, g = (torch.from_numpy(a) for a in arrays)
     out, lse = flash_attention_ref_fwd(q, k, v, causal)
-    got = bwd_model(q, k, v, out, lse, g, causal, mm_split)
+    got = bwd_model(q, k, v, out, lse, g, causal, mm_split,
+                    _kernel_sum(q.shape[-1]))
     atol, rtol = BWD_TOL["float32"]
     for name, a, b in zip("qkv", got, want):
         np.testing.assert_allclose(a.numpy(), b, rtol=rtol, atol=atol,
@@ -173,6 +200,42 @@ def test_split_error_within_twice_plain_fp32(causal):
         assert errs["split2"][i] > 2 * plain, (name, errs)
     if causal:
         assert max(errs["tf32"]) > BWD_TOL["float32"][0]
+
+
+@functools.lru_cache(maxsize=None)
+def _wide_errors(causal):
+    """Max abs error of dq, dk, dv against fp64 at T = 512 with D = 128
+    (B = 1, H = 2, unit scale) for plain fp32 products and for the model of
+    csrc/flash_bwd_tc32_d128.cu (32-row tiles), on the same fp32 inputs,
+    out and lse from the fp64 forward rounded to fp32."""
+    q, k, v, g = (torch.from_numpy(a) for a in _inputs(16, 1, 2, 512, 512,
+                                                        128))
+    logits = torch.matmul(q.double(), k.double().transpose(-1, -2)) \
+        / np.sqrt(128)
+    if causal:
+        logits = logits.masked_fill(torch.ones(512, 512).triu(1).bool(),
+                                    float("-inf"))
+    lse = torch.logsumexp(logits, -1)
+    out = torch.matmul(torch.exp(logits - lse[..., None]), v.double())
+    out, lse = out.float(), lse.float()
+    exact = bwd_model(*(t.double() for t in (q, k, v, out, lse, g)), causal)
+    errs = {}
+    for name, mm, mm_sum in (("fp32", torch.matmul, None),
+                             ("split", mm_split, _kernel_sum(128))):
+        got = bwd_model(q, k, v, out, lse, g, causal, mm, mm_sum)
+        errs[name] = [(a.double() - b).abs().max().item()
+                      for a, b in zip(got, exact)]
+    return errs
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_wide_head_split_error_within_twice_plain_fp32(causal):
+    """At D = 128, summed in the 32-row tiles of the D > 64 kernel, each of
+    dq, dk, dv of the split model stays within 2x of plain fp32 products'
+    error against fp64."""
+    errs = _wide_errors(causal)
+    for i, name in enumerate(("dq", "dk", "dv")):
+        assert errs["split"][i] <= 2 * errs["fp32"][i], (name, errs)
 
 
 # half of bf16's smallest subnormal (2^-133): the planes are multiples of
@@ -259,9 +322,10 @@ def test_cpu_fp32_backward_takes_the_plain_version():
 @pytest.mark.parametrize("aligned", [True, False])
 @pytest.mark.parametrize("D", [8, 16, 36, 40, 64, 72, 96, 100, 128])
 def test_fp32_routes(D, aligned):
-    """The backward sends fp32 with D % 8 == 0, D <= 64 and aligned
+    """The backward sends fp32 with D % 8 == 0 (up to 128) and aligned
     pointers to the tensor cores ("tc32") and the rest to the CUDA cores;
-    the forward takes the same routes."""
-    want = "tc32" if D % 8 == 0 and D <= 64 and aligned else "cc"
-    assert _bwd_route(torch.float32, D, aligned) == want
-    assert _fwd_route(torch.float32, D, aligned) == want
+    the forward takes the tensor cores only up to D = 64."""
+    tc = D % 8 == 0 and aligned
+    assert _bwd_route(torch.float32, D, aligned) == ("tc32" if tc else "cc")
+    assert _fwd_route(torch.float32, D, aligned) == \
+        ("tc32" if tc and D <= 64 else "cc")

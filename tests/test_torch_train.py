@@ -8,8 +8,9 @@ Losses, the autograd scopes with Dropout, and the whole Gluon step::
     autograd.backward(scaled)
     trainer.step(batch * LOSS_SCALE)
 
-on a small BERTModel built in both packages from the same numpy-seeded
-weights, with the same token ids and labels. The JAX side runs once per
+on a small BERTModel (and, in fp32, a small causal TransformerLM with
+128-wide heads, the GPT path's head dim) built in both packages from the
+same numpy-seeded weights, with the same token ids and labels. The JAX side runs once per
 module (hybridized, so that its compile is one program per pass).
 Tolerances:
 
@@ -39,7 +40,7 @@ from mxnet_tpu_torch.convert import (params_from_mxnet_tpu,
 from mxnet_tpu_torch.gluon import Trainer, collect_params
 from mxnet_tpu_torch.gluon import loss as torch_loss
 from mxnet_tpu_torch.gluon.nn import Dropout
-from mxnet_tpu_torch.models import BERTModel
+from mxnet_tpu_torch.models import BERTModel, TransformerLM
 
 V, C, L, H, FFN, T, B = 100, 64, 2, 4, 128, 32, 2
 LR, MOMENTUM, LOSS_SCALE, STEPS = 0.1, 0.9, 8.0, 2
@@ -63,10 +64,16 @@ def _weights(shapes):
     return out
 
 
-def _jax_train(dtype):
+# the causal model: 2 layers of 2 heads of 128
+GPT_CFG = dict(vocab_size=V, units=256, num_layers=2, num_heads=2,
+               hidden_size=512, max_len=64, dropout=0.0, causal=True)
+
+
+def _jax_train(dtype, gpt=False):
     tokens, labels = _batch()
-    net = jax_tf.BERTModel(vocab_size=V, units=C, num_layers=L, num_heads=H,
-                           hidden_size=FFN, max_len=64, dropout=0.0)
+    net = jax_tf.TransformerLM(**GPT_CFG) if gpt else jax_tf.BERTModel(
+        vocab_size=V, units=C, num_layers=L, num_heads=H, hidden_size=FFN,
+        max_len=64, dropout=0.0)
     net.initialize()
     net(mx.nd.array(tokens, dtype="int32"))  # resolves deferred shapes
     params = net._collect_params_with_prefix()
@@ -104,12 +111,16 @@ def jax_runs():
     return {dt: _jax_train(dt) for dt in ("float32", "float16")}
 
 
-def _port_train(named, dtype):
+def _port_train(named, dtype, gpt=False):
     tokens, labels = _batch()
     torch.manual_seed(0)
-    model = BERTModel(vocab_size=V, units=C, num_layers=L, num_heads=H,
-                      hidden_size=FFN, max_len=64, dropout=0.0, device="cpu",
-                      dtype=getattr(torch, dtype))
+    if gpt:
+        model = TransformerLM(**GPT_CFG, device="cpu",
+                              dtype=getattr(torch, dtype))
+    else:
+        model = BERTModel(vocab_size=V, units=C, num_layers=L, num_heads=H,
+                          hidden_size=FFN, max_len=64, dropout=0.0,
+                          device="cpu", dtype=getattr(torch, dtype))
     model.load_state_dict(params_from_mxnet_tpu(named, model))
     params = collect_params(model)
     trainer = Trainer(params, "sgd", {"learning_rate": LR,
@@ -141,6 +152,21 @@ def test_fp32_sgd_momentum_steps_match_jax(jax_runs):
     assert losses[1].mean() < losses[0].mean()
     for name in want_w:
         np.testing.assert_allclose(weights[name], want_w[name], rtol=RTOL32,
+                                   atol=ATOL32, err_msg=name)
+
+
+def test_fp32_causal_wide_head_steps_match_jax():
+    """A causal TransformerLM with 128-wide heads (the GPT path's head dim,
+    whose backward takes csrc/flash_bwd_tc32_d128.cu on the card), two fp32
+    SGD-momentum steps: losses and weights as the BERT model's."""
+    run = _jax_train("float32", gpt=True)
+    losses, weights, _ = _port_train(run["named"], "float32", gpt=True)
+    assert sorted(weights) == sorted(run["weights"])
+    for got, want in zip(losses, run["losses"]):
+        np.testing.assert_allclose(got, want, rtol=RTOL32, atol=ATOL32)
+    assert losses[1].mean() < losses[0].mean()
+    for name, want in run["weights"].items():
+        np.testing.assert_allclose(weights[name], want, rtol=RTOL32,
                                    atol=ATOL32, err_msg=name)
 
 
