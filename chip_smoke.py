@@ -11,12 +11,15 @@ end, failing on the first phase that fails:
 2. build — every kernel under ``mxnet_tpu_torch/csrc/`` with ``nvcc``;
 3. kernel check — the flash-attention forward against its plain version
    on the card on its three routes (fp16/bf16 on the tensor-core kernel,
-   fp32 with D <= 64 on the fp32 tensor-core kernel over bf16 planes, odd
-   head dims and fp32 with D > 64 on the CUDA-core one), at the serving and
+   fp32 with D % 8 == 0 on the fp32 tensor-core kernels over bf16 planes,
+   ``flash_fwd_tc32.cu`` for D <= 64 and ``flash_fwd_tc32_d128.cu`` for
+   D = 72-128; odd head dims on the CUDA-core one), at the serving and
    training paths' shapes and edge cases, timed beside the CUDA-core
    kernel on the same inputs, its plain version,
    ``scaled_dot_product_attention`` (a yardstick only) and its bound (fp32
-   also at D = 128 and at the GPT path's shape, on the CUDA cores);
+   also at D = 96 and 128 and at the GPT path's shape); every fp32
+   tensor-core case also against an fp64 evaluation of the plain forward
+   beside the CUDA-core kernel;
 4. backward check — the dQ and dK/dV passes against the plain backward
    on their three routes (fp16/bf16 on the tensor cores; fp32 with
    D % 8 == 0 on the tensor cores over bf16 planes, ``flash_bwd_tc32.cu``
@@ -57,10 +60,11 @@ end, failing on the first phase that fails:
    published widths (24 layers, 2048 units, 16 heads of 128, FFN 8192,
    vocab 50257, 2048 positions; random weights from a seed) trained in
    fp32 on 2 x 2048 tokens with plain SGD and momentum: one warm step and
-   four more, 24/24/24 launches per step (the forward on the CUDA cores,
-   every dQ and dK/dV launch on ``flash_bwd_tc32_d128.cu`` after 24
-   splits), then two steps against a reference run with dense attention
-   (the kernel run freed first), and the same breakdown.
+   four more, 24/24/24 launches per step (every forward launch on
+   ``flash_fwd_tc32_d128.cu`` and every dQ and dK/dV launch on
+   ``flash_bwd_tc32_d128.cu``, after 48 splits: one per forward and one
+   per backward), then two steps against a reference run with dense
+   attention (the kernel run freed first), and the same breakdown.
 
 The last three lines are the card (``nvidia-smi``), ``{"kernels": [...]}``
 and ``{"ok": true, "device": {...}}``.
@@ -136,11 +140,12 @@ TRAIN32_LOSS_TOL, TRAIN32_UPD_TOL, TRAIN32_UPD_TOL_EACH = 1e-3, 2e-3, 1e-2
 GPT = dict(vocab_size=50257, units=2048, num_layers=24, num_heads=16,
            hidden_size=8192, max_len=2048)
 GPT_B, GPT_T, GPT_STEPS = 2, 2048, 5
-# the fp32 tensor-core backward's max abs error against an fp64 evaluation
-# of the plain backward, over the CUDA-core passes' on the same inputs, for
-# D > 64 (flash_bwd_tc32_d128.cu). Against the fp32 plain version the
-# ratio is not a measure of accuracy: cuBLAS and the CUDA-core passes sum
-# in the same order, so their roundings agree (logged as err_over_cc)
+# the fp32 tensor-core forward's and backward's max abs error against an
+# fp64 evaluation of the plain version, over the CUDA-core kernels' on the
+# same inputs, for D > 64 (flash_fwd_tc32_d128.cu, flash_bwd_tc32_d128.cu).
+# Against the fp32 plain version the ratio is not a measure of accuracy:
+# cuBLAS and the CUDA-core kernels sum in the same order, so their roundings
+# agree (logged as err_over_cc)
 ERR_OVER_CC = 2.0
 SGD_SIZES = (23_440_896, 2_359_296, 768, 1_000_003)
 LADDER = "batch:1,2,4,8;seq:128,256,512"
@@ -250,10 +255,11 @@ def phase_build():
     log(f"[build] flash_bwd_tc32_d128: each pass asks for "
         f"{lib.mx_flash_bwd_tc32_d128_smem_bytes()} B of dynamic shared "
         f"memory")
-    lib = _build.load("flash_fwd_tc32")
-    lib.mx_flash_fwd_tc32_smem_bytes.restype = ctypes.c_longlong
-    log(f"[build] flash_fwd_tc32: the kernel asks for "
-        f"{lib.mx_flash_fwd_tc32_smem_bytes()} B of dynamic shared memory")
+    for name in ("flash_fwd_tc32", "flash_fwd_tc32_d128"):
+        fn = getattr(_build.load(name), f"mx_{name}_smem_bytes")
+        fn.restype = ctypes.c_longlong
+        log(f"[build] {name}: the kernel asks for {fn()} B of dynamic "
+            f"shared memory")
     log(f"[build] all kernels built in {time.perf_counter() - t0:.2f} s")
 
 
@@ -273,10 +279,10 @@ def attention_bound(B, H, Tq, Tk, D, causal, dtype, peaks, ffma=False):
 
 
 def fwd_tc32_one_wg(q, k, v, out, lse, causal, scale, planes):
-    """The fp32 tensor-core forward with one consumer warpgroup per block
-    (``mx_flash_fwd_tc32_one_wg``, ``csrc/flash_fwd_tc32.cu``): no route of
-    the port takes it; it is timed beside the route's two warpgroups to
-    measure what the second one buys."""
+    """The fp32 tensor-core forward for D <= 64 with one consumer warpgroup
+    per block (``mx_flash_fwd_tc32_one_wg``, ``csrc/flash_fwd_tc32.cu``):
+    no route of the port takes it; it is timed beside the route's two
+    warpgroups to measure what the second one buys."""
     from mxnet_tpu_torch import _build
     from mxnet_tpu_torch.ops.flash_attention import _FWD_TC32_ARGS, _fn
     lib = _build.load("flash_fwd_tc32")
@@ -293,18 +299,26 @@ def fwd_tc32_one_wg(q, k, v, out, lse, causal, scale, planes):
 def phase_kernel_check(peaks):
     """B2 against its plain version, launched once per case on the route
     ``_fwd_route`` picks: fp32 (tensor cores on bf16 planes, after one
-    split launch; D = 96 on the CUDA cores) at the serving path's rungs and
-    the edge cases (ragged T, D = 96, Tq != Tk); bf16 (tensor cores) at
-    the same timed shapes; fp16 (tensor cores) at the training rung and the
-    edge cases; fp16 with D = 36 (CUDA cores); fp32 with D = 128 (CUDA
-    cores) at the training rung's B, H, T and, causal, at the GPT path's
-    shape. Timed cases are timed beside
-    the plain version, SDPA and the bound, and the tensor-core ones also on
-    the CUDA-core kernel on the same inputs. Every fp32 case on the tensor
-    cores also runs the CUDA-core kernel on the same inputs and logs its
-    error beside its own: in a timed case the route's error must stay
-    within 4x of it (``err_over_cc``). Every case is run and logged before
-    a disagreement fails the phase."""
+    split launch: ``flash_fwd_tc32.cu`` up to D = 64,
+    ``flash_fwd_tc32_d128.cu`` above) at the serving path's rungs and the
+    edge cases (ragged T, D = 96, Tq != Tk); bf16 (tensor cores) at the
+    same timed shapes; fp16 (tensor cores) at the training rung and the
+    edge cases; fp16 with D = 36 (CUDA cores); fp32 with D = 72 and 80 at
+    ragged T, D = 128 with Tq != Tk and with a block's second q tile
+    wholly past Tq, D = 128 at the training rung's B, H, T and, causal, at
+    the GPT path's shape (all on ``flash_fwd_tc32_d128.cu``); fp32 with
+    D = 33 and 100 (CUDA cores). Timed cases are timed beside the plain
+    version, SDPA and the bound, and the tensor-core ones also on the
+    CUDA-core kernel on the same inputs; the fp32 tensor-core ones also
+    time the split and the kernel alone. Every fp32 case on the tensor
+    cores also runs the CUDA-core kernel on the same inputs and logs both
+    kernels' errors against the fp32 plain version and against an fp64
+    evaluation of it: the CUDA-core kernel's against fp32 must hold the
+    same limits as the route's, the route's error against fp32 must stay within 4x
+    of the CUDA-core kernel's (``err_over_cc``) in timed cases and for
+    D > 64, and for D > 64 its error against fp64 within ``ERR_OVER_CC``
+    of the CUDA-core kernel's. Every case is run and logged before a
+    disagreement fails the phase."""
     import torch.nn.functional as F
     from mxnet_tpu_torch.ops.flash_attention import (
         LAUNCHES, LAUNCHES_SPLIT, LAUNCHES_TC, LAUNCHES_TC32, _fwd_pass,
@@ -326,8 +340,18 @@ def phase_kernel_check(peaks):
               for b in (1, 2, 4) for t in (128, 256, 512)]
     cases += [((8, HEADS, 256, 256, 36), torch.float16, c)
               for c in (False, True)]
-    # fp32 at D = 128 (CUDA cores): the training rung's B, H, T and the GPT
-    # path's shape
+    # fp32 with D = 72-128 (flash_fwd_tc32_d128.cu): ragged T, Tq != Tk,
+    # the training rung's B, H, T and the GPT path's shape
+    cases += [((8, HEADS, 200, 200, d), torch.float32, c) for d in (72, 80)
+              for c in (False, True)]
+    cases += [((8, HEADS, 128, 384, 128), torch.float32, c)
+              for c in (False, True)]
+    # a block whose second q tile lies wholly past Tq (300 = 2 * 128 + 44)
+    cases += [((8, HEADS, 300, 100, 128), torch.float32, c)
+              for c in (False, True)]
+    # fp32 with D % 8 != 0 (flash_fwd.cu, the CUDA cores)
+    cases += [((8, HEADS, 200, 200, d), torch.float32, c) for d in (33, 100)
+              for c in (False, True)]
     wide = [(8, HEADS, 512, 512, 128), (GPT_B, GPT["num_heads"], GPT_T,
                                         GPT_T, 128)]
     cases += [(s_, torch.float32, c) for s_ in wide for c in (False, True)
@@ -369,6 +393,26 @@ def phase_kernel_check(peaks):
             row["err_over_cc"] = max(
                 err / max(row["cc_max_abs_err"], 1e-30),
                 lse_err / max(row["cc_lse_max_abs_err"], 1e-30))
+            # both kernels against the plain forward evaluated in fp64
+            exact = fwd_fp64(q, k, v, causal)
+            for key, got in (("fp64_max_abs_err", (out, lse)),
+                             ("cc_fp64_max_abs_err", (o2, l2)),
+                             ("plain_fp64_max_abs_err", (ref, ref_lse))):
+                row[key] = {n: (g.double() - r).abs().max().item()
+                            for n, g, r in zip(("out", "lse"), got, exact)}
+            del exact
+            row["err_over_cc_fp64"] = max(
+                row["fp64_max_abs_err"][n]
+                / max(row["cc_fp64_max_abs_err"][n], 1e-30)
+                for n in ("out", "lse"))
+            # the CUDA-core kernel stays a route (odd D, unaligned
+            # tensors) and the yardstick of the ratios: it holds the
+            # same limits
+            ok = (ok and row["cc_max_abs_err"] <= tol
+                  and row["cc_lse_max_abs_err"] <= FP32_TOL)
+            if D > 64:
+                ok = (ok and row["err_over_cc"] <= 4
+                      and row["err_over_cc_fp64"] <= ERR_OVER_CC)
         if shape in timed:
             bound_ms, bound_by = attention_bound(
                 B, H, Tq, Tk, D, causal, dtype, peaks)
@@ -380,21 +424,22 @@ def phase_kernel_check(peaks):
                     "cc", q, k, v, o2, l2, causal, s))
             if route == "tc32":  # the split and the kernel alone
                 planes = split_bf16x3(q, k, v)
-                fwd_tc32_one_wg(q, k, v, o2, l2, causal, s, planes)
-                row["one_wg_max_abs_err"] = max(
-                    (o2 - ref).abs().max().item(),
-                    (l2 - ref_lse).abs().max().item())
                 row.update(
                     split_ms=cuda_ms(lambda: split_bf16x3(q, k, v)),
                     # 4 bytes read and 6 written per element of q, k, v
                     split_bound_ms=10 * sum(t.numel() for t in (q, k, v))
                     / peaks["bytes"] * 1e3,
                     kernel_ms=cuda_ms(lambda: _fwd_pass(
-                        "tc32", q, k, v, o2, l2, causal, s, planes)),
-                    one_wg_ms=cuda_ms(lambda: fwd_tc32_one_wg(
-                        q, k, v, o2, l2, causal, s, planes)))
-                ok = (ok and row["err_over_cc"] <= 4
-                      and row["one_wg_max_abs_err"] <= FP32_TOL)
+                        "tc32", q, k, v, o2, l2, causal, s, planes)))
+                ok = ok and row["err_over_cc"] <= 4
+            if route == "tc32" and D <= 64:  # one warpgroup per block
+                fwd_tc32_one_wg(q, k, v, o2, l2, causal, s, planes)
+                row["one_wg_max_abs_err"] = max(
+                    (o2 - ref).abs().max().item(),
+                    (l2 - ref_lse).abs().max().item())
+                row["one_wg_ms"] = cuda_ms(lambda: fwd_tc32_one_wg(
+                    q, k, v, o2, l2, causal, s, planes))
+                ok = ok and row["one_wg_max_abs_err"] <= FP32_TOL
             row.update(
                 ms=cuda_ms(lambda: flash_attention_fwd(q, k, v, causal)),
                 plain_ms=cuda_ms(lambda: flash_attention_ref_fwd(
@@ -407,15 +452,23 @@ def phase_kernel_check(peaks):
         if not ok:
             bad.append(row)
         rows.append(row)
-    worst = max(r["err_over_cc"] for r in rows if "err_over_cc" in r)
-    log(f"[kernel] flash_fwd fp32: the tensor-core route's max abs error "
-        f"(out or lse) is at most {worst:.2f}x the CUDA-core route's on the "
-        f"same inputs")
+    for wide_d in (False, True):
+        sel = [r for r in rows if "err_over_cc" in r
+               and (r["shape"][4] > 64) == wide_d]
+        log(f"[kernel] flash_fwd fp32, D {'72-128' if wide_d else '<= 64'}: "
+            f"the tensor-core route's max abs error (out or lse) is at most "
+            f"{max(r['err_over_cc'] for r in sel):.2f}x the CUDA-core "
+            f"route's against the fp32 plain version and "
+            f"{max(r['err_over_cc_fp64'] for r in sel):.2f}x against fp64, "
+            f"on the same inputs")
     if bad:
         raise SystemExit(f"chip_smoke: flash forward disagrees with its "
-                         f"plain version (or, timed on the fp32 tensor-core "
-                         f"route, errs over 4x the CUDA-core kernel) in "
-                         f"{len(bad)} cases: {bad}")
+                         f"plain version (or, on the fp32 tensor-core route, "
+                         f"the CUDA-core kernel does on the same inputs, or "
+                         f"the route errs over 4x the CUDA-core kernel when "
+                         f"timed or with D > 64, or with D > 64 over "
+                         f"{ERR_OVER_CC}x against fp64) in {len(bad)} cases: "
+                         f"{bad}")
     return rows
 
 
@@ -446,18 +499,35 @@ def backward_bounds(B, H, Tq, Tk, D, causal, dtype, peaks, ffma=False):
     return out
 
 
+def _logits_fp64(q, k, causal):
+    """Masked ``q.k^T * scale`` of fp64 ``q``, ``k``, ``-inf`` where causal
+    masks (the plain versions' ``_logits`` evaluates in fp32)."""
+    logits = torch.matmul(q, k.transpose(-1, -2)) * (1 / q.shape[-1] ** 0.5)
+    if causal:
+        Tq, Tk = q.shape[2], k.shape[2]
+        keep = (torch.arange(Tq, device=q.device)[:, None]
+                >= torch.arange(Tk, device=q.device)[None, :])
+        logits = logits.masked_fill(~keep, float("-inf"))
+    return logits
+
+
+def fwd_fp64(q, k, v, causal):
+    """The plain forward's formulas (``flash_attention_ref_fwd``) evaluated
+    in fp64 on the same fp32 inputs: ``(out, lse)``, the yardstick of the
+    fp32 routes' accuracy."""
+    q, k, v = (t.double() for t in (q, k, v))
+    logits = _logits_fp64(q, k, causal)
+    lse = torch.logsumexp(logits, dim=-1)
+    return torch.matmul(torch.exp(logits - lse[..., None]), v), lse
+
+
 def bwd_fp64(q, k, v, out, lse, dout, causal):
     """The plain backward's formulas (``flash_attention_ref_bwd``)
     evaluated in fp64 on the same fp32 inputs: the yardstick of the fp32
     routes' accuracy."""
     q, k, v, out, dout = (t.double() for t in (q, k, v, out, dout))
     s = 1 / q.shape[-1] ** 0.5
-    logits = torch.matmul(q, k.transpose(-1, -2)) * s
-    if causal:
-        Tq, Tk = q.shape[2], k.shape[2]
-        keep = (torch.arange(Tq, device=q.device)[:, None]
-                >= torch.arange(Tk, device=q.device)[None, :])
-        logits = logits.masked_fill(~keep, float("-inf"))
+    logits = _logits_fp64(q, k, causal)
     p = torch.exp(logits - lse.double()[..., None])
     ds = p * (torch.matmul(dout, v.transpose(-1, -2))
               - (dout * out).sum(-1, keepdim=True))
@@ -1293,9 +1363,10 @@ def _seeded_gpt(attention=None):
 def phase_train_gpt32(card):
     """A causal GPT at Cerebras-GPT-1.3B's widths trained in fp32 through
     the Gluon entry points: one warm step and GPT_STEPS - 1 more, each with
-    every forward launch on the CUDA-core route (D = 128) and every dQ and
-    dK/dV launch on the fp32 tensor-core route (``flash_bwd_tc32_d128.cu``,
-    one split per backward); the breakdown of one more step; then, with the
+    every forward, dQ and dK/dV launch on the fp32 tensor-core route
+    (D = 128: ``flash_fwd_tc32_d128.cu`` and ``flash_bwd_tc32_d128.cu``,
+    one split per forward and one per backward); the breakdown of one more
+    step; then, with the
     kernel run freed (what the comparison needs kept on the host), two steps
     of a reference run with dense attention from the same weights and
     batch."""
@@ -1323,12 +1394,13 @@ def phase_train_gpt32(card):
         f"SGD lr {TRAIN_LR} momentum {TRAIN_MOMENTUM}; built in "
         f"{time.perf_counter() - t0:.2f} s")
 
-    # the forward on the CUDA cores (fp32, D = 128), the dQ and dK/dV passes
-    # on the fp32 tensor-core route, one split per backward
+    # the forward, dQ and dK/dV passes on the fp32 tensor-core route (D =
+    # 128), one split per forward and one per backward
     want = dict.fromkeys(_train_counters(), 0)
-    want.update({"flash_fwd": layers, "flash_bwd_dq": layers,
-                 "flash_bwd_dkv": layers, "flash_bwd_dq_tc32": layers,
-                 "flash_bwd_dkv_tc32": layers, "split_bf16x3": layers})
+    want.update({"flash_fwd": layers, "flash_fwd_tc32": layers,
+                 "flash_bwd_dq": layers, "flash_bwd_dkv": layers,
+                 "flash_bwd_dq_tc32": layers, "flash_bwd_dkv_tc32": layers,
+                 "split_bf16x3": 2 * layers})
     after2, missing = [], []
     update = _checked(lambda: trainer.step(batch), params, missing)
 
@@ -1389,7 +1461,8 @@ def phase_train_gpt32(card):
 # each port kernel's symbols in the profiler (substrings): every design of
 # the forward and of the backward passes counts under one name
 KERNEL_NAMES = {"flash_fwd": ("flash_fwd_kernel", "flash_fwd_tc_kernel",
-                              "flash_fwd_tc32_kernel"),
+                              "flash_fwd_tc32_kernel",
+                              "flash_fwd_tc32_d128_kernel"),
                 "flash_bwd_dq": ("flash_bwd_dq_kernel",
                                  "flash_bwd_tc_dq_kernel",
                                  "flash_bwd_tc32_dq_kernel",
@@ -1481,6 +1554,8 @@ def main():
                  dtype="float32", causal=False)
     gpt_shape = [GPT_B, GPT["num_heads"], GPT_T, GPT_T, 128]
     fwd_gpt = pick(rows, shape=gpt_shape, dtype="float32", causal=True)
+    fwd128 = pick(rows, shape=[8, HEADS, 512, 512, 128], dtype="float32",
+                  causal=False)
     bwd_gpt = pick(bwd_rows, shape=gpt_shape, dtype="float32", causal=True)
     split = pick(split_rows, inputs="rung")
     sgd = pick(sgd_rows, n=max(SGD_SIZES))
@@ -1497,7 +1572,14 @@ def main():
         return {"train_fp16": train[name], "train_fp32": train32[name],
                 "train_gpt_fp32": gpt[name]}
     common = {"card": card}
-    fwd_over_cc = max(r["err_over_cc"] for r in rows if "err_over_cc" in r)
+
+    def fwd_err(key, wide, **want):
+        """The largest of ``key`` over the fp32 tensor-core forward's cases
+        that match ``want``, with D > 64 (``wide``) or D <= 64."""
+        return max(max(r[key].values()) if isinstance(r[key], dict)
+                   else r[key] for r in rows if key in r
+                   and (r["shape"][4] > 64) == wide
+                   and all(r[k] == v for k, v in want.items()))
     # the fp16 training path's design (tensor cores), with the fp32 design
     # (tensor cores on bf16 planes, flash_fwd_tc32.cu; the serving and fp32
     # training paths') beside
@@ -1522,11 +1604,10 @@ def main():
             "route": "cuda",
             "launches": serve_launches + train32["flash_fwd"],
             "launches_tc32": serve_launches + train32["flash_fwd_tc32"],
-            "max_abs_err": max(r["max_abs_err"] for r in rows
-                               if r["route"] == "tc32"),
-            "cuda_core_max_abs_err": max(r["cc_max_abs_err"] for r in rows
-                                         if "cc_max_abs_err" in r),
-            "err_over_cc": fwd_over_cc,
+            "max_abs_err": fwd_err("max_abs_err", False, route="tc32"),
+            "cuda_core_max_abs_err": fwd_err("cc_max_abs_err", False),
+            "err_over_cc": fwd_err("err_over_cc", False),
+            "head_dims": "D <= 64, D % 8 == 0",
             "ms": fwd32["ms"], "kernel_ms": fwd32["kernel_ms"],
             "split_ms": fwd32["split_ms"],
             "split_bound_ms": fwd32["split_bound_ms"],
@@ -1535,17 +1616,31 @@ def main():
             "cuda_core_source": "mxnet_tpu_torch/csrc/flash_fwd.cu",
             **{k: fwd32[k] for k in ("plain_ms", "bound_ms", "bound_by",
                                      "ffma_bound_ms", "library_ms")}},
-        # the GPT path's forward: fp32 with D = 128 on the CUDA cores
+        # fp32 with D = 72-128 (the GPT path's), timed at its shape and at
+        # the training rung's B, H, T with D = 128
         "float32_d128": {
-            "source": "mxnet_tpu_torch/csrc/flash_fwd.cu", "route": "cuda",
+            "source": "mxnet_tpu_torch/csrc/flash_fwd_tc32_d128.cu",
+            "route": "cuda", "head_dims": "64 < D <= 128, D % 8 == 0",
             "launches": gpt["flash_fwd"],
-            "max_abs_err": max(r["max_abs_err"] for r in rows
-                               if r["dtype"] == "float32"
-                               and r["shape"][4] == 128),
+            "launches_by_path": {"train_gpt_fp32": gpt["flash_fwd"]},
+            "launches_tc32": gpt["flash_fwd_tc32"],
+            "max_abs_err": fwd_err("max_abs_err", True, route="tc32"),
+            "cuda_core_max_abs_err": fwd_err("cc_max_abs_err", True),
+            "err_over_cc": fwd_err("err_over_cc", True),
+            "fp64_max_abs_err": fwd_err("fp64_max_abs_err", True),
+            "cuda_core_fp64_max_abs_err": fwd_err("cc_fp64_max_abs_err",
+                                                  True),
+            "err_over_cc_fp64": fwd_err("err_over_cc_fp64", True),
             "shape": gpt_shape, "causal": True,
-            **{k: fwd_gpt[k] for k in ("ms", "plain_ms", "bound_ms",
-                                       "bound_by", "ffma_bound_ms",
-                                       "library_ms")}},
+            "kernel_ms": fwd_gpt["kernel_ms"], "ms": fwd_gpt["ms"],
+            "split_ms": fwd_gpt["split_ms"],
+            "cuda_core_ms": fwd_gpt["cc_ms"],
+            "cuda_core_source": "mxnet_tpu_torch/csrc/flash_fwd.cu",
+            **{k: fwd_gpt[k] for k in ("plain_ms", "bound_ms", "bound_by",
+                                       "ffma_bound_ms", "library_ms")},
+            "d128_t512": {k: fwd128[k] for k in (
+                "shape", "kernel_ms", "ms", "split_ms", "cc_ms", "plain_ms",
+                "bound_ms", "bound_by", "library_ms")}},
         **common}]
     for which, line in (("dq", "pallas_kernels.py:257"),
                         ("dkv", "pallas_kernels.py:277")):

@@ -59,117 +59,7 @@ using namespace mxflash;
 using namespace mxflash::tc;
 using namespace mxflash::tc32;
 
-constexpr int SW = 32;                  // rows of a swept tile
-constexpr uint32_t RH = HALF_BYTES;     // a 64-column half of a 64-row plane
-constexpr uint32_t SH = SW * 128;       // a 64-column half of a 32-row plane
-constexpr uint32_t RPL = 2 * RH, SPL = 2 * SH;  // a plane: two halves
-constexpr uint32_t RT = 3 * RPL;        // a resident tile: 48 KB
-constexpr uint32_t ST = 3 * SPL;        // a swept tile: 24 KB
 constexpr size_t SMEM = 2 * RT + 4 * ST + 1024;  // + alignment slack
-
-// A tile's three planes, each as two 64-column boxes (half h at column 64h),
-// into [plane][half] blocks of HALF bytes.
-template <uint32_t HALF>
-__device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int row, int bh) {
-#pragma unroll
-  for (int p = 0; p < 3; ++p)
-#pragma unroll
-    for (int h = 0; h < 2; ++h)
-      tma_plane(dst + (2 * p + h) * HALF, map, bar, row, bh, p, 64 * h);
-}
-
-__device__ __forceinline__ void reg_fence16(float (&d)[16]) {
-#pragma unroll
-  for (int i = 0; i < 16; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-__device__ __forceinline__ void reg_fence_a(uint32_t (&a)[3][2][4]) {
-#pragma unroll
-  for (int p = 0; p < 3; ++p)
-#pragma unroll
-    for (int k = 0; k < 2; ++k)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(a[p][k][i])::"memory");
-}
-
-// d (+)= A . B, m64n32k16 on bf16, A and B K-major in shared memory;
-// scale_d == 0 overwrites d.
-__device__ __forceinline__ void mma_ss_n32(float (&d)[16], uint64_t da, uint64_t db,
-                                           int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
-      ", %16, %17, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-// d (+)= A_I . B_J^T over the 128 columns: A a resident 64-row tile, B a
-// swept 32-row tile, both K-major; eight k16 steps, four per half.
-template <int I, int J>
-__device__ __forceinline__ void ss_term(float (&d)[16], uint32_t a, uint32_t b,
-                                        bool first) {
-#pragma unroll
-  for (int kk = 0; kk < 8; ++kk) {
-    const uint32_t c = (kk & 3) * 32;
-    mma_ss_n32(d, desc(a + I * RPL + (kk >> 2) * RH + c),
-               desc(b + J * SPL + (kk >> 2) * SH + c), (first && kk == 0) ? 0 : 1);
-  }
-}
-
-// d = A . B^T (64 x 32): the six plane products, smallest first.
-__device__ __forceinline__ void mma6_ss(float (&d)[16], uint32_t a, uint32_t b) {
-  ss_term<2, 0>(d, a, b, true);
-  ss_term<0, 2>(d, a, b, false);
-  ss_term<1, 1>(d, a, b, false);
-  ss_term<1, 0>(d, a, b, false);
-  ss_term<0, 1>(d, a, b, false);
-  ss_term<0, 0>(d, a, b, false);
-}
-
-template <int I, int J>
-__device__ __forceinline__ void rs_term(float (&d)[32], const uint32_t (&a)[3][2][4],
-                                        uint32_t b, bool first) {
-#pragma unroll
-  for (int kk = 0; kk < 2; ++kk)
-    mma_rs<bf16>(d, a[I][kk], desc(b + J * SPL + kk * 16 * 128),
-                 (first && kk == 0) ? 0 : 1);
-}
-
-// d = A . B (64 x 64): A the split planes of a 64 x 32 tile in registers, b
-// one 64-column half of a swept 32-row tile read MN-major (its rows are the
-// summed dimension); overwrites d.
-__device__ __forceinline__ void mma6_rs(float (&d)[32], const uint32_t (&a)[3][2][4],
-                                        uint32_t b) {
-  rs_term<2, 0>(d, a, b, true);
-  rs_term<0, 2>(d, a, b, false);
-  rs_term<1, 1>(d, a, b, false);
-  rs_term<1, 0>(d, a, b, false);
-  rs_term<0, 1>(d, a, b, false);
-  rs_term<0, 0>(d, a, b, false);
-}
-
-// A 64 x 32 fp32 accumulator (P or dS) as the three bf16 planes of the A
-// fragments of the two k16 steps of the next product.
-__device__ __forceinline__ void split_a(const float (&d)[16], uint32_t (&a)[3][2][4]) {
-#pragma unroll
-  for (int kk = 0; kk < 2; ++kk)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float x = d[8 * kk + 2 * i], y = d[8 * kk + 2 * i + 1];
-#pragma unroll
-      for (int p = 0; p < 3; ++p) {
-        const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
-        a[p][kk][i] = bf2_bits(h);
-        const float2 f = __bfloat1622float2(h);
-        x -= f.x;
-        y -= f.y;
-      }
-    }
-}
 
 // sum[h] += a . (half h of the swept tile b), for both halves, each through
 // the fresh tile t.
@@ -226,11 +116,11 @@ flash_bwd_tc32_d128_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
   __syncthreads();
   if (tid == 0) {
     mbar_expect_tx(bar_res, 2 * RT);
-    tma_tile<RH>(sQ, &tm_q, bar_res, q0, bh);
-    tma_tile<RH>(sdO, &tm_do, bar_res, q0, bh);
+    tma_tile_halves<RH>(sQ, &tm_q, bar_res, q0, bh);
+    tma_tile_halves<RH>(sdO, &tm_do, bar_res, q0, bh);
     mbar_expect_tx(bar_kv[0], 2 * ST);
-    tma_tile<SH>(sK, &tm_k, bar_kv[0], 0, bh);
-    tma_tile<SH>(sV, &tm_v, bar_kv[0], 0, bh);
+    tma_tile_halves<SH>(sK, &tm_k, bar_kv[0], 0, bh);
+    tma_tile_halves<SH>(sV, &tm_v, bar_kv[0], 0, bh);
   }
 
   // this thread's two rows (tile-relative), their L and delta
@@ -256,8 +146,8 @@ flash_bwd_tc32_d128_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
       __syncthreads();  // every warp is past its products on buffer b ^ 1
       if (tid == 0) {
         mbar_expect_tx(bar_kv[b ^ 1], 2 * ST);
-        tma_tile<SH>(sK + (b ^ 1) * ST, &tm_k, bar_kv[b ^ 1], k0 + SW, bh);
-        tma_tile<SH>(sV + (b ^ 1) * ST, &tm_v, bar_kv[b ^ 1], k0 + SW, bh);
+        tma_tile_halves<SH>(sK + (b ^ 1) * ST, &tm_k, bar_kv[b ^ 1], k0 + SW, bh);
+        tma_tile_halves<SH>(sV + (b ^ 1) * ST, &tm_v, bar_kv[b ^ 1], k0 + SW, bh);
       }
     }
     mbar_wait(bar_kv[b], (it >> 1) & 1);
@@ -338,12 +228,12 @@ flash_bwd_tc32_d128_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,
   __syncthreads();
   if (tid == 0) {
     mbar_expect_tx(bar_res, 2 * RT);
-    tma_tile<RH>(sK, &tm_k, bar_res, k0, bh);
-    tma_tile<RH>(sV, &tm_v, bar_res, k0, bh);
+    tma_tile_halves<RH>(sK, &tm_k, bar_res, k0, bh);
+    tma_tile_halves<RH>(sV, &tm_v, bar_res, k0, bh);
     if (n_q > 0) {
       mbar_expect_tx(bar_q[0], 2 * ST);
-      tma_tile<SH>(sQ, &tm_q, bar_q[0], q_begin, bh);
-      tma_tile<SH>(sdO, &tm_do, bar_q[0], q_begin, bh);
+      tma_tile_halves<SH>(sQ, &tm_q, bar_q[0], q_begin, bh);
+      tma_tile_halves<SH>(sdO, &tm_do, bar_q[0], q_begin, bh);
     }
   }
   // row terms of the first q tile; later tiles' are loaded one tile ahead
@@ -369,8 +259,8 @@ flash_bwd_tc32_d128_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,
     if (it + 1 < n_q) {
       if (tid == 0) {
         mbar_expect_tx(bar_q[b ^ 1], 2 * ST);
-        tma_tile<SH>(sQ + (b ^ 1) * ST, &tm_q, bar_q[b ^ 1], q0 + SW, bh);
-        tma_tile<SH>(sdO + (b ^ 1) * ST, &tm_do, bar_q[b ^ 1], q0 + SW, bh);
+        tma_tile_halves<SH>(sQ + (b ^ 1) * ST, &tm_q, bar_q[b ^ 1], q0 + SW, bh);
+        tma_tile_halves<SH>(sdO + (b ^ 1) * ST, &tm_do, bar_q[b ^ 1], q0 + SW, bh);
       }
       if (tid < SW) {  // stored after this tile's products, read next tile
         nextL = row_L(lb, q0 + SW + tid, Tq);

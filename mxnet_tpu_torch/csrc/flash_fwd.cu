@@ -2,9 +2,10 @@
 //
 // Replaces: the Pallas TPU kernel `_flash_fwd` / `_fwd_kernel` in
 // mxnet_tpu/ops/pallas_kernels.py:126 for head dims with D % 8 != 0 (or
-// pointers not 16-byte aligned) and for fp32 inputs with D > 64; fp16 and
-// bf16 inputs otherwise take the tensor-core kernel of flash_fwd_tc.cu, fp32
-// inputs that of flash_fwd_tc32.cu (ops/flash_attention.py::_fwd_route). It computes the same function:
+// pointers not 16-byte aligned); fp16 and bf16 inputs otherwise take the
+// tensor-core kernel of flash_fwd_tc.cu, fp32 inputs that of
+// flash_fwd_tc32.cu (D <= 64) or flash_fwd_tc32_d128.cu (64 < D <= 128)
+// (ops/flash_attention.py::_fwd_route). It computes the same function:
 //   out[r] = softmax(q[r] . K^T * scale  (causal / tail masked)) . V
 //   lse[r] = log sum_c exp(q[r] . k[c] * scale)          (fp32, natural log)
 // with online softmax, so no Tq x Tk matrix ever reaches device memory.

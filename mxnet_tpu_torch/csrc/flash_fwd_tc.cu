@@ -66,13 +66,6 @@ namespace {
 using namespace mxflash;
 using namespace mxflash::tc;
 
-// 2^x on the MUFU in one instruction (relative error ~2^-22; 0 for -inf).
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
 // q, o: (BH, Tq, D); k, v: (BH, Tk, D); lse: (BH, Tq) fp32.
 // Shared memory (each tile DP/64 swizzled halves of 8 KB): Q, K[2], V[2].
 template <typename T, int DP>

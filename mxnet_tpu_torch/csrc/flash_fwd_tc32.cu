@@ -3,8 +3,9 @@
 //
 // Replaces: for fp32 inputs with D % 8 == 0 and D <= 64, the Pallas TPU
 // kernel `_flash_fwd` in mxnet_tpu/ops/pallas_kernels.py:126 (body
-// `_fwd_kernel` :83, call :137); other fp32 head dims take the CUDA-core
-// kernel of flash_fwd.cu. It computes the same function:
+// `_fwd_kernel` :83, call :137); 64 < D <= 128 takes flash_fwd_tc32_d128.cu,
+// odd head dims the CUDA-core kernel of flash_fwd.cu. It computes the same
+// function:
 //   out[r] = softmax(q[r] . K^T * scale  (causal / tail masked)) . V
 //   lse[r] = log sum_c exp(q[r] . k[c] * scale)          (fp32, natural log)
 // with online softmax, so no Tq x Tk matrix reaches device memory. lse means
@@ -58,12 +59,10 @@
 //   see (causal, top-left aligned) and the block loads none past its last
 //   row; TMA's zero fill covers D < 64 and the ragged edges.
 // - D <= 64 with D % 8 == 0 (TMA needs 16-byte row strides of the planes),
-//   every pointer 16-byte aligned. D = 65-128 stays on flash_fwd.cu: its
-//   tiles are two 64-column halves, so this layout would need 288 KB; one
-//   warpgroup with single-buffered K/V planes (48 KB of Q planes and 96 KB
-//   of K/V) would fit, but with no copy in flight behind the products and
-//   a 64-column-wide O and O_tile beside S and the planes of P in registers.
-// - Epilogue: out = O / l, lse = (m + log2 l) * ln 2, both fp32.
+//   every pointer 16-byte aligned. D = 65-128 has tiles of two 64-column
+//   halves, for which this layout would need 288 KB: flash_fwd_tc32_d128.cu
+//   sweeps K and V in 32-row tiles instead.
+// - Epilogue: out = O / l, lse = m * ln 2 + ln l, both fp32 (store_out).
 #include "flash_tc32_common.cuh"
 
 namespace {
@@ -75,20 +74,6 @@ using namespace mxflash::tc32;
 // Shared memory of a block of nwg consumer warpgroups: Q[nwg], K[2], V[2]
 // and alignment slack.
 constexpr size_t smem_for(int nwg) { return (nwg + 4) * TB + 1024; }
-
-// 2^x on the MUFU in one instruction (relative error ~2^-22; 0 for -inf).
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// The K/V tiles rows [r0, r0 + 64) need: all of Tk, or (causal) the keys up
-// to their last row below Tq.
-__device__ __forceinline__ int kv_tiles(int r0, int Tq, int Tk, int causal) {
-  const int end = causal ? min(Tk, min(Tq, r0 + TILE)) : Tk;
-  return (end + TILE - 1) / TILE;
-}
 
 // Planes of q: (3, ..., BH, Tq, D); of k, v: (3, ..., BH, Tk, D); o: (BH, Tq,
 // D) fp32; lse: (BH, Tq) fp32. NWG consumer warpgroups, one q tile each (2;
@@ -119,8 +104,8 @@ flash_fwd_tc32_kernel(const __grid_constant__ CUtensorMap tm_q,
   // the second tile may lie wholly past Tq: it is then neither loaded nor
   // computed, and its warpgroup only keeps the block's barriers
   const bool live1 = NWG > 1 && r0 + TILE < Tq;
-  const int n0 = kv_tiles(r0, Tq, Tk, causal);
-  const int n1 = live1 ? kv_tiles(r0 + TILE, Tq, Tk, causal) : 0;
+  const int n0 = kv_tiles(r0, Tq, Tk, causal, TILE);
+  const int n1 = live1 ? kv_tiles(r0 + TILE, Tq, Tk, causal, TILE) : 0;
   const int n_kv = max(n0, n1);          // every tile loaded is waited for
   const int my_n = wg == 0 ? n0 : n1;    // the tiles this warpgroup computes
 
@@ -171,35 +156,8 @@ flash_fwd_tc32_kernel(const __grid_constant__ CUtensorMap tm_q,
     wg_wait<0>();
     reg_fence(s);
 
-    // mask, row max over the quad, p = 2^(s*scale*log2(e) - m)
-    const bool edge = (k0 + TILE > Tk) || (causal && k0 + TILE - 1 > q0);
-    float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      if (edge) {
-        const int col = k0 + acc_col(i) + 2 * (lane & 3);
-        if (col >= Tk || (causal && col > r0 + rr + acc_row(i))) s[i] = -INFINITY;
-      }
-      mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
-    }
-    float mu[2], corr[2];
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      mx[e] = fmaxf(mx[e], __shfl_xor_sync(0xffffffffu, mx[e], 1));
-      mx[e] = fmaxf(mx[e], __shfl_xor_sync(0xffffffffu, mx[e], 2));
-      const float m_new = fmaxf(m[e], mx[e] * scale_log2);
-      mu[e] = m_new == -INFINITY ? 0.f : m_new;  // a row with no key yet
-      corr[e] = ex2(m[e] - mu[e]);
-      m[e] = m_new;
-      l[e] *= corr[e];
-    }
-#pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      const int e = (i >> 1) & 1;
-      const float p = ex2(fmaf(s[i], scale_log2, -mu[e]));
-      l[e] += p;
-      s[i] = p;
-    }
+    float corr[2];
+    softmax_tile(s, m, l, corr, k0, q0, r0 + rr, Tk, causal, scale_log2);
 
     // O = O * corr + P.V, this tile's product in a fresh accumulator
     uint32_t a[3][4][4];
@@ -215,25 +173,7 @@ flash_fwd_tc32_kernel(const __grid_constant__ CUtensorMap tm_q,
     for (int i = 0; i < 32; ++i) acc[0][i] = fmaf(acc[0][i], corr[(i >> 1) & 1], s[i]);
   }
   if (my_n == 0) return;
-
-  // epilogue: out = O / l, lse = (m + log2 l) * ln 2
-  float lt[2];
-#pragma unroll
-  for (int e = 0; e < 2; ++e) {
-    lt[e] = l[e];
-    lt[e] += __shfl_xor_sync(0xffffffffu, lt[e], 1);
-    lt[e] += __shfl_xor_sync(0xffffffffu, lt[e], 2);
-    lt[e] = fmaxf(lt[e], 1e-20f);
-    const int row = r0 + rr + 8 * e;
-    if ((lane & 3) == 0 && row < Tq) {
-      const float mf = m[e] == -INFINITY ? 0.f : m[e];
-      lse[(size_t)bh * Tq + row] = (mf + log2f(lt[e])) * LN2;
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 32; ++i) acc[0][i] /= lt[(i >> 1) & 1];
-  // rows from r0: the second warpgroup's warps (4-7) land on rows 64-127
-  store_tile<float, 64>(o + (size_t)bh * Tq * D, acc, r0, Tq, D, 1.f);
+  store_out(o + (size_t)bh * Tq * D, lse + (size_t)bh * Tq, acc, m, l, r0, r0 + rr, Tq, D);
 }
 
 template <int NWG>

@@ -103,6 +103,13 @@ __device__ __forceinline__ void wg_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
 }
 
+// 2^x on the MUFU in one instruction (relative error ~2^-22; 0 for -inf).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
 // Keep the compiler from moving accesses to registers that an asynchronous
 // wgmma reads or writes across the fence / wait that guards them.
 __device__ __forceinline__ void reg_fence(float (&d)[32]) {

@@ -11,11 +11,10 @@ hand-written for Hopper, chosen per call by :func:`_fwd_route` and
   pointers; for fp32 with ``D % 8 == 0`` and aligned pointers, the tensor
   cores on bf16 planes of the fp32 operands (:func:`split_bf16x3`), six
   plane products per product, which keeps fp32's accuracy:
-  ``csrc/flash_fwd_tc32.cu`` (forward, ``D <= 64``),
-  ``csrc/flash_bwd_tc32.cu`` (backward, ``D <= 64``) and
-  ``csrc/flash_bwd_tc32_d128.cu`` (backward, ``64 < D <= 128``);
-  ``csrc/flash_fwd.cu`` / ``csrc/flash_bwd.cu`` (CUDA cores) for the rest
-  (odd head dims, and the fp32 forward with ``D > 64``).
+  ``csrc/flash_fwd_tc32.cu`` / ``csrc/flash_bwd_tc32.cu`` for ``D <= 64``
+  and ``csrc/flash_fwd_tc32_d128.cu`` / ``csrc/flash_bwd_tc32_d128.cu``
+  for ``64 < D <= 128``; ``csrc/flash_fwd.cu`` / ``csrc/flash_bwd.cu``
+  (CUDA cores) for the rest (odd head dims, unaligned tensors).
 
 The source notes give the bounds and the designs. The wrappers take
 ``(B, H, T, D)`` tensors of any strides (the kernels read contiguous
@@ -64,8 +63,8 @@ LAUNCHES_DKV = _build.LaunchCounter("flash_bwd_dkv")
 # the launches of each kernel that took the tensor-core route (also counted
 # in LAUNCHES / LAUNCHES_DQ / LAUNCHES_DKV)
 LAUNCHES_TC = _build.LaunchCounter("flash_fwd_tc")
-# the forward launches that took the fp32 tensor-core route (also counted in
-# LAUNCHES)
+# the forward launches that took the fp32 tensor-core route, in either of
+# its files (also counted in LAUNCHES)
 LAUNCHES_TC32 = _build.LaunchCounter("flash_fwd_tc32")
 LAUNCHES_DQ_TC = _build.LaunchCounter("flash_bwd_tc_dq")
 LAUNCHES_DKV_TC = _build.LaunchCounter("flash_bwd_tc_dkv")
@@ -232,7 +231,8 @@ def split_bf16x3(*xs) -> torch.Tensor:
     """The three bf16 planes of up to four fp32 tensors, as
     :func:`split_bf16x3_ref` computes them: the operands of the fp32
     tensor-core forward and backward (``csrc/flash_fwd_tc32.cu``,
-    ``csrc/flash_bwd_tc32.cu``, ``csrc/flash_bwd_tc32_d128.cu``). CUDA
+    ``csrc/flash_fwd_tc32_d128.cu``, ``csrc/flash_bwd_tc32.cu``,
+    ``csrc/flash_bwd_tc32_d128.cu``). CUDA
     tensors (contiguous, on one device, 16-byte aligned, each with a
     multiple of 4 elements) launch its split kernel once, bit-equal to the
     plain version; CPU tensors take the plain version."""
@@ -268,17 +268,17 @@ def split_bf16x3(*xs) -> torch.Tensor:
 def _fwd_route(dtype, D: int, aligned: bool) -> str:
     """Which design takes a launch of the forward: ``"tc"``
     (``csrc/flash_fwd_tc.cu``: tensor cores) for fp16/bf16 and ``"tc32"``
-    (``csrc/flash_fwd_tc32.cu``: bf16 planes of the fp32 operands, six
-    plane products per product, fp32-grade) for fp32 with ``D <= 64``,
-    both with ``D % 8 == 0`` (TMA needs 16-byte row strides) and every
-    pointer 16-byte aligned; ``"cc"`` (``csrc/flash_fwd.cu``: CUDA cores)
-    for the rest: odd head dims, and fp32 with ``D > 64``, whose planes
-    would need 288 KB of shared memory in the fp32 kernel's two-warpgroup
-    layout (the source note says why no other layout was taken)."""
+    (bf16 planes of the fp32 operands, six plane products per product,
+    fp32-grade: ``csrc/flash_fwd_tc32.cu`` for ``D <= 64``,
+    ``csrc/flash_fwd_tc32_d128.cu``, on tiles two 64-column halves wide,
+    for ``64 < D <= 128``) for fp32, both with ``D % 8 == 0`` (TMA needs
+    16-byte row strides) and every pointer 16-byte aligned; ``"cc"``
+    (``csrc/flash_fwd.cu``: CUDA cores) for the rest: odd head dims and
+    unaligned tensors."""
     if D % 8 == 0 and aligned:
         if dtype in (torch.float16, torch.bfloat16):
             return "tc"
-        if dtype == torch.float32 and D <= 64:
+        if dtype == torch.float32:
             return "tc32"
     return "cc"
 
@@ -323,14 +323,16 @@ def _check_planes(planes, n: int, what: str) -> None:
 def _fwd_pass(route, q, k, v, out, lse, causal, scale, planes=None):
     """One launch of ``route``'s forward kernel on checked, contiguous CUDA
     tensors, writing ``out`` and ``lse``. The ``"tc32"`` route reads
-    ``planes``, the :func:`split_bf16x3` of ``(q, k, v)``."""
+    ``planes``, the :func:`split_bf16x3` of ``(q, k, v)``, in the library
+    of its head dim (``D <= 64`` or ``64 < D <= 128``)."""
     B, H, Tq, D = q.shape
     scalars = (B * H, Tq, k.shape[2], D, float(scale), int(bool(causal)))
     if route == "tc32":
         nq, nk = q.numel(), k.numel()
         _check_planes(planes, nq + 2 * nk, "flash_fwd")
-        lib = _build.load("flash_fwd_tc32")
-        fn = _fn(lib, "mx_flash_fwd_tc32", _FWD_TC32_ARGS)
+        name = "flash_fwd_tc32" if D <= 64 else "flash_fwd_tc32_d128"
+        lib = _build.load(name)
+        fn = _fn(lib, f"mx_{name}", _FWD_TC32_ARGS)
         at = planes.data_ptr()  # plane 0 of q, k, v, 2 bytes each
         args = (at, at + 2 * nq, at + 2 * (nq + nk), planes.shape[1],
                 out.data_ptr(), lse.data_ptr(), *scalars)

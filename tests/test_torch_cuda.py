@@ -14,9 +14,9 @@ route, the rounding of p as an operand (forward: bf16 <= 2e-2, fp16 <=
 5e-3, chip_smoke's FWD_TOL; backward: |err| <= atol + rtol*|ref| with rtol four half-ulps of the type,
 fp16 2e-3 and bf16 1.6e-2, and atol 1e-3 / 1e-2 for sums that cancel; the
 same limits hold the tensor-core route, which also rounds p and dS to the
-input type as operands). The fp32 forward with D % 8 == 0 and D <= 64,
-and the fp32 backward with D % 8 == 0 and D <= 128, run on the tensor
-cores over bf16 planes of their operands and hold the same 1e-4.
+input type as operands). The fp32 forward and backward with D % 8 == 0
+and D <= 128 run on the tensor cores over bf16 planes of their operands
+and hold the same 1e-4.
 The mixed-precision SGD kernel rounds each operation as its plain version
 does, and the fp32 backward's split kernel rounds as its plain version
 does, so each agrees with it bit for bit.
@@ -45,12 +45,18 @@ def _qkv(seed, B, H, Tq, Tk, D, dtype):
                                    (1, 2, 128, 384, 96),
                                    (2, 2, 300, 100, 40),
                                    (1, 1, 1, 7, 33),
-                                   (1, 2, 64, 64, 8)])
+                                   (1, 2, 64, 64, 8),
+                                   (2, 2, 200, 200, 128),
+                                   (1, 2, 128, 320, 128),
+                                   (2, 2, 300, 100, 128),
+                                   (1, 2, 40, 70, 96)])
 def test_kernel_matches_plain_version(shape, causal, dtype, tol):
     """The three routes: fp16/bf16 with D % 8 == 0 on the tensor-core
-    kernel, fp32 with D % 8 == 0 and D <= 64 on the fp32 tensor-core
-    kernel (one split launch first; a block's second q tile wholly past Tq
-    among them), fp32 with D = 96 and D = 33 on the CUDA-core one."""
+    kernel, fp32 with D % 8 == 0 on the fp32 tensor-core kernels (one
+    split launch first; csrc/flash_fwd_tc32.cu up to D = 64 and
+    csrc/flash_fwd_tc32_d128.cu at D = 96 and 128, each with a block whose
+    second q tile lies wholly past Tq: Tq = 300 and 40), D = 33 on the
+    CUDA-core one."""
     _need_cuda()
     from mxnet_tpu_torch.ops.flash_attention import (
         LAUNCHES, LAUNCHES_SPLIT, LAUNCHES_TC, LAUNCHES_TC32, _fwd_route,
@@ -58,7 +64,7 @@ def test_kernel_matches_plain_version(shape, causal, dtype, tol):
     q, k, v = _qkv(0, *shape, dtype)
     D = shape[-1]
     route = ("cc" if D % 8 else "tc" if dtype != torch.float32
-             else "tc32" if D <= 64 else "cc")
+             else "tc32")
     assert _fwd_route(dtype, D, True) == route
     counters = (LAUNCHES, LAUNCHES_TC, LAUNCHES_TC32, LAUNCHES_SPLIT)
     before = [c.count for c in counters]
@@ -127,12 +133,17 @@ def test_attention_takes_non_contiguous_inputs(dtype):
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("shape", [(2, 3, 200, 200, 64),
                                    (1, 2, 128, 384, 64),
-                                   (2, 2, 300, 100, 40)])
+                                   (2, 2, 300, 100, 40),
+                                   (2, 2, 200, 200, 128),
+                                   (1, 2, 128, 384, 80),
+                                   (2, 2, 300, 100, 128),
+                                   (1, 2, 40, 70, 96)])
 def test_fp32_tensor_core_forward_feeds_the_backward(shape, causal):
     """fp32 forward and backward through ``flash_attention``, both on the
     fp32 tensor-core route (two splits): the forward's lse within 1e-4 of
     the plain one, and the gradients the backward rebuilds from it within
-    1e-4 of the dense oracle's."""
+    1e-4 of the dense oracle's. Tq = 300 and 40 give the forward a block
+    whose second q tile lies wholly past Tq."""
     _need_cuda()
     from mxnet_tpu_torch.ops.flash_attention import (
         LAUNCHES_DKV_TC32, LAUNCHES_DQ_TC32, LAUNCHES_SPLIT, LAUNCHES_TC32,

@@ -21,8 +21,8 @@ arithmetic:
   TF32's does not;
 - the split: the planes sum back to ``x``;
 - the routes: fp32 with ``D % 8 == 0`` takes this design in the backward
-  up to D = 128, and its counterpart (csrc/flash_fwd_tc32.cu) in the
-  forward up to D = 64.
+  up to D = 128, and its counterparts (csrc/flash_fwd_tc32.cu,
+  csrc/flash_fwd_tc32_d128.cu) in the forward.
 """
 import functools
 
@@ -322,10 +322,9 @@ def test_cpu_fp32_backward_takes_the_plain_version():
 @pytest.mark.parametrize("aligned", [True, False])
 @pytest.mark.parametrize("D", [8, 16, 36, 40, 64, 72, 96, 100, 128])
 def test_fp32_routes(D, aligned):
-    """The backward sends fp32 with D % 8 == 0 (up to 128) and aligned
-    pointers to the tensor cores ("tc32") and the rest to the CUDA cores;
-    the forward takes the tensor cores only up to D = 64."""
+    """The backward and the forward send fp32 with D % 8 == 0 (up to 128)
+    and aligned pointers to the tensor cores ("tc32") and the rest to the
+    CUDA cores."""
     tc = D % 8 == 0 and aligned
     assert _bwd_route(torch.float32, D, aligned) == ("tc32" if tc else "cc")
-    assert _fwd_route(torch.float32, D, aligned) == \
-        ("tc32" if tc and D <= 64 else "cc")
+    assert _fwd_route(torch.float32, D, aligned) == ("tc32" if tc else "cc")

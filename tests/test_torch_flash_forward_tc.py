@@ -114,12 +114,9 @@ def test_limit_covers_the_rounding(dtype):
                                    torch.bfloat16])
 def test_forward_route(dtype, D, aligned):
     """Tensor cores for 16-bit types with D % 8 == 0 and aligned pointers,
-    and for fp32 with D % 8 == 0, D <= 64 and aligned pointers on bf16
+    and for fp32 with D % 8 == 0 (up to 128) and aligned pointers on bf16
     planes ("tc32"); the CUDA-core kernel for everything else."""
     want = "cc"
     if D % 8 == 0 and aligned:
-        if dtype != torch.float32:
-            want = "tc"
-        elif D <= 64:
-            want = "tc32"
+        want = "tc" if dtype != torch.float32 else "tc32"
     assert _fwd_route(dtype, D, aligned) == want
