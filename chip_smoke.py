@@ -64,10 +64,29 @@ end, failing on the first phase that fails:
    ``flash_fwd_tc32_d128.cu`` and every dQ and dK/dV launch on
    ``flash_bwd_tc32_d128.cu``, after 48 splits: one per forward and one
    per backward), then two steps against a reference run with dense
-   attention (the kernel run freed first), and the same breakdown.
+   attention (the kernel run freed first), and the same breakdown;
+10. ResNet check — ``resnet50_v1`` (the Gluon model zoo's, 1000 classes,
+    full width and depth), two SGD steps at batch 4 on the card and from
+    the same weights and batch on the CPU, in fp32 (TF32 off) and fp64:
+    losses, the update, the running statistics after each step and
+    predict-mode logits; in fp64 the two agree to 1e-9, in fp32 each is
+    held to the fp64 run and the card's error may be at most 3x the
+    CPU's;
+11. ResNet training slice — ``resnet50_v1`` initialised with Xavier
+    (Gaussian, fan in, magnitude 2) and cast to fp16 (BatchNorm fp32),
+    trained on 256 synthetic 224 x 224 images through ``autograd.record``
+    -> ``backward`` -> ``Trainer.step`` with multi-precision SGD under a
+    ``MultiFactorScheduler`` with warmup and a static loss scale: one warm
+    step and eight more, 87 B1 launches per step (one per fp16
+    parameter, none for BatchNorm), every gradient finite, the loss
+    falling, the running statistics moved and fp32, two steps against a
+    reference run with B1's plain version; images/s, the step's windows,
+    device busy share and top kernels, B1's time, peak memory and the
+    share of the fp16 tensor-core peak.
 
-The last three lines are the card (``nvidia-smi``), ``{"kernels": [...]}``
-and ``{"ok": true, "device": {...}}``.
+The script prints its own wall time. The last three lines are the card
+(``nvidia-smi``), ``{"kernels": [...]}`` and ``{"ok": true, "device":
+{...}}``.
 """
 from __future__ import annotations
 
@@ -147,7 +166,53 @@ GPT_B, GPT_T, GPT_STEPS = 2, 2048, 5
 # cuBLAS and the CUDA-core kernels sum in the same order, so their roundings
 # agree (logged as err_over_cc)
 ERR_OVER_CC = 2.0
+# B1 at BERT-base's parameter sizes and an odd one; 2,359,296 is also the
+# largest ResNet-50 tensor (a 3x3 convolution of 512 -> 512 channels)
 SGD_SIZES = (23_440_896, 2_359_296, 768, 1_000_003)
+# the ResNet path: resnet50_v1 (the Gluon model zoo's, He et al. 2015,
+# arXiv:1512.03385, Table 1: 25,629,032 values in 299 parameters, with
+# the zoo's biases on BottleneckV1's 1x1 convolutions), 1000 classes,
+# 224 x 224 images; SGD as bench.py's ResNet step (momentum 0.9) with the
+# image-classification recipe's weight decay
+RESNET_SIZE, RESNET_CLASSES = 224, 1000
+RESNET_LR, RESNET_MOMENTUM, RESNET_WD = 0.1, 0.9, 1e-4
+# [resnet_check]: two SGD steps at batch 4 on the card and on the CPU from
+# the same weights and batch, in fp32 (TF32 off) and in fp64. The fp32
+# gradient of this model is ill-conditioned: the gradient that reaches a
+# convolution through the BatchNorm after it is a small residual of its
+# upstream gradient (the normalisation projects out the mean and the
+# normalised direction), so fp32's roundings (6e-8) leave the gradient a
+# few percent from its fp64 value, on the CPU and on the card alike and
+# in every parameter, and card and CPU cannot agree to fp32's own
+# precision. So each device's fp32 run is held to an fp64 run of the same
+# port code on the CPU: the card's error (losses, update, running
+# statistics after each step, predict-mode logits) at most
+# RESNET32_ERR_RATIO times the CPU's, i.e. fp32-grade, as ERR_OVER_CC
+# holds the attention kernels. 3: cuDNN's fp32 algorithms split and order
+# their sums otherwise than the CPU's, and the second step carries the
+# first's error, random in sign, forward. In fp64 the card and the CPU
+# compute the same function: every quantity, each parameter's update too
+# (the 32 convolution biases a BatchNorm follows left out: their exact
+# gradient is zero and each run's update of them is rounding noise),
+# within RESNET64_TOL = 1e-9 relative: fp64's roundings (1.1e-16) grown by
+# the same conditioning (fp32's 6e-8 grows to a few 1e-2, ~1e6x), with
+# 100x to spare.
+# The rate is 1e-3, not the main phase's 0.1: at batch 4 the fresh model's
+# first update at 0.1 moves the classifier by many times its own scale
+# (the loss falls from ~8.7 to ~1.4), which makes the second step a
+# measure of the dynamics, not of the port
+RESNET_CHECK_B, RESNET_CHECK_STEPS, RESNET_CHECK_LR = 4, 2, 1e-3
+RESNET32_ERR_RATIO, RESNET64_TOL = 3.0, 1e-9
+# [train_resnet50]: fp16 weights and images, BatchNorm fp32, the published
+# batch of 256; one warm step and eight more; 87 fp16 parameters (53
+# convolution weights, 32 convolution biases, the classifier's 2), each
+# one B1 launch per step. The loss is each sample's summed by backward
+# (rescale_grad 1 / (256 * scale)). The static scale is 64: at 128 the
+# largest |gradient| of a run reached 41,920, 64% of fp16's 65,504
+# (NVIDIA H100 80GB HBM3, 700 W, a debugging run of this phase); every
+# step's largest is checked finite and reported
+RESNET_B, RESNET_STEPS, RESNET_LOSS_SCALE = 256, 9, 64.0
+RESNET_FP16_PARAMS = 87
 LADDER = "batch:1,2,4,8;seq:128,256,512"
 N_REQUESTS, CONCURRENCY = 24, 4
 HEADS, HEAD_DIM = 12, 64
@@ -1017,11 +1082,13 @@ def _train_step(model, loss_fn, tokens, labels, update, events=None,
     ``scale``; returns the mean loss (a device tensor). ``events`` (4 CUDA
     events) mark forward, backward and update."""
     from mxnet_tpu_torch import autograd
-    vocab = model.head.weight.shape[0]
     if events:
         events[0].record()
     with autograd.record():
-        loss = loss_fn(model(tokens).reshape(-1, vocab), labels.reshape(-1))
+        # (B, T, vocab) or (B, classes) logits as rows, held no longer
+        # than the loss needs them
+        loss = loss_fn(torch.flatten(model(tokens), 0, -2),
+                       labels.reshape(-1))
         scaled = loss * scale
     if events:
         events[1].record()
@@ -1458,6 +1525,391 @@ def phase_train_gpt32(card):
     return totals
 
 
+def _resnet_batch(batch, dtype, device):
+    """Synthetic images uniform(-1, 1) and labels in [0, 1000), from SEED
+    with numpy, as bench.py draws them."""
+    rng = np.random.RandomState(SEED)
+    x = rng.uniform(-1, 1, (batch, 3, RESNET_SIZE, RESNET_SIZE))
+    y = rng.randint(0, RESNET_CLASSES, (batch,))
+    return (torch.from_numpy(x.astype(np.float32)).to(device, dtype),
+            torch.from_numpy(y.astype(np.float32)).to(device))
+
+
+def _seeded_resnet50(device, dtype=None):
+    """``resnet50_v1(classes=1000)`` initialised from SEED by the port's
+    initializers with MXNet's ResNet recipe (Xavier, Gaussian, fan in,
+    magnitude 2), then cast to ``dtype`` (BatchNorm stays fp32)."""
+    from mxnet_tpu_torch import initializer
+    from mxnet_tpu_torch import random as mx_random
+    from mxnet_tpu_torch.gluon.model_zoo.vision import resnet50_v1
+    mx_random.seed(SEED)
+    net = resnet50_v1(classes=RESNET_CLASSES, device=device)
+    net.initialize(initializer.Xavier(rnd_type="gaussian", factor_type="in",
+                                      magnitude=2))
+    if dtype is not None:
+        net.cast(dtype)
+    return net
+
+
+def _noise_biases(net):
+    """Names of the convolution biases that a BatchNorm follows: the
+    normalization subtracts any per-channel shift, so their exact
+    gradient is zero and what each run computes for them is rounding
+    noise (BottleneckV1's 32 biases)."""
+    from mxnet_tpu_torch.gluon import nn as gnn
+    out = set()
+    for name, seq in net.named_modules():
+        if isinstance(seq, gnn.HybridSequential):
+            kids = list(seq.named_children())
+            out.update(f"{name}.{na}.bias" for (na, a), (_, b)
+                       in zip(kids, kids[1:])
+                       if isinstance(a, gnn.Conv2D) and a.bias is not None
+                       and isinstance(b, gnn.BatchNorm))
+    return out
+
+
+def _rel_l2(a, b):
+    """||a - b|| / ||b|| over lists of tensors (on any devices)."""
+    d = sum((x.double().cpu() - z.double().cpu()).norm().item() ** 2
+            for x, z in zip(a, b))
+    n = sum(z.double().cpu().norm().item() ** 2 for z in b)
+    return (d / n) ** 0.5
+
+
+def phase_resnet_check(card):
+    """ResNet-50 v1 at full width, two SGD steps at batch 4 on the card and,
+    from the same weights and batch, on the CPU through the same port code
+    (the path tier-1 holds against the JAX package), in fp32 and fp64:
+    losses, the update, both running statistics after each step and
+    predict-mode logits, held as ``RESNET32_ERR_RATIO`` and
+    ``RESNET64_TOL`` say."""
+    from mxnet_tpu_torch import autograd
+    from mxnet_tpu_torch.convert import port_name
+    from mxnet_tpu_torch.gluon import Trainer
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    state = {k: v.cpu() for k, v in
+             _seeded_resnet50("cuda").state_dict().items()}
+    model = _seeded_resnet50("cpu")
+    names = list(model.collect_params())
+    stat_names = [n for n in names if n.endswith(("running_mean",
+                                                  "running_var"))]
+    trained = [n for n in names if n not in stat_names]
+    noise = _noise_biases(model)
+    log(f"[resnet_check] resnet50_v1(classes=1000): {len(names)} "
+        f"parameters ({sum(p.numel() for p in model.parameters())} values);"
+        f" TF32 off; batch {RESNET_CHECK_B} x 3 x {RESNET_SIZE} x "
+        f"{RESNET_SIZE}; SGD lr {RESNET_CHECK_LR} momentum "
+        f"{RESNET_MOMENTUM} wd {RESNET_WD}; {RESNET_CHECK_STEPS} steps on "
+        f"the card and on the CPU in fp32 and fp64; built in "
+        f"{time.perf_counter() - t0:.2f} s")
+    loss_fn = SoftmaxCrossEntropyLoss()
+
+    def run(device, dtype):
+        net = _seeded_resnet50("cpu")
+        net.load_state_dict(state)
+        net.cast(dtype)
+        net.to(device)
+        params = net.collect_params()
+        trainer = Trainer(params, "sgd", {"learning_rate": RESNET_CHECK_LR,
+                                          "momentum": RESNET_MOMENTUM,
+                                          "wd": RESNET_WD})
+        x, y = _resnet_batch(RESNET_CHECK_B, dtype, device)
+        t0 = time.perf_counter()
+        losses, stats = [], []
+        for _ in range(RESNET_CHECK_STEPS):
+            losses.append(_train_step(net, loss_fn, x, y,
+                                      lambda: trainer.step(RESNET_CHECK_B),
+                                      scale=1.0).double().cpu())
+            stats.append([params[n].detach().double().cpu().clone()
+                          for n in stat_names])
+        with torch.no_grad(), autograd.predict_mode():
+            logits = net(x).double().cpu()
+        if device == "cuda":
+            torch.cuda.synchronize()
+        return dict(losses=losses, stats=stats, logits=logits,
+                    seconds=time.perf_counter() - t0,
+                    weights={n: params[n].detach().double().cpu().clone()
+                             for n in names})
+
+    runs = {(dev, dt): run(dev, getattr(torch, dt))
+            for dev in ("cuda", "cpu") for dt in ("float32", "float64")}
+    init = {n: state[port_name(n)].double() for n in names}
+    kept = [n for n in trained if n not in noise]
+
+    def errors(got, ref):
+        """Against ``ref``: the losses' max abs difference, the update's
+        rel. L2 over the model and the worst parameter's (noise biases
+        left out), the running statistics' after each step and the
+        predict-mode logits' rel. L2."""
+        upd, _ = _update_diff([got["weights"][n] for n in trained],
+                              [ref["weights"][n] for n in trained],
+                              [init[n] for n in trained], trained)
+        _, worst = _update_diff([got["weights"][n] for n in kept],
+                                [ref["weights"][n] for n in kept],
+                                [init[n] for n in kept], kept)
+        return {"loss": max(abs(a - b).item() for a, b in
+                            zip(got["losses"], ref["losses"])),
+                "update": upd, "worst_parameter": list(worst),
+                "stats": max(_rel_l2(a, b) for a, b in
+                             zip(got["stats"], ref["stats"])),
+                "stats_by_step": [_rel_l2(a, b) for a, b in
+                                  zip(got["stats"], ref["stats"])],
+                "logits": _rel_l2([got["logits"]], [ref["logits"]])}
+
+    ref = runs[("cpu", "float64")]
+    e64 = errors(runs[("cuda", "float64")], ref)
+    card32 = errors(runs[("cuda", "float32")], ref)
+    cpu32 = errors(runs[("cpu", "float32")], ref)
+    ratios = {k: card32[k] / max(cpu32[k], 1e-300)
+              for k in ("loss", "update", "stats", "logits")}
+    moved = all(not torch.equal(a, init[n].double())
+                for a, n in zip(ref["stats"][0], stat_names))
+    summary = {
+        "card": card, "batch": [RESNET_CHECK_B, 3, RESNET_SIZE, RESNET_SIZE],
+        "losses_cuda_fp32": [t.item() for t in
+                             runs[("cuda", "float32")]["losses"]],
+        "losses_cpu_fp64": [t.item() for t in ref["losses"]],
+        "fp64_cuda_vs_cpu": e64, "fp32_cuda_vs_fp64": card32,
+        "fp32_cpu_vs_fp64": cpu32, "fp32_error_ratio_cuda_over_cpu": ratios,
+        "noise_biases_left_out_of_worst": len(noise),
+        "running_stats_moved": moved,
+        "seconds": {f"{d}_{t}": r["seconds"] for (d, t), r in runs.items()}}
+    log("[resnet_check] " + json.dumps(summary))
+    log(f"[resnet_check] limits: fp32 error ratio card / CPU "
+        f"{RESNET32_ERR_RATIO}; fp64 card vs CPU {RESNET64_TOL}")
+    fp64_ok = all(e64[k] <= RESNET64_TOL for k in ("loss", "update",
+                                                     "stats", "logits")) \
+        and e64["worst_parameter"][0] <= RESNET64_TOL
+    finite = all(torch.isfinite(r["logits"]).all() for r in runs.values())
+    if not (fp64_ok and finite and moved
+            and max(ratios.values()) <= RESNET32_ERR_RATIO):
+        raise SystemExit("chip_smoke: ResNet-50 on the card disagrees with "
+                         "the CPU")
+    del runs, state, model
+
+
+def _resnet_macs(net, dtype):
+    """Multiply-accumulates of one image's forward through ``net``'s
+    convolutions and Dense layers, from the shapes a batch-1 forward
+    shows (pooling, BatchNorm and the elementwise work are left out)."""
+    from mxnet_tpu_torch.gluon import nn as gnn
+    total = [0]
+
+    def hook(mod, inp, out):
+        if isinstance(mod, gnn.Dense):
+            total[0] += mod.weight.numel()
+        else:
+            total[0] += out.numel() * mod.weight[0].numel()
+    hooks = [m.register_forward_hook(hook) for m in net.modules()
+             if isinstance(m, (gnn.Conv2D, gnn.Dense))]
+    with torch.no_grad():
+        net(torch.zeros(1, 3, RESNET_SIZE, RESNET_SIZE, device="cuda",
+                        dtype=dtype))
+    for h in hooks:
+        h.remove()
+    return total[0]
+
+
+def phase_train_resnet50(card, peaks):
+    """ResNet-50 v1 trained in fp16 with multi-precision SGD (B1) through
+    the Gluon entry points at the published batch, then two steps of a
+    reference run from the same weights and batch whose update is B1's
+    plain version."""
+    from mxnet_tpu_torch import lr_scheduler
+    from mxnet_tpu_torch.convert import port_name
+    from mxnet_tpu_torch.gluon import Trainer
+    from mxnet_tpu_torch.gluon import nn as gnn
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.ops import optimizer_ops as oops
+    from mxnet_tpu_torch.opt import kernels as opt_kernels
+    t0 = time.perf_counter()
+    net = _seeded_resnet50("cuda", "float16")
+    params = net.collect_params()
+    names = list(params)
+    init_state = {k: v.detach().clone() for k, v in net.state_dict().items()}
+    fp16 = [n for n, p in params.items()
+            if p.requires_grad and p.dtype == torch.float16]
+    sizes16 = [params[n].numel() for n in fp16]
+    # the count from the model's structure: every convolution weight, the
+    # convolutions' biases and the classifier's weight and bias are cast
+    convs = [m for m in net.modules() if isinstance(m, gnn.Conv2D)]
+    by_structure = len(convs) + sum(m.bias is not None for m in convs) + 2
+    stat_names = [n for n in names if n.endswith(("running_mean",
+                                                  "running_var"))]
+    bn_fp32 = [n for n, p in params.items() if p.dtype == torch.float32]
+    if not (len(fp16) == by_structure == RESNET_FP16_PARAMS
+            and len(bn_fp32) == len(names) - RESNET_FP16_PARAMS):
+        raise SystemExit(f"chip_smoke: resnet50_v1 cast to fp16 has "
+                         f"{len(fp16)} fp16 parameters ({by_structure} by "
+                         f"its structure), expected {RESNET_FP16_PARAMS}")
+    sched = lr_scheduler.MultiFactorScheduler(
+        step=[6], factor=0.1, base_lr=RESNET_LR, warmup_steps=2)
+    trainer = Trainer(params, "sgd", {
+        "learning_rate": RESNET_LR, "momentum": RESNET_MOMENTUM,
+        "wd": RESNET_WD, "multi_precision": True, "lr_scheduler": sched})
+    loss_fn = SoftmaxCrossEntropyLoss()
+    x, y = _resnet_batch(RESNET_B, torch.float16, "cuda")
+    macs = _resnet_macs(net, torch.float16)
+    flops_step = 2 * 3 * macs * RESNET_B
+    log(f"[train_resnet50] resnet50_v1(classes=1000) cast to float16: "
+        f"{len(names)} parameters ({sum(p.numel() for p in net.parameters())}"
+        f" values), {len(fp16)} fp16 ({len(convs)} convolution weights, "
+        f"{sum(m.bias is not None for m in convs)} convolution biases, the "
+        f"classifier's 2), {len(bn_fp32)} BatchNorm fp32; batch {RESNET_B} x"
+        f" 3 x {RESNET_SIZE} x {RESNET_SIZE} fp16; SGD lr {RESNET_LR} "
+        f"momentum {RESNET_MOMENTUM} wd {RESNET_WD} multi_precision, "
+        f"MultiFactorScheduler(step=[6], factor=0.1, warmup_steps=2); loss "
+        f"scale {RESNET_LOSS_SCALE}; {macs} multiply-accumulates per image "
+        f"forward, {flops_step:.4e} FLOP per step (2 per MAC, backward 2x "
+        f"the forward); built in {time.perf_counter() - t0:.2f} s")
+
+    want = dict.fromkeys(_train_counters(), 0)
+    want["mp_sgd"] = RESNET_FP16_PARAMS
+    trainable = [p for p in params.values() if p.requires_grad]
+    grad_max, rates, masters, missing = [], [], [], []
+
+    def update():
+        # the largest |gradient| of the step, read after it: a non-finite
+        # value fails the run (a few launches inside the optimizer window)
+        g16 = [p.grad for p in trainable if p.dtype == torch.float16]
+        g32 = [p.grad for p in trainable if p.dtype == torch.float32]
+        grad_max.append(torch.maximum(
+            torch.stack(torch._foreach_norm(g16, float("inf"))).float()
+            .max(), torch.stack(torch._foreach_norm(g32, float("inf")))
+            .max()))
+        trainer.step(RESNET_B * RESNET_LOSS_SCALE)
+        rates.append(trainer.learning_rate)
+    checked = _checked(update, params, missing)
+
+    def step(events=None):
+        return _train_step(net, loss_fn, x, y, checked, events,
+                           RESNET_LOSS_SCALE)
+
+    def after(i):
+        if i == REF_STEPS - 1:
+            states = trainer._updaters[0].states
+            masters.extend(
+                states[j][0].clone() if params[n].dtype == torch.float16
+                else params[n].detach().clone()
+                for j, n in enumerate(names) if params[n].requires_grad)
+
+    losses, walls, parts, totals, peak = _run_steps(
+        "train_resnet50", RESNET_STEPS, step, missing, want, after)
+    max_grad = [g.item() for g in grad_max]
+    if not all(np.isfinite(max_grad)):
+        raise SystemExit(f"chip_smoke: train_resnet50: a gradient held inf "
+                         f"or NaN at loss scale {RESNET_LOSS_SCALE}: "
+                         f"{max_grad}")
+    stats_moved = all(
+        params[n].dtype == torch.float32
+        and not torch.equal(params[n].detach(), init_state[n])
+        for n in stat_names)
+    if not stats_moved:
+        raise SystemExit("chip_smoke: train_resnet50: a running statistic "
+                         "did not move or is not fp32")
+    steady = range(1, len(walls))
+    wall_ms = float(np.median([walls[i] for i in steady]))
+    fwd_ms, bwd_ms, opt_ms = (float(np.median([parts[i][j] for i in steady]))
+                              for j in range(3))
+    kernel_ms, ours, top = profiled_step(step)
+    if ours["mp_sgd"] <= 0:
+        raise SystemExit("chip_smoke: train_resnet50: the profiler found no "
+                         "device time for mp_sgd")
+    summary = {
+        "card": card, "batch": [RESNET_B, 3, RESNET_SIZE, RESNET_SIZE],
+        "steps": RESNET_STEPS, "dtype": "float16, BatchNorm float32",
+        "loss_scale": RESNET_LOSS_SCALE, "losses": losses,
+        "learning_rates": rates[:RESNET_STEPS],
+        "max_abs_grad_by_step": max_grad,
+        "images_per_s": RESNET_B / (wall_ms / 1e3),
+        "step_wall_ms_median": wall_ms, "step_wall_ms": walls,
+        "forward_ms": fwd_ms, "backward_ms": bwd_ms, "optimizer_ms": opt_ms,
+        "profiled_kernel_ms": kernel_ms,
+        "device_busy_share": kernel_ms / wall_ms,
+        "top_kernels_ms": top, "b1_ms_per_step": ours["mp_sgd"],
+        "b1_launches_per_step": RESNET_FP16_PARAMS,
+        "b1_values_per_step": sum(sizes16),
+        "b1_median_values_per_launch": int(np.median(sizes16)),
+        "b1_bound_ms_per_step": 20 * sum(sizes16) / peaks["bytes"] * 1e3,
+        "b1_bound_by": "bytes",
+        "b1_share_of_optimizer": ours["mp_sgd"] / opt_ms,
+        "macs_per_image_forward": macs, "flop_per_step": flops_step,
+        "fp16_tensor_core_peak_share":
+            flops_step / (wall_ms / 1e3) / peaks["float16"],
+        "peak_memory_bytes": peak, "launches": totals}
+    if rates[:2] != [RESNET_LR / 2, RESNET_LR]:
+        raise SystemExit(f"chip_smoke: train_resnet50: learning rates "
+                         f"{rates}, expected {RESNET_LR / 2} (warmup) then "
+                         f"{RESNET_LR}")
+    del trainer, net, params, trainable
+    torch.cuda.empty_cache()
+
+    # reference run: the same start, the plain update (fp16 parameters
+    # through B1's plain version, fp32 ones through plain SGD)
+    ref = _seeded_resnet50("cuda", "float16")
+    ref.load_state_dict(init_state)
+    ref_params = ref.collect_params()
+    ref_state = {n: (p.detach().float().clone(),
+                     torch.zeros_like(p, dtype=torch.float32))
+                 for n, p in ref_params.items() if p.requires_grad}
+    ref_lrs = iter(rates)
+
+    def ref_update():
+        lr = next(ref_lrs)
+        kw = dict(lr=lr, momentum=RESNET_MOMENTUM, wd=RESNET_WD,
+                  rescale_grad=1 / (RESNET_B * RESNET_LOSS_SCALE))
+        with torch.no_grad():
+            for n, (w32, mom) in ref_state.items():
+                p = ref_params[n]
+                if p.dtype == torch.float16:
+                    new = opt_kernels.mp_sgd_mom_update_ref(
+                        p, p.grad, mom, w32, **kw)
+                    for dst, src_ in zip((p, mom, w32), new):
+                        dst.copy_(src_)
+                else:
+                    new_w, new_mom = oops.sgd_mom_update(p, p.grad, mom, **kw)
+                    p.copy_(new_w)
+                    mom.copy_(new_mom)
+                    w32.copy_(new_w)
+                p.grad = None
+
+    ref_losses = [_train_step(ref, loss_fn, x, y, ref_update,
+                              scale=RESNET_LOSS_SCALE).item()
+                  for _ in range(REF_STEPS)]
+    trained = [n for n in names if n in ref_state]
+    init = [init_state[port_name(n)].float() for n in trained]
+    loss_err = max(abs(a - b) for a, b in zip(losses, ref_losses))
+    upd_err, _ = _update_diff(masters, [ref_state[n][0] for n in trained],
+                              init, trained)
+    noise = _noise_biases(ref)
+    keep = [i for i, n in enumerate(trained) if n not in noise]
+    _, worst = _update_diff([masters[i] for i in keep],
+                            [ref_state[trained[i]][0] for i in keep],
+                            [init[i] for i in keep],
+                            [trained[i] for i in keep])
+    log(f"[train_resnet50] reference run (plain update): losses "
+        f"{ref_losses}; max loss diff {loss_err:.3e} (limit "
+        f"{TRAIN_LOSS_TOL}); master-weight update rel. L2 diff "
+        f"{upd_err:.3e} (limit {TRAIN_UPD_TOL}), worst parameter "
+        f"{worst[1]} {worst[0]:.3e} (limit {TRAIN_UPD_TOL_EACH}; the "
+        f"{len(noise)} biases a BatchNorm follows left out)")
+    if (loss_err > TRAIN_LOSS_TOL or upd_err > TRAIN_UPD_TOL
+            or worst[0] > TRAIN_UPD_TOL_EACH):
+        raise SystemExit("chip_smoke: ResNet-50 training disagrees with the "
+                         "reference run")
+    summary.update({"ref_losses": ref_losses,
+                    "loss_max_abs_diff_vs_ref": loss_err,
+                    "master_update_rel_l2_diff_vs_ref": upd_err,
+                    "worst_parameter_rel_diff": list(worst)})
+    log("[train_resnet50] " + json.dumps(summary))
+    del ref, ref_params, ref_state, init_state, x, y
+    torch.cuda.empty_cache()
+    return totals
+
+
 # each port kernel's symbols in the profiler (substrings): every design of
 # the forward and of the backward passes counts under one name
 KERNEL_NAMES = {"flash_fwd": ("flash_fwd_kernel", "flash_fwd_tc_kernel",
@@ -1529,6 +1981,7 @@ def top_rung_breakdown(engine, ladder, top_seq):
 
 
 def main():
+    t_start = time.perf_counter()
     card, name, peaks = phase_device()
     phase_build()
     rows = phase_kernel_check(peaks)
@@ -1540,6 +1993,8 @@ def main():
     train = phase_train(card)
     train32 = phase_train_fp32(card)
     gpt = phase_train_gpt32(card)
+    phase_resnet_check(card)
+    resnet = phase_train_resnet50(card, peaks)
 
     def pick(table, **want):
         return next(r for r in table if "ms" in r
@@ -1559,6 +2014,7 @@ def main():
     bwd_gpt = pick(bwd_rows, shape=gpt_shape, dtype="float32", causal=True)
     split = pick(split_rows, inputs="rung")
     sgd = pick(sgd_rows, n=max(SGD_SIZES))
+    sgd_resnet = pick(sgd_rows, n=2_359_296)
 
     def bwd_err(which, key="max_abs_err", wide=False, **want):
         """The largest error of the pass's outputs over the cases that
@@ -1721,14 +2177,19 @@ def main():
         "name": "mp_sgd", "route": "cuda",
         "source": "mxnet_tpu_torch/csrc/mp_sgd.cu",
         "replaces": "mxnet_tpu/opt/kernels.py:95",
-        "launches": train["mp_sgd"],
+        "launches": train["mp_sgd"] + resnet["mp_sgd"],
+        "launches_by_path": {"train_fp16": train["mp_sgd"],
+                             "train_resnet50_fp16": resnet["mp_sgd"]},
         "max_abs_err": max(r["max_abs_err"] for r in sgd_rows),
         "ms": sgd["ms"], "plain_ms": sgd["plain_ms"],
         "bound_ms": sgd["bound_ms"], "bound_by": sgd["bound_by"],
+        "largest_resnet50_tensor": {k: sgd_resnet[k] for k in (
+            "n", "ms", "plain_ms", "bound_ms", "bound_by")},
         "library_ms": None,
         "library_none_because": "no single PyTorch call computes the "
                                 "update and the cast together",
         "shape": [sgd["n"]], "dtype": "float16/float32", **common})
+    log(f"[time] chip_smoke ran for {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,9 +1,11 @@
 """Carry weights between the JAX package's naming and the port's models.
 
 ``mxnet_tpu`` names a block's parameters by ``_collect_params_with_prefix()``
-(``layers.0.attn.qkv.weight``, ``ln_f.gamma``, ...). The port keeps the
-same attribute paths and layouts, and names a LayerNorm's ``gamma``/
-``beta`` ``weight``/``bias``, as PyTorch does.
+(``layers.0.attn.qkv.weight``, ``ln_f.gamma``, ``features.1.running_var``,
+...). The port keeps the same attribute paths and layouts, and names a
+LayerNorm's or BatchNorm's ``gamma``/``beta`` ``weight``/``bias``, as
+PyTorch does; BatchNorm's ``running_mean``/``running_var`` keep their names
+and are carried like any parameter.
 """
 from __future__ import annotations
 

@@ -76,14 +76,21 @@ class Trainer:
 
     @property
     def learning_rate(self):
-        return self._optimizer.lr
+        """The rate of the next update: the schedule's at the current
+        update count, where the optimizer has one."""
+        opt = self._optimizer
+        return opt.lr_scheduler(opt.num_update) if opt.lr_scheduler \
+            else opt.lr
 
     @property
     def optimizer(self):
         return self._optimizer
 
     def set_learning_rate(self, lr):
-        self._optimizer.set_learning_rate(lr)
+        """Set a fixed rate; ignored where the optimizer has a schedule, as
+        in the JAX package."""
+        if self._optimizer.lr_scheduler is None:
+            self._optimizer.set_learning_rate(lr)
 
     def step(self, batch_size, ignore_stale_grad=False):
         """Reduce the gradients and update every parameter, with the

@@ -1,0 +1,133 @@
+"""Learning-rate schedulers: the rate as a function of the update count.
+
+Counterpart of ``mxnet_tpu/lr_scheduler.py`` (``FactorScheduler``,
+``MultiFactorScheduler``, ``PolyScheduler``, ``CosineScheduler``, each
+with linear or constant warmup), the same arithmetic on Python floats. An
+``Optimizer`` given ``lr_scheduler=`` sets its ``base_lr`` to its own
+``learning_rate`` and asks it for the rate at ``num_update`` (counted from
+1) on every update. As in the reference, warmup ramps towards the
+``base_lr`` the scheduler was built with (``warmup_final_lr``), which the
+optimizer does not change.
+"""
+from __future__ import annotations
+
+import math
+
+__all__ = ["LRScheduler", "FactorScheduler", "MultiFactorScheduler",
+           "PolyScheduler", "CosineScheduler"]
+
+
+class LRScheduler:
+    def __init__(self, base_lr=0.01, warmup_steps=0, warmup_begin_lr=0,
+                 warmup_mode="linear"):
+        if warmup_mode not in ("linear", "constant"):
+            raise ValueError(f"unknown warmup_mode {warmup_mode!r}")
+        self.base_lr = base_lr
+        self.warmup_steps = warmup_steps
+        self.warmup_begin_lr = warmup_begin_lr
+        self.warmup_final_lr = base_lr
+        self.warmup_mode = warmup_mode
+
+    def get_warmup_lr(self, num_update):
+        if self.warmup_mode == "linear":
+            inc = (self.warmup_final_lr - self.warmup_begin_lr) \
+                * num_update / self.warmup_steps
+            return self.warmup_begin_lr + inc
+        return self.warmup_final_lr
+
+    def __call__(self, num_update):
+        raise NotImplementedError
+
+
+class FactorScheduler(LRScheduler):
+    """``base_lr * factor^k`` after ``k * step`` updates, never under
+    ``stop_factor_lr``."""
+
+    def __init__(self, step, factor=1.0, stop_factor_lr=1e-8, base_lr=0.01,
+                 warmup_steps=0, warmup_begin_lr=0, warmup_mode="linear"):
+        super().__init__(base_lr, warmup_steps, warmup_begin_lr, warmup_mode)
+        if step < 1:
+            raise ValueError("FactorScheduler: step must be >= 1")
+        self.step = step
+        self.factor = factor
+        self.stop_factor_lr = stop_factor_lr
+        self.count = 0
+
+    def __call__(self, num_update):
+        if num_update < self.warmup_steps:
+            return self.get_warmup_lr(num_update)
+        while num_update > self.count + self.step:
+            self.count += self.step
+            self.base_lr = max(self.base_lr * self.factor,
+                               self.stop_factor_lr)
+        return self.base_lr
+
+
+class MultiFactorScheduler(LRScheduler):
+    """``base_lr`` times ``factor`` once past each update count in
+    ``step`` (increasing)."""
+
+    def __init__(self, step, factor=1.0, base_lr=0.01, warmup_steps=0,
+                 warmup_begin_lr=0, warmup_mode="linear"):
+        super().__init__(base_lr, warmup_steps, warmup_begin_lr, warmup_mode)
+        if any(step[i] >= step[i + 1] for i in range(len(step) - 1)):
+            raise ValueError("MultiFactorScheduler: step must increase")
+        self.step = list(step)
+        self.cur_step_ind = 0
+        self.factor = factor
+
+    def __call__(self, num_update):
+        if num_update < self.warmup_steps:
+            return self.get_warmup_lr(num_update)
+        while self.cur_step_ind <= len(self.step) - 1:
+            if num_update > self.step[self.cur_step_ind]:
+                self.cur_step_ind += 1
+                self.base_lr *= self.factor
+            else:
+                return self.base_lr
+        return self.base_lr
+
+
+class PolyScheduler(LRScheduler):
+    """Polynomial decay of power ``pwr`` from ``base_lr`` to ``final_lr``
+    at ``max_update``."""
+
+    def __init__(self, max_update, base_lr=0.01, pwr=2, final_lr=0,
+                 warmup_steps=0, warmup_begin_lr=0, warmup_mode="linear"):
+        super().__init__(base_lr, warmup_steps, warmup_begin_lr, warmup_mode)
+        self.power = pwr
+        self.base_lr_orig = base_lr
+        self.max_update = max_update
+        self.final_lr = final_lr
+        self.max_steps = max_update - warmup_steps
+
+    def __call__(self, num_update):
+        if num_update < self.warmup_steps:
+            return self.get_warmup_lr(num_update)
+        if num_update <= self.max_update:
+            frac = (num_update - self.warmup_steps) / self.max_steps
+            self.base_lr = self.final_lr + \
+                (self.base_lr_orig - self.final_lr) * (1 - frac) ** self.power
+        return self.base_lr
+
+
+class CosineScheduler(LRScheduler):
+    """Cosine decay from ``base_lr`` to ``final_lr`` at ``max_update``."""
+
+    def __init__(self, max_update, base_lr=0.01, final_lr=0, warmup_steps=0,
+                 warmup_begin_lr=0, warmup_mode="linear"):
+        super().__init__(base_lr, warmup_steps, warmup_begin_lr, warmup_mode)
+        self.base_lr_orig = base_lr
+        self.max_update = max_update
+        self.final_lr = final_lr
+        self.max_steps = max_update - warmup_steps
+
+    def __call__(self, num_update):
+        if num_update < self.warmup_steps:
+            return self.get_warmup_lr(num_update)
+        if num_update <= self.max_update:
+            frac = (num_update - self.warmup_steps) / self.max_steps
+            self.base_lr = self.final_lr + \
+                (self.base_lr_orig - self.final_lr) \
+                * (1 + math.cos(math.pi * frac)) / 2
+        return self.base_lr

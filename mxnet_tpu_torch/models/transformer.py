@@ -59,8 +59,10 @@ class MultiHeadAttention(nn.Module):
         self._head_dim = units // num_heads
         self.causal = causal
         self.attention = flash_attention
-        self.qkv = Dense(3 * units, units, use_bias, device=dev, dtype=dtype)
-        self.proj = Dense(units, units, use_bias, device=dev, dtype=dtype)
+        self.qkv = Dense(3 * units, units, use_bias, flatten=False,
+                         device=dev, dtype=dtype)
+        self.proj = Dense(units, units, use_bias, flatten=False,
+                          device=dev, dtype=dtype)
         self.drop = Dropout(dropout, device=dev)
 
     def forward(self, x):
@@ -94,9 +96,11 @@ class TransformerEncoderLayer(nn.Module):
                                        causal=causal, device=dev, dtype=dtype)
         self.ln1 = LayerNorm(units, device=dev, dtype=dtype)
         self.ln2 = LayerNorm(units, device=dev, dtype=dtype)
-        self.ffn1 = Dense(hidden_size, units, device=dev, dtype=dtype)
+        self.ffn1 = Dense(hidden_size, units, flatten=False, device=dev,
+                          dtype=dtype)
         self.act = GELU()
-        self.ffn2 = Dense(units, hidden_size, device=dev, dtype=dtype)
+        self.ffn2 = Dense(units, hidden_size, flatten=False, device=dev,
+                          dtype=dtype)
         self.drop = Dropout(dropout, device=dev)
 
     def _ffn(self, h):
@@ -134,7 +138,8 @@ class TransformerLM(nn.Module):
                 num_experts_per_tok=num_experts_per_tok, causal=causal,
                 device=dev, dtype=dtype))
         self.ln_f = LayerNorm(units, device=dev, dtype=dtype)
-        self.head = Dense(vocab_size, units, device=dev, dtype=dtype)
+        self.head = Dense(vocab_size, units, flatten=False, device=dev,
+                          dtype=dtype)
 
     def forward(self, tokens):
         T = tokens.shape[1]

@@ -13,10 +13,12 @@ Multi-precision (``multi_precision=True``) applies to **float16** weights
 only, as in the JAX package: their state is ``(weight32, base_state)``,
 an fp32 master copy beside the optimizer's own state; bf16 and fp32
 weights take the plain update. SGD's mixed-precision momentum update is
-one launch of the ``csrc/mp_sgd.cu`` kernel per parameter on CUDA. Adam,
-AdamW, learning-rate schedulers, the functional ``fused_apply`` and the
-aggregated ``update_multi`` are not ported yet; the per-parameter loop
-here computes the same numbers as the JAX package's eager path.
+one launch of the ``csrc/mp_sgd.cu`` kernel per parameter on CUDA, with
+``lr`` and ``wd`` as launch arguments, so a learning-rate schedule
+(``lr_scheduler=``, :mod:`mxnet_tpu_torch.lr_scheduler`) rebuilds nothing.
+Adam, AdamW, the functional ``fused_apply`` and the aggregated
+``update_multi`` are not ported yet; the per-parameter loop here computes
+the same numbers as the JAX package's eager path.
 """
 from __future__ import annotations
 
@@ -54,18 +56,24 @@ def create(name, **kwargs):
 class Optimizer:
     """Bookkeeping shared by every optimizer: per-index update counts,
     learning rate and weight decay with per-parameter multipliers,
-    ``rescale_grad`` and ``clip_gradient``.
+    ``rescale_grad`` and ``clip_gradient``, and an optional learning-rate
+    schedule.
 
     ``param_dict`` maps an index to its parameter; a parameter's
     ``lr_mult``/``wd_mult`` attributes, where set, scale its rate and
     decay. Otherwise ``set_lr_mult``/``set_wd_mult`` give multipliers by
-    index, or by name through ``param_idx2name``."""
+    index, or by name through ``param_idx2name``. With ``lr_scheduler``
+    the rate is ``lr_scheduler(num_update)``, its ``base_lr`` set to
+    ``learning_rate``."""
 
     def __init__(self, rescale_grad=1.0, param_idx2name=None, wd=0.0,
-                 clip_gradient=None, learning_rate=0.01, begin_num_update=0,
-                 multi_precision=False, param_dict=None):
+                 clip_gradient=None, learning_rate=0.01, lr_scheduler=None,
+                 begin_num_update=0, multi_precision=False, param_dict=None):
         self.rescale_grad = rescale_grad
         self.lr = learning_rate
+        self.lr_scheduler = lr_scheduler
+        if lr_scheduler is not None:
+            lr_scheduler.base_lr = learning_rate
         self.wd = wd
         self.lr_mult: Dict = {}
         self.wd_mult: Dict = {}
@@ -103,6 +111,9 @@ class Optimizer:
 
     # -- hyperparams ------------------------------------------------------
     def set_learning_rate(self, lr):
+        if self.lr_scheduler is not None:
+            raise MXNetError("LRScheduler of the optimizer has already been "
+                             "defined")
         self.lr = lr
 
     def set_lr_mult(self, args_lr_mult):
@@ -128,7 +139,9 @@ class Optimizer:
         return 1.0
 
     def _get_lr(self, index):
-        return self.lr * self._mult(index, "lr_mult", self.lr_mult)
+        lr = self.lr_scheduler(self.num_update) if self.lr_scheduler \
+            else self.lr
+        return lr * self._mult(index, "lr_mult", self.lr_mult)
 
     def _get_wd(self, index):
         return self.wd * self._mult(index, "wd_mult", self.wd_mult)

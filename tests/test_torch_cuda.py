@@ -594,3 +594,146 @@ def test_trainer_steps_small_fp32_bert_through_the_kernels():
         assert abs(losses[0] - losses[1]) <= 1e-5
     for a, b in zip(runs[0][1].values(), runs[1][1].values()):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+
+
+# the ResNet ops on the card against the same port code on the CPU: fp32
+# with TF32 off within 1e-4 of unit-scale outputs (only the summation order
+# differs); fp16 on the card against the CPU's fp32 on the same rounded
+# inputs within 1e-2 (the output's own fp16 rounding, 2^-11 of values up
+# to ~8, plus the card's fp16 products rounding on the way)
+OPS_CASES = {
+    "conv_7x7_s2_p3": lambda nn, x, w, fc: nn.convolution(
+        x, w, kernel=(7, 7), stride=(2, 2), pad=(3, 3), no_bias=True),
+    "max_pool_3x3_s2_p1": lambda nn, x, w, fc: nn.pooling(
+        x, kernel=(3, 3), stride=(2, 2), pad=(1, 1)),
+    "avg_pool_full_excl": lambda nn, x, w, fc: nn.pooling(
+        x, kernel=(3, 3), stride=(2, 2), pad=(1, 1), pool_type="avg",
+        pooling_convention="full", count_include_pad=False),
+    "global_avg_pool": lambda nn, x, w, fc: nn.pooling(
+        x, global_pool=True, pool_type="avg"),
+    "relu": lambda nn, x, w, fc: nn.activation(x, "relu"),
+    "fully_connected_flatten": lambda nn, x, w, fc: nn.fully_connected(
+        x, fc),
+}
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.float16, 1e-2)])
+@pytest.mark.parametrize("case", sorted(OPS_CASES))
+def test_resnet_ops_on_the_card_match_the_cpu(case, dtype, tol):
+    _need_cuda()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from mxnet_tpu_torch.ops import nn
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn(4, 3, 30, 30, generator=g).to(dtype)
+    w = (torch.randn(8, 3, 7, 7, generator=g) * 0.1).to(dtype)
+    fc = (torch.randn(5, 3 * 30 * 30, generator=g) * 0.02).to(dtype)
+    want = OPS_CASES[case](nn, x.float(), w.float(), fc.float())
+    got = OPS_CASES[case](nn, x.cuda(), w.cuda(), fc.cuda())
+    assert got.dtype == dtype and got.shape == want.shape
+    torch.testing.assert_close(got.float().cpu(), want, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16])
+def test_batch_norm_on_the_card_matches_the_cpu(dtype):
+    """Training mode: the output, and the moving statistics in fp32 moved
+    by the biased batch variance, as on the CPU."""
+    _need_cuda()
+    from mxnet_tpu_torch.ops import nn
+    g = torch.Generator().manual_seed(4)
+    x = (torch.randn(8, 16, 9, 9, generator=g) * 2 + 1).to(dtype)
+    gamma, beta = 1 + 0.1 * torch.randn(16, generator=g), \
+        0.1 * torch.randn(16, generator=g)
+    mean, var = 0.1 * torch.randn(16, generator=g), \
+        1 + torch.rand(16, generator=g)
+    kw = dict(eps=1e-5, momentum=0.9, fix_gamma=False, training=True)
+    want = nn.batch_norm(x.float(), gamma, beta, mean, var, **kw)
+    got = nn.batch_norm(*(t.cuda() for t in (x, gamma, beta, mean, var)),
+                        **kw)
+    assert got[0].dtype == dtype
+    assert got[1].dtype == got[2].dtype == torch.float32
+    tol = 1e-4 if dtype == torch.float32 else 1e-2
+    torch.testing.assert_close(got[0].float().cpu(), want[0], rtol=tol,
+                               atol=tol)
+    for a, b in zip(got[1:], want[1:]):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-5, atol=1e-5)
+
+
+def test_trainer_steps_narrow_fp16_resnet_through_b1():
+    """A narrow ResNetV1 (BottleneckV1, one block per stage, 16-256
+    channels) cast to fp16, BatchNorm fp32: record -> backward ->
+    Trainer.step with multi-precision SGD launches B1 once per fp16
+    parameter (27) and never for BatchNorm; two steps agree with a run
+    whose update is B1's plain version (cuDNN's deterministic algorithms
+    in both, so that only the update differs, and it rounds alike)."""
+    _need_cuda()
+    torch.backends.cudnn.deterministic = True
+    from mxnet_tpu_torch import autograd
+    from mxnet_tpu_torch import random as mx_random
+    from mxnet_tpu_torch.gluon import Trainer
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    from mxnet_tpu_torch.initializer import Xavier
+    from mxnet_tpu_torch.ops import optimizer_ops as oops
+    from mxnet_tpu_torch.opt import kernels
+
+    def build():
+        mx_random.seed(0)
+        net = vision.ResNetV1(vision.BottleneckV1, [1, 1, 1, 1],
+                              [16, 32, 64, 128, 256], classes=10,
+                              device="cuda")
+        net.initialize(Xavier("gaussian", "in", 2))
+        net.cast("float16")
+        return net
+
+    rng = np.random.RandomState(0)
+    x = torch.from_numpy(rng.uniform(-1, 1, (8, 3, 32, 32))).cuda().half()
+    y = torch.from_numpy(rng.randint(0, 10, 8).astype("float32")).cuda()
+    loss_fn = SoftmaxCrossEntropyLoss()
+    net, ref = build(), build()
+    params = net.collect_params()
+    n16 = sum(p.dtype == torch.float16 for p in params.values())
+    assert n16 == 27
+    trainer = Trainer(params, "sgd", {"learning_rate": 0.05, "momentum": 0.9,
+                                      "wd": 1e-4, "multi_precision": True})
+    ref_params = {n: p for n, p in ref.collect_params().items()
+                  if p.requires_grad}
+    ref_state = {n: (p.detach().float(), torch.zeros_like(p, dtype=torch.float32))
+                 for n, p in ref_params.items()}
+    scale = 8.0
+    for _ in range(2):
+        kernels.LAUNCHES.reset()
+        with autograd.record():
+            loss = loss_fn(net(x), y)
+        autograd.backward(loss * scale)
+        trainer.step(8 * scale)
+        assert kernels.LAUNCHES.count == n16
+        with autograd.record():
+            ref_loss = loss_fn(ref(x), y)
+        autograd.backward(ref_loss * scale)
+        kw = dict(lr=0.05, momentum=0.9, wd=1e-4, rescale_grad=1 / (8 * scale))
+        with torch.no_grad():
+            for n, p in ref_params.items():
+                w32, mom = ref_state[n]
+                if p.dtype == torch.float16:
+                    new = kernels.mp_sgd_mom_update_ref(p, p.grad, mom, w32,
+                                                        **kw)
+                    for dst, src in zip((p, mom, w32), new):
+                        dst.copy_(src)
+                else:
+                    nw, nm = oops.sgd_mom_update(p, p.grad, mom, **kw)
+                    p.copy_(nw)
+                    mom.copy_(nm)
+                p.grad = None
+        assert abs(loss.float().mean().item()
+                   - ref_loss.float().mean().item()) <= 1e-2
+    for i, (n, p) in enumerate(params.items()):
+        if not p.requires_grad:
+            assert p.dtype == torch.float32
+            continue
+        got = trainer._updaters[0].states[i][0] \
+            if p.dtype == torch.float16 else p.detach()
+        want = ref_state[n][0] if p.dtype == torch.float16 else ref_params[n]
+        torch.testing.assert_close(got, want.detach(), rtol=1e-2, atol=1e-3)
+    torch.backends.cudnn.deterministic = False

@@ -20,7 +20,12 @@ SLICE_MODULES = [
     "mxnet_tpu_torch.autograd", "mxnet_tpu_torch.optimizer",
     "mxnet_tpu_torch.ops.optimizer_ops", "mxnet_tpu_torch.opt.kernels",
     "mxnet_tpu_torch.gluon.loss", "mxnet_tpu_torch.gluon.parameter",
-    "mxnet_tpu_torch.gluon.trainer", "mxnet_tpu_torch.telemetry"]
+    "mxnet_tpu_torch.gluon.trainer", "mxnet_tpu_torch.telemetry",
+    # slice 9: ResNet-50 through Gluon
+    "mxnet_tpu_torch.ops.nn", "mxnet_tpu_torch.random",
+    "mxnet_tpu_torch.initializer", "mxnet_tpu_torch.lr_scheduler",
+    "mxnet_tpu_torch.gluon.block", "mxnet_tpu_torch.gluon.nn.conv_layers",
+    "mxnet_tpu_torch.gluon.model_zoo", "mxnet_tpu_torch.gluon.model_zoo.vision"]
 
 _PROBE = r"""
 import importlib, pkgutil, sys
@@ -80,14 +85,21 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
     if torch.cuda.is_available():
         pytest.skip("this host has a GPU: the default device is valid")
     from mxnet_tpu_torch import MXNetError, resolve_device
-    from mxnet_tpu_torch.gluon.nn import Dropout
+    from mxnet_tpu_torch.gluon.model_zoo.vision import resnet50_v1
+    from mxnet_tpu_torch.gluon.nn import BatchNorm, Conv2D, Dense, Dropout
     from mxnet_tpu_torch.models import BERTModel, TransformerLM
+    from mxnet_tpu_torch.random import generator
     from mxnet_tpu_torch.serve import ServingEngine
     for make in (lambda: ServingEngine(lambda x: x),
                  lambda: BERTModel(num_layers=1),
                  lambda: BERTModel(num_layers=1, dtype=torch.float16),
                  lambda: Dropout(0.1),
                  lambda: TransformerLM(100, num_layers=1),
+                 lambda: resnet50_v1(),
+                 lambda: Conv2D(8, 3, in_channels=3),
+                 lambda: BatchNorm(in_channels=8),
+                 lambda: Dense(4, 8),
+                 lambda: generator(),
                  lambda: resolve_device(None)):
         with pytest.raises(MXNetError, match="CUDA is not available"):
             make()
