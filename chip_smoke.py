@@ -35,8 +35,13 @@ end, failing on the first phase that fails:
    (B, T, H, D) projection gives, through the forward and backward, bit
    for bit against contiguous copies; and a model whose head dim (256) no
    kernel takes, which picks dense attention by shape and launches none;
-5. optimizer check — the mixed-precision SGD kernel against its plain
-   version at the sizes of BERT-base's parameters, bit for bit;
+5. optimizer check — the mixed-precision SGD kernel (B1) against its
+   plain version at the sizes of BERT-base's parameters, bit for bit, and
+   its list form on the fp16 parameter lists of BERT-base (150 tensors)
+   and ResNet-50 (87), one of them at an odd element offset, clip off and
+   on: one launch per list, bit-equal, timed against one launch per
+   tensor, its bound and ``torch._fused_sgd_`` (another function, for
+   context);
 6. serving slice — BERT-base (full width, fp32, random weights from a
    seed) served by ``ServingEngine``: warmup over the ladder, closed-loop
    load, zero new signatures after warmup, 12 forward launches per
@@ -45,11 +50,22 @@ end, failing on the first phase that fails:
 7. training slice — BERT-base (full width and depth, fp16 weights,
    dropout 0.1) trained through ``autograd.record`` -> ``backward`` ->
    ``Trainer.step`` with multi-precision SGD and a static loss scale:
-   12/12/12/150 launches per step (all 12 forward, dQ and dK/dV launches
-   on the tensor-core route), every parameter with a gradient, a
-   finite and falling loss, and two steps against a reference run with
-   dense attention and the plain update; step time, tokens/s, peak memory
-   and a per-step breakdown;
+   12/12/12/1 launches per step (all 12 forward, dQ and dK/dV launches
+   on the tensor-core route; one B1 launch for the 150 parameters), every
+   parameter with a gradient, a finite and falling loss, and two steps
+   against a reference run with dense attention and the plain update;
+   step time, tokens/s, peak memory, the optimizer's host time and a
+   per-step breakdown; then the same model trained the way BERT's users
+   train it (``[train_bert_adamw_fp16]``): AdamW (multi-precision) under
+   dynamic loss scaling (``amp``) from 2**16, skipping each step whose
+   gradient overflowed, until 4 updates were applied: every skipped step
+   non-finite and without effect, the scale sequence the rule's, the
+   step after a skip depositing its own gradient, the first update
+   AdamW's in fp64, 12/12/12/0 launches, the loss falling; and
+   (``[checkpoint]``) ``save_parameters`` + ``save_states`` after the
+   second update, loaded into a fresh model and trainer that make the
+   last two updates bit-equal to the uninterrupted run; then timed steps
+   and a profiled one;
 8. fp32 training slice — the same model in fp32 (the dtype ``BERTModel``
    takes by default), plain SGD with momentum and no loss scale: 12/12/12
    launches per step, every forward, dQ and dK/dV launch on the fp32
@@ -77,8 +93,8 @@ end, failing on the first phase that fails:
     trained on 256 synthetic 224 x 224 images through ``autograd.record``
     -> ``backward`` -> ``Trainer.step`` with multi-precision SGD under a
     ``MultiFactorScheduler`` with warmup and a static loss scale: one warm
-    step and eight more, 87 B1 launches per step (one per fp16
-    parameter, none for BatchNorm), every gradient finite, the loss
+    step and eight more, one B1 launch per step (for the 87 fp16
+    parameters, none of them BatchNorm's), every gradient finite, the loss
     falling, the running statistics moved and fp32, two steps against a
     reference run with B1's plain version; images/s, the step's windows,
     device busy share and top kernels, B1's time, peak memory and the
@@ -92,9 +108,12 @@ from __future__ import annotations
 
 import ctypes
 import json
+import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -213,6 +232,46 @@ RESNET32_ERR_RATIO, RESNET64_TOL = 3.0, 1e-9
 # step's largest is checked finite and reported
 RESNET_B, RESNET_STEPS, RESNET_LOSS_SCALE = 256, 9, 64.0
 RESNET_FP16_PARAMS = 87
+# [train_bert_adamw_fp16]: BERT-base fp16 (dropout 0.1, 8 x 512 tokens)
+# with BERT's optimizer (Devlin et al. 2018, appendix A.2: Adam with
+# decoupled weight decay 0.01, beta2 0.999; epsilon 1e-6 as in
+# google-research's optimization.py, which takes lr * (m / (sqrt(v) + eps)
+# + 0.01 * w) off each weight), multi-precision, under dynamic loss scaling
+# from 2**16, until ADAMW_UPDATES updates were applied (at most
+# ADAMW_MAX_STEPS steps); the checkpoint is taken after update CKPT_AT.
+# MXNet's AdamW (eta 1) takes lr * m / (sqrt(v) + eps) + wd * w off, its
+# decay not scaled by lr, so BERT's decay of 0.01 at lr 1e-4 is wd 1e-6
+# (on every parameter here; BERT leaves LayerNorms and biases out)
+ADAMW = dict(learning_rate=1e-4, beta1=0.9, beta2=0.999, epsilon=1e-6,
+             wd=1e-6, multi_precision=True)
+ADAMW_UPDATES, ADAMW_MAX_STEPS, CKPT_AT = 4, 24, 2
+# steps timed after the checks (and the checkpoint comparison) are done
+ADAMW_TIMED_STEPS = 6
+# The first update (w32' - w, with the masters starting as the fp16
+# weights) against AdamW evaluated in fp64 from the same fp16 gradients, in
+# relative L2 over the model; and the Adam term alone, lr * m / (sqrt(v) +
+# eps) (the update with the fp64 decay wd * w added back), against its fp64
+# value, so that the small decay term cannot carry the check. The fp32
+# evaluation rounds ~8 times on the way to the update (<= 2^-24 relative
+# each, ~5e-7 of it together); storing w32' rounds once more, by <= 2^-24
+# of |w32'|. On the first step |m / sqrt(v)| is ~(1 - b1) / sqrt(1 - b2) =
+# 3.16 wherever the gradient is well above eps, so the update is ~3.2e-4:
+# against BERT's weights (std 0.02) that rounding is ~4e-6 of it, against
+# a LayerNorm gamma of 1 ~2e-4, but the 25 gammas' 19,200 values (of the
+# model's 1.3e8) carry ~1% of the update's norm, adding ~2e-6. So ~1e-5
+# over the model at the most; 1e-4 leaves 10x.
+ADAMW_FP64_TOL = 1e-4
+# After a skipped step, the gradient the next backward deposits against a
+# second backward of the same graph from no gradient at all: the same
+# kernels on the same inputs give the same bits (0 expected); 1e-3 leaves
+# room for any reduction whose order varies, while the fault repaired in
+# autograd.backward (adding into .grad) leaves the skipped step's inf/NaN
+# there, or twice the gradient (a distance of 1)
+ADAMW_REPLAY_TOL = 1e-3
+# BERT-base's parameters, every one fp16 in the fp16 phases: 12 layers of 12
+# (attention qkv and proj, two LayerNorms, two FFN layers, each weight and
+# bias), the two embeddings, the last LayerNorm and the head's two
+TRAIN_FP16_PARAMS = 150
 LADDER = "batch:1,2,4,8;seq:128,256,512"
 N_REQUESTS, CONCURRENCY = 24, 4
 HEADS, HEAD_DIM = 12, 64
@@ -932,6 +991,149 @@ def phase_sgd_check(peaks):
     return rows
 
 
+def _fp16_shapes(which):
+    """Shapes of the fp16 parameters a training step of the path hands
+    B1: BERT-base built in fp16 (150), ResNet-50 v1 cast to fp16 (87, its
+    BatchNorm fp32)."""
+    from mxnet_tpu_torch.models import BERTModel
+    model = BERTModel(device="cuda", dtype=torch.float16) \
+        if which == "bert" else _seeded_resnet50("cuda", "float16")
+    shapes = [tuple(p.shape) for p in model.parameters()
+              if p.requires_grad and p.dtype == torch.float16]
+    del model
+    torch.cuda.empty_cache()
+    return shapes
+
+
+def phase_sgd_multi_check(peaks):
+    """B1's list form on the fp16 parameter lists of BERT-base and
+    ResNet-50 (real shapes, random values, a distinct lr and wd per
+    tensor, one tensor a view at an odd element offset), clip off and on:
+    one launch per list, every output bit-equal to the per-tensor plain
+    version. Timed against the same list through one list-of-one launch
+    per tensor (the per-parameter path of earlier slices) and the bytes
+    bound; ``torch._fused_sgd_`` over fp32 master weights, momenta and
+    gradients, a function that writes no fp16 copy, for context."""
+    from mxnet_tpu_torch.opt.kernels import (
+        LAUNCHES, capacity, mp_sgd_mom_update_kernel,
+        mp_sgd_mom_update_multi_kernel, mp_sgd_mom_update_multi_ref)
+    rows = {}
+    for which, want_n in (("bert", TRAIN_FP16_PARAMS),
+                          ("resnet50", RESNET_FP16_PARAMS)):
+        shapes = _fp16_shapes(which)
+        if len(shapes) != want_n:
+            raise SystemExit(f"chip_smoke: mp_sgd_multi: {which} has "
+                             f"{len(shapes)} fp16 parameters, expected "
+                             f"{want_n}")
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+        sizes = [int(np.prod(sh)) for sh in shapes]
+        odd = 5  # this tensor is a view at an odd element offset
+
+        def buf(n, dtype, k):
+            off = 1 if k == odd else 0
+            return torch.empty(n + off, dtype=dtype, device="cuda")[off:]
+
+        ws, gs, ms, w32s = [], [], [], []
+        for k, n in enumerate(sizes):
+            w32 = buf(n, torch.float32, k)
+            w32.copy_(torch.randn(n, device="cuda", generator=gen) * 0.02)
+            m = buf(n, torch.float32, k)
+            m.copy_(torch.randn(n, device="cuda", generator=gen) * 1e-3)
+            g = buf(n, torch.float16, k)
+            g.copy_(torch.randn(n, device="cuda", generator=gen) * 100)
+            w = buf(n, torch.float16, k)
+            w.copy_(w32)
+            ws.append(w), gs.append(g), ms.append(m), w32s.append(w32)
+        lrs = [TRAIN_LR * (1 + k % 5) / 5 for k in range(len(sizes))]
+        wds = [1e-4 * (k % 3) for k in range(len(sizes))]
+        row = {"list": which, "tensors": len(sizes), "values": sum(sizes),
+               "median_values": int(np.median(sizes)),
+               "unaligned_tensor": odd, "capacity": capacity()}
+        for clip in (-1.0, 1.0):
+            kw = dict(momentum=TRAIN_MOMENTUM, rescale_grad=1 / 64,
+                      clip_gradient=clip)
+            want = mp_sgd_mom_update_multi_ref(ws, gs, ms, w32s, lrs, wds,
+                                               **kw)
+            got = ([w.clone() for w in ws], [m.clone() for m in ms],
+                   [w.clone() for w in w32s])
+            before = LAUNCHES.count
+            mp_sgd_mom_update_multi_kernel(got[0], gs, got[1], got[2], lrs,
+                                           wds, **kw)
+            torch.cuda.synchronize()
+            launches = LAUNCHES.count - before
+            bit_equal = all(torch.equal(a, b) for k in range(len(sizes))
+                            for a, b in zip((got[0][k], got[1][k],
+                                             got[2][k]), want[k]))
+            err = max((a.float() - b.float()).abs().max().item()
+                      for k in range(len(sizes))
+                      for a, b in zip((got[0][k], got[1][k], got[2][k]),
+                                      want[k]))
+            row[f"clip_{clip}"] = {"launches": launches,
+                                   "bit_equal": bit_equal,
+                                   "max_abs_err": err}
+            if launches != 1 or not bit_equal:
+                raise SystemExit(f"chip_smoke: mp_sgd_multi on {which}, "
+                                 f"clip {clip}: {launches} launches, "
+                                 f"bit-equal {bit_equal} (max abs {err})")
+            del want, got
+        # timing: in place at a small rate, so the values stay finite
+        kw = dict(momentum=TRAIN_MOMENTUM, rescale_grad=1 / 64)
+        small = [1e-4] * len(sizes)
+
+        def multi():
+            mp_sgd_mom_update_multi_kernel(ws, gs, ms, w32s, small, wds,
+                                           **kw)
+
+        def singles():
+            for k in range(len(sizes)):
+                mp_sgd_mom_update_kernel(ws[k], gs[k], ms[k], w32s[k],
+                                         lr=1e-4, wd=wds[k],
+                                         out=(ws[k], ms[k], w32s[k]), **kw)
+
+        def host_ms(fn, reps=20):
+            """Host time of one call (launch cost, the device not
+            waited for)."""
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            t = (time.perf_counter() - t0) * 1e3 / reps
+            torch.cuda.synchronize()
+            return t
+
+        p32 = [w.clone() for w in w32s]
+        g32 = [g.float() for g in gs]
+        m32 = [m.clone() for m in ms]
+
+        def fused_sgd():
+            torch._fused_sgd_(p32, g32, m32, weight_decay=1e-4,
+                              momentum=TRAIN_MOMENTUM, lr=1e-4, dampening=0.0,
+                              nesterov=False, maximize=False,
+                              is_first_step=False)
+
+        bound = 20 * sum(sizes) / peaks["bytes"] * 1e3
+        row.update(
+            ms=cuda_ms(multi), single_launches_ms=cuda_ms(singles, iters=5),
+            host_ms=host_ms(multi), single_launches_host_ms=host_ms(singles,
+                                                                    5),
+            plain_ms=cuda_ms(lambda: mp_sgd_mom_update_multi_ref(
+                ws, gs, ms, w32s, small, wds, **kw), iters=3, warm=1),
+            bound_ms=bound, bound_by="bytes",
+            fused_sgd_fp32_context_ms=cuda_ms(fused_sgd),
+            fused_sgd_note="torch._fused_sgd_ over fp32 master weights, "
+                           "momenta and gradients: 20 bytes an element as "
+                           "well, but no fp16 copy and fp32 gradients; not "
+                           "the same function")
+        row["bound_share"] = bound / row["ms"]
+        row["single_launches_bound_share"] = bound / row["single_launches_ms"]
+        log("[kernel] mp_sgd_multi " + json.dumps(row))
+        rows[which] = row
+        del ws, gs, ms, w32s, p32, g32, m32
+        torch.cuda.empty_cache()
+    return rows
+
+
 def seeded_weights(model, seed):
     """BERT-style random weights in the JAX package's naming: N(0, 0.02)
     matrices, zero biases, LayerNorm gamma 1 and beta 0."""
@@ -1124,6 +1326,16 @@ def _train_counters():
             "split_bf16x3": LAUNCHES_SPLIT}
 
 
+def _host_timed(fn, out):
+    """``fn`` that appends its host time (ms) to ``out``: the launches'
+    cost, the device not waited for."""
+    def run():
+        t0 = time.perf_counter()
+        fn()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return run
+
+
 def _checked(update, params, missing):
     """``update``, after noting in ``missing`` every trainable parameter
     without a gradient."""
@@ -1249,13 +1461,17 @@ def phase_train(card):
     # every forward, dQ and dK/dV launch of the fp16 step takes the
     # tensor-core route
     want = dict.fromkeys(_train_counters(), 0)
+    # one B1 launch a step updates all 150 fp16 parameters
     want.update({"flash_fwd": layers, "flash_bwd_dq": layers,
-                 "flash_bwd_dkv": layers, "mp_sgd": len(params),
+                 "flash_bwd_dkv": layers, "mp_sgd": 1,
                  "flash_fwd_tc": layers, "flash_bwd_dq_tc": layers,
                  "flash_bwd_dkv_tc": layers})
-    masters, missing = [], []
-    update = _checked(lambda: trainer.step(batch * LOSS_SCALE), params,
-                      missing)
+    if len(params) != TRAIN_FP16_PARAMS:
+        raise SystemExit(f"chip_smoke: train: {len(params)} parameters, "
+                         f"expected {TRAIN_FP16_PARAMS}")
+    masters, missing, opt_host = [], [], []
+    update = _checked(_host_timed(lambda: trainer.step(batch * LOSS_SCALE),
+                                  opt_host), params, missing)
 
     def step(events=None):
         return _train_step(model, loss_fn, tokens, labels, update, events)
@@ -1309,12 +1525,455 @@ def phase_train(card):
         **_step_breakdown("train", walls, parts, step,
                           ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
                            "mp_sgd")),
+        "optimizer_host_ms_median": float(np.median(opt_host[1:])),
+        "optimizer_host_ms": opt_host,
         "peak_memory_bytes": peak, "launches": totals,
         "loss_max_abs_diff_vs_ref": loss_err,
         "master_update_rel_l2_diff_vs_ref": upd_err,
         "worst_parameter_rel_diff": list(worst)}
     log("[train] " + json.dumps(summary))
     return totals
+
+
+def _adamw_trainer(params):
+    from mxnet_tpu_torch import amp
+    from mxnet_tpu_torch.gluon import Trainer
+    trainer = Trainer(params, "adamw", dict(ADAMW))
+    amp.init_trainer(trainer)
+    return trainer
+
+
+def _adamw_step(model, trainer, plist, loss_fn, tokens, labels, events=None,
+                replay=None, host=None, before_update=None):
+    """One step of the dynamic-loss-scaling loop: ``scale_loss`` ->
+    ``backward`` -> ``has_overflow`` -> ``update_scale`` -> ``step``,
+    skipped on an overflow. Returns the mean loss (a device tensor) and
+    the overflow flag. ``events`` (5 CUDA events) mark forward, backward,
+    the overflow check and the update. With ``replay`` (a dict), the
+    backward keeps its graph, the gradients it deposited are kept aside
+    and the backward runs again from no gradient at all; ``replay["match"]`` is what :func:`_grad_match` says of the
+    two, and ``replay["counts"]`` the launch counts before the second
+    backward. ``host`` (a list) gets
+    the host time of ``trainer.step``; ``before_update`` runs just before
+    it."""
+    from mxnet_tpu_torch import amp, autograd
+    scaler = trainer._amp_loss_scaler
+    if events:
+        events[0].record()
+    with autograd.record():
+        loss = loss_fn(torch.flatten(model(tokens), 0, -2),
+                       labels.reshape(-1))
+        with amp.scale_loss(loss, trainer) as scaled:
+            pass
+    if events:
+        events[1].record()
+    autograd.backward(scaled, retain_graph=replay is not None)
+    if replay is not None:
+        replay["counts"] = {n: c.count for n, c in _train_counters().items()}
+        deposited = [p.grad.clone() for p in plist]
+        for p in plist:
+            p.grad = None
+        autograd.backward(scaled)
+        replay["match"] = _grad_match(deposited, [p.grad for p in plist])
+        del deposited
+    if events:
+        events[2].record()
+    overflow = scaler.has_overflow(plist)
+    if events:
+        events[3].record()
+    scaler.update_scale(overflow)
+    if not overflow:
+        if before_update is not None:
+            before_update()
+        t0 = time.perf_counter()
+        trainer.step(TRAIN_B * TRAIN_T)
+        if host is not None:
+            host.append((time.perf_counter() - t0) * 1e3)
+    if events:
+        events[4].record()
+    return loss.detach().float().mean(), overflow
+
+
+def _adamw_state(plist, states):
+    """Clones of the weights and of every optimizer state (fp32 master,
+    mean, variance), by parameter."""
+    out = [p.detach().clone() for p in plist]
+    for i in sorted(states):
+        w32, (mean, var) = states[i]
+        out += [w32.clone(), mean.clone(), var.clone()]
+    return out
+
+
+def _grad_match(got, fresh):
+    """Relative L2 distance of two gradient lists over the elements finite
+    in both, and whether each is non-finite exactly where the other is
+    (a step after a skip may overflow again, at a lower scale)."""
+    pairs, same = [], True
+    for a, b in zip(got, fresh):
+        fa, fb = torch.isfinite(a), torch.isfinite(b)
+        same = same and torch.equal(fa, fb)
+        both = fa & fb
+        pairs.append((torch.where(both, a, 0), torch.where(both, b, 0)))
+    return _rel_l2_sum(pairs)[0], same
+
+
+def _rel_l2_sum(pairs):
+    """sqrt(sum ||a - b||^2 / sum ||b||^2) over ``(a, b)`` pairs, in fp64,
+    and the worst pair's own ratio with its index."""
+    d2 = r2 = 0.0
+    worst = (0.0, -1)
+    for k, (a, b) in enumerate(pairs):
+        d = (a.double() - b.double()).norm().item()
+        r = b.double().norm().item()
+        d2, r2 = d2 + d * d, r2 + r * r
+        if r > 0 and d / r > worst[0]:
+            worst = (d / r, k)
+    return (d2 / r2) ** 0.5, worst
+
+
+def phase_train_adamw(card):
+    """BERT-base in fp16 trained the way its users do: AdamW
+    (multi-precision) under dynamic loss scaling, until ADAMW_UPDATES
+    updates were applied; after the CKPT_AT-th, ``save_parameters`` and
+    ``save_states`` for the checkpoint phase. Checks: each skipped step
+    overflowed and changed nothing; the scale sequence is the LossScaler
+    rule replayed on the host; the step after a skip deposits its own
+    gradient only; the first update is AdamW's in fp64 from the same
+    gradients; 12/12/12 attention launches on the tensor-core route and
+    no B1; the loss finite and falling."""
+    from mxnet_tpu_torch.gluon import collect_params
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.gluon.nn import Dropout
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    model = _seeded_bert(torch.float16)
+    params = collect_params(model)
+    plist = list(params.values())
+    layers, vocab = len(model.layers), model.head.weight.shape[0]
+    trainer = _adamw_trainer(params)
+    scaler = trainer._amp_loss_scaler
+    loss_fn = SoftmaxCrossEntropyLoss()
+    tokens, labels = _train_batch(vocab)
+    drops = [m for m in model.modules() if isinstance(m, Dropout)]
+    log(f"[train_bert_adamw_fp16] BERTModel(dtype=float16): {len(plist)} "
+        f"parameters ({sum(p.numel() for p in plist)} values), {layers} "
+        f"layers, dropout 0.1; batch {TRAIN_B} x {TRAIN_T}; AdamW {ADAMW}; "
+        f"amp.init_trainer (loss scale {scaler.loss_scale}); built in "
+        f"{time.perf_counter() - t0:.2f} s")
+    counters = _train_counters()
+    want = dict.fromkeys(counters, 0)
+    want.update({"flash_fwd": layers, "flash_bwd_dq": layers,
+                 "flash_bwd_dkv": layers, "flash_fwd_tc": layers,
+                 "flash_bwd_dq_tc": layers, "flash_bwd_dkv_tc": layers})
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    ckpt = {"dir": ckpt_dir,
+            "params": os.path.join(ckpt_dir, "bert.params"),
+            "states": os.path.join(ckpt_dir, "bert.states")}
+    steps, applied, prev_overflow = [], 0, False
+    fp64 = None
+    totals = dict.fromkeys(counters, 0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(ADAMW_MAX_STEPS):
+        if applied == ADAMW_UPDATES:
+            break
+        for c in counters.values():
+            c.reset()
+        states = trainer._updaters[0].states
+        before = _adamw_state(plist, states)
+        n_states = len(states)
+        replay = {} if prev_overflow else None
+        first = applied == 0
+        if first:
+            # the update's inputs, for the fp64 evaluation below
+            w0 = [p.detach().clone() for p in plist]
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        scale = scaler.loss_scale
+        opt_host, fp64_in = [], []
+        torch.cuda.synchronize()
+        t_step = time.perf_counter()
+        loss, overflow = _adamw_step(
+            model, trainer, plist, loss_fn, tokens, labels, events, replay,
+            host=opt_host, before_update=(lambda: fp64_in.extend((
+                [p.grad.clone() for p in plist],
+                trainer._scale / (TRAIN_B * TRAIN_T)))) if first else None)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t_step) * 1e3
+        counts = replay["counts"] if replay is not None else \
+            {n: c.count for n, c in counters.items()}
+        for n in totals:
+            totals[n] += counts[n] if n != "mp_sgd" else counters[n].count
+        rec = {"step": i, "loss": loss.item(), "overflow": overflow,
+               "loss_scale": scale, "next_scale": scaler.loss_scale,
+               "wall_ms": wall,
+               "windows_ms": [events[j].elapsed_time(events[j + 1])
+                              for j in range(4)],
+               "trainer_step_host_ms": opt_host[0] if opt_host else None,
+               "checked_after_skip": replay is not None}
+        if counts != want or counters["mp_sgd"].count != 0:
+            raise SystemExit(f"chip_smoke: train_bert_adamw_fp16: step {i} "
+                             f"launches {counts}, expected {want}")
+        if not np.isfinite(rec["loss"]):
+            raise SystemExit(f"chip_smoke: train_bert_adamw_fp16: step {i}: "
+                             f"loss {rec['loss']}")
+        if overflow:
+            # (1) a skipped step had a non-finite gradient and changed
+            # nothing: weights, masters and states bit-unchanged
+            bad = [n for n, p in params.items()
+                   if not torch.isfinite(p.grad).all().item()]
+            after = _adamw_state(plist, trainer._updaters[0].states)
+            same = len(trainer._updaters[0].states) == n_states and all(
+                torch.equal(a, b) for a, b in zip(before, after))
+            rec["non_finite_gradients"] = len(bad)
+            if not bad or not same:
+                raise SystemExit(f"chip_smoke: train_bert_adamw_fp16: "
+                                 f"skipped step {i}: {len(bad)} non-finite "
+                                 f"gradients, state unchanged {same}")
+            del after
+        else:
+            applied += 1
+        if replay is not None:
+            # (3) after a skip, the deposited gradient is this step's own
+            # (a second backward of the same graph from no gradient); the
+            # old add-into-.grad rule would have left the skipped step's
+            # inf/NaN in it
+            rel, finite = replay["match"]
+            rec["after_skip_grad_rel_l2_vs_fresh"] = rel
+            if not (rel <= ADAMW_REPLAY_TOL and finite):
+                raise SystemExit(f"chip_smoke: train_bert_adamw_fp16: step "
+                                 f"{i} after a skip: the deposited gradient "
+                                 f"is {rel:.3e} (rel. L2) from its own, "
+                                 f"non-finite where it is: {finite}")
+            del replay
+        if first and not overflow:
+            # (4) the first update against AdamW in fp64 from the same
+            # fp16 gradients and weights (the masters start as the fp16
+            # weights); the update, w32' - w0, in relative L2
+            grads, rs = fp64_in
+            states = trainer._updaters[0].states
+            b1, b2, eps, lr, wd = (ADAMW[k] for k in (
+                "beta1", "beta2", "epsilon", "learning_rate", "wd"))
+
+            def adam_term(k):
+                g = grads[k].double() * rs
+                m, v = (1 - b1) * g, (1 - b2) * g * g
+                return -lr * m / (v.sqrt() + eps)
+
+            def update(k):
+                return states[k][0].double() - w0[k].double()
+            rel, worst = _rel_l2_sum(
+                (update(k), adam_term(k) - wd * w0[k].double())
+                for k in range(len(plist)))
+            rel_adam, _ = _rel_l2_sum(
+                (update(k) + wd * w0[k].double(), adam_term(k))
+                for k in range(len(plist)))
+            fp64 = {"update_rel_l2_vs_fp64": rel,
+                    "adam_term_rel_l2_vs_fp64": rel_adam,
+                    "worst_parameter": [worst[0], list(params)[worst[1]]],
+                    "limit": ADAMW_FP64_TOL}
+            log(f"[train_bert_adamw_fp16] first update vs AdamW in fp64: "
+                f"{json.dumps(fp64)}")
+            if max(rel, rel_adam) > ADAMW_FP64_TOL:
+                raise SystemExit("chip_smoke: train_bert_adamw_fp16: the "
+                                 "first update is not AdamW's")
+            del grads, w0
+        del fp64_in, before
+        log(f"[train_bert_adamw_fp16] step {i}: " + json.dumps(rec))
+        steps.append(rec)
+        prev_overflow = overflow
+        if not overflow and applied == CKPT_AT:
+            t_save = time.perf_counter()
+            model.save_parameters(ckpt["params"])
+            trainer.save_states(ckpt["states"])
+            ckpt.update(
+                save_s=time.perf_counter() - t_save,
+                params_bytes=os.path.getsize(ckpt["params"]),
+                states_bytes=os.path.getsize(ckpt["states"]),
+                weights={n: p.detach().clone() for n, p in params.items()},
+                generators=[d._gen.get_state() for d in drops],
+                scaler=dict(vars(scaler)), step=i)
+    if applied != ADAMW_UPDATES:
+        raise SystemExit(f"chip_smoke: train_bert_adamw_fp16: {applied} "
+                         f"updates in {ADAMW_MAX_STEPS} steps")
+    # (2) the scale sequence is the LossScaler rule replayed on the host
+    s, clean, replayed = 2.0 ** 16, 0, []
+    for r in steps:
+        if r["overflow"]:
+            s, clean = max(s / 2, 1), 0
+        else:
+            clean += 1
+            if clean == 2000:
+                s, clean = s * 2, 0
+        replayed.append(s)
+    if replayed != [r["next_scale"] for r in steps] or \
+            steps[0]["loss_scale"] != 2.0 ** 16:
+        raise SystemExit(f"chip_smoke: train_bert_adamw_fp16: scales "
+                         f"{[r['next_scale'] for r in steps]}, the rule "
+                         f"gives {replayed}")
+    # (6) the loss falls over the applied updates
+    losses = [r["loss"] for r in steps if not r["overflow"]]
+    if not losses[-1] < losses[0]:
+        raise SystemExit(f"chip_smoke: train_bert_adamw_fp16: loss over the "
+                         f"applied updates {losses}")
+    summary = {
+        "card": card, "batch": [TRAIN_B, TRAIN_T], "optimizer": ADAMW,
+        "steps": len(steps), "updates": applied,
+        "skipped_steps": [r["step"] for r in steps if r["overflow"]],
+        "steps_checked_after_skip": [r["step"] for r in steps
+                                     if r["checked_after_skip"]],
+        "loss_scales": [r["loss_scale"] for r in steps],
+        "losses_applied": losses, "first_update_vs_fp64": fp64,
+        "step_wall_ms": [r["wall_ms"] for r in steps],
+        "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+        "launches": totals}
+    run = {"model": model, "trainer": trainer, "params": params,
+           "plist": plist, "loss_fn": loss_fn, "tokens": tokens,
+           "labels": labels, "ckpt": ckpt, "summary": summary,
+           "drops": drops}
+    return run
+
+
+def phase_checkpoint(card, run):
+    """Resume from the AdamW phase's checkpoint (taken after its
+    CKPT_AT-th update) into a fresh model and trainer, with the dropout
+    generators and the loss scaler set where the first run's stood (what
+    neither file holds, as in the reference), and make the same updates
+    on the same batch: weights, fp32 masters, means and variances
+    bit-equal to the uninterrupted run. The saved ``.params`` decode with
+    the port's reader to the tensors saved."""
+    from mxnet_tpu_torch import ndarray
+    from mxnet_tpu_torch.gluon import collect_params
+    from mxnet_tpu_torch.gluon.nn import Dropout
+    ckpt = run["ckpt"]
+    decoded = ndarray.load(ckpt["params"], device="cuda")
+    if sorted(decoded) != sorted(ckpt["weights"]) or not all(
+            decoded[n].dtype == w.dtype and torch.equal(decoded[n], w)
+            for n, w in ckpt["weights"].items()):
+        raise SystemExit("chip_smoke: checkpoint: the .params file does "
+                         "not decode to the saved tensors")
+    del decoded
+    t0 = time.perf_counter()
+    fresh = _seeded_bert(torch.float16)
+    fresh.load_parameters(ckpt["params"])
+    for d, st in zip([m for m in fresh.modules()
+                      if isinstance(m, Dropout)], ckpt["generators"]):
+        d._gen.set_state(st)
+    params = collect_params(fresh)
+    plist = list(params.values())
+    trainer = _adamw_trainer(params)
+    trainer.load_states(ckpt["states"])
+    vars(trainer._amp_loss_scaler).update(ckpt["scaler"])
+    load_s = time.perf_counter() - t0
+    applied, steps = CKPT_AT, 0
+    while applied < ADAMW_UPDATES and steps < ADAMW_MAX_STEPS:
+        _, overflow = _adamw_step(fresh, trainer, plist, run["loss_fn"],
+                                  run["tokens"], run["labels"])
+        applied += not overflow
+        steps += 1
+    torch.cuda.synchronize()
+    ref_states = run["trainer"]._updaters[0].states
+    got_states = trainer._updaters[0].states
+    want_t = _adamw_state(run["plist"], ref_states)
+    got_t = _adamw_state(plist, got_states)
+    equal = (sorted(ref_states) == sorted(got_states)
+             and len(want_t) == len(got_t)
+             and all(torch.equal(a, b) for a, b in zip(want_t, got_t)))
+    counts_equal = trainer.optimizer._index_update_count == \
+        run["trainer"].optimizer._index_update_count
+    summary = {
+        "card": card, "saved_after_update": CKPT_AT,
+        "saved_at_step": ckpt["step"], "resumed_steps": steps,
+        "params_bytes": ckpt["params_bytes"],
+        "states_bytes": ckpt["states_bytes"], "save_s": ckpt["save_s"],
+        "load_s": load_s, "tensors_compared": len(got_t),
+        "bit_equal": equal, "update_counts_equal": counts_equal,
+        "loss_scale": trainer._amp_loss_scaler.loss_scale}
+    log("[checkpoint] " + json.dumps(summary))
+    shutil.rmtree(ckpt["dir"], ignore_errors=True)
+    if not (equal and counts_equal):
+        raise SystemExit("chip_smoke: checkpoint: the resumed run differs "
+                         "from the uninterrupted one")
+    del fresh, trainer, want_t, got_t, params, plist
+    torch.cuda.empty_cache()
+
+
+def _leaf_walk_ms(run, reps=5):
+    """Host time of the walk ``autograd.backward`` makes over the step's
+    graph to find the leaves it writes (the median of ``reps``), on the
+    graph of one more forward, which is then dropped."""
+    from mxnet_tpu_torch import autograd
+    model, loss_fn = run["model"], run["loss_fn"]
+    with autograd.record():
+        loss = loss_fn(torch.flatten(model(run["tokens"]), 0, -2),
+                       run["labels"].reshape(-1))
+    torch.cuda.synchronize()
+    nodes, times = set(), []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        leaves = autograd._reached_leaves([loss])
+        times.append((time.perf_counter() - t0) * 1e3)
+    stack = [loss.grad_fn]
+    while stack:
+        fn = stack.pop()
+        if fn is not None and fn not in nodes:
+            nodes.add(fn)
+            stack.extend(nxt for nxt, _ in fn.next_functions)
+    del loss
+    return {"leaf_walk_host_ms": float(np.median(times)),
+            "leaf_walk_graph_nodes": len(nodes),
+            "leaf_walk_leaves": len(leaves)}
+
+
+def phase_adamw_profile(run):
+    """ADAMW_TIMED_STEPS more steps of the AdamW run, timed (in the run
+    above most steps are skipped, and each step after a skip runs a second
+    backward for its check), then one more under the profiler: the
+    device's kernel time against the applied steps' median wall, and the
+    kernels that take the most."""
+    summary = run["summary"]
+    args = (run["model"], run["trainer"], run["plist"], run["loss_fn"],
+            run["tokens"], run["labels"])
+    recs = []
+    for _ in range(ADAMW_TIMED_STEPS):
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        host = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, overflow = _adamw_step(*args, events, host=host)
+        torch.cuda.synchronize()
+        recs.append({"wall_ms": (time.perf_counter() - t0) * 1e3,
+                     "overflow": overflow,
+                     "windows_ms": [events[j].elapsed_time(events[j + 1])
+                                    for j in range(4)],
+                     "trainer_step_host_ms": host[0] if host else None})
+    applied = [r for r in recs if not r["overflow"]]
+    if not applied:
+        raise SystemExit("chip_smoke: train_bert_adamw_fp16: every timed "
+                         "step overflowed")
+
+    def med(f):
+        return float(np.median([f(r) for r in applied]))
+    wall = med(lambda r: r["wall_ms"])
+    walk = _leaf_walk_ms(run)
+    kernel_ms, ours, top = profiled_step(lambda: _adamw_step(*args))
+    summary.update(
+        timed_steps=recs, applied_step_wall_ms_median=wall,
+        tokens_per_s=TRAIN_B * TRAIN_T / (wall / 1e3),
+        forward_ms=med(lambda r: r["windows_ms"][0]),
+        backward_ms=med(lambda r: r["windows_ms"][1]),
+        overflow_check_ms=med(lambda r: r["windows_ms"][2]),
+        optimizer_ms=med(lambda r: r["windows_ms"][3]),
+        trainer_step_host_ms=med(lambda r: r["trainer_step_host_ms"]),
+        profiled_kernel_ms=kernel_ms, device_busy_share=kernel_ms / wall,
+        kernel_ms_in_step=ours, top_kernels_ms=top, **walk)
+    if not all(ours[n] > 0 for n in ("flash_fwd", "flash_bwd_dq",
+                                     "flash_bwd_dkv")) or ours["mp_sgd"]:
+        raise SystemExit(f"chip_smoke: train_bert_adamw_fp16: profiled "
+                         f"kernel time {ours}")
+    log("[train_bert_adamw_fp16] " + json.dumps(summary))
+    run.clear()
+    torch.cuda.empty_cache()
+    return summary
 
 
 def phase_train_fp32(card):
@@ -1767,9 +2426,9 @@ def phase_train_resnet50(card, peaks):
         f"the forward); built in {time.perf_counter() - t0:.2f} s")
 
     want = dict.fromkeys(_train_counters(), 0)
-    want["mp_sgd"] = RESNET_FP16_PARAMS
+    want["mp_sgd"] = 1  # one launch a step for the 87 fp16 parameters
     trainable = [p for p in params.values() if p.requires_grad]
-    grad_max, rates, masters, missing = [], [], [], []
+    grad_max, rates, masters, missing, opt_host = [], [], [], [], []
 
     def update():
         # the largest |gradient| of the step, read after it: a non-finite
@@ -1780,7 +2439,9 @@ def phase_train_resnet50(card, peaks):
             torch.stack(torch._foreach_norm(g16, float("inf"))).float()
             .max(), torch.stack(torch._foreach_norm(g32, float("inf")))
             .max()))
+        t0 = time.perf_counter()
         trainer.step(RESNET_B * RESNET_LOSS_SCALE)
+        opt_host.append((time.perf_counter() - t0) * 1e3)
         rates.append(trainer.learning_rate)
     checked = _checked(update, params, missing)
 
@@ -1830,12 +2491,17 @@ def phase_train_resnet50(card, peaks):
         "profiled_kernel_ms": kernel_ms,
         "device_busy_share": kernel_ms / wall_ms,
         "top_kernels_ms": top, "b1_ms_per_step": ours["mp_sgd"],
-        "b1_launches_per_step": RESNET_FP16_PARAMS,
+        "b1_launches_per_step": totals["mp_sgd"] / RESNET_STEPS,
+        "b1_tensors_per_step": RESNET_FP16_PARAMS,
+        "trainer_step_host_ms_median": float(np.median(opt_host[1:])),
+        "trainer_step_host_ms": opt_host,
         "b1_values_per_step": sum(sizes16),
         "b1_median_values_per_launch": int(np.median(sizes16)),
         "b1_bound_ms_per_step": 20 * sum(sizes16) / peaks["bytes"] * 1e3,
         "b1_bound_by": "bytes",
         "b1_share_of_optimizer": ours["mp_sgd"] / opt_ms,
+        "b1_bound_share": 20 * sum(sizes16) / peaks["bytes"] * 1e3
+        / ours["mp_sgd"],
         "macs_per_image_forward": macs, "flop_per_step": flops_step,
         "fp16_tensor_core_peak_share":
             flops_step / (wall_ms / 1e3) / peaks["float16"],
@@ -1989,8 +2655,12 @@ def main():
     split_rows = phase_split_check(peaks)
     phase_repaired_faults()
     sgd_rows = phase_sgd_check(peaks)
+    multi_rows = phase_sgd_multi_check(peaks)
     serve_launches = phase_slice(card)
     train = phase_train(card)
+    adamw_run = phase_train_adamw(card)
+    phase_checkpoint(card, adamw_run)
+    adamw = phase_adamw_profile(adamw_run)
     train32 = phase_train_fp32(card)
     gpt = phase_train_gpt32(card)
     phase_resnet_check(card)
@@ -2173,22 +2843,51 @@ def main():
                                 "into bf16 planes",
         "shape": [split["elements"]], "dtype": "float32 -> 3 x bfloat16",
         **common})
+    # B1 on the main paths is one launch over every fp16 parameter of a
+    # step: "ms" and its bound are the BERT-base list's (150 tensors), the
+    # ResNet-50 list's (87) beside them; the list of one at single sizes
+    # keeps the earlier rows' shapes
+    bert_multi, resnet_multi = multi_rows["bert"], multi_rows["resnet50"]
+    multi_keys = ("tensors", "values", "median_values", "ms",
+                  "single_launches_ms", "host_ms", "single_launches_host_ms",
+                  "plain_ms", "bound_ms", "bound_by", "bound_share",
+                  "single_launches_bound_share", "fused_sgd_fp32_context_ms")
     kernels.append({
         "name": "mp_sgd", "route": "cuda",
         "source": "mxnet_tpu_torch/csrc/mp_sgd.cu",
         "replaces": "mxnet_tpu/opt/kernels.py:95",
-        "launches": train["mp_sgd"] + resnet["mp_sgd"],
+        "launches": train["mp_sgd"] + resnet["mp_sgd"]
+        + adamw["launches"]["mp_sgd"],
         "launches_by_path": {"train_fp16": train["mp_sgd"],
-                             "train_resnet50_fp16": resnet["mp_sgd"]},
-        "max_abs_err": max(r["max_abs_err"] for r in sgd_rows),
-        "ms": sgd["ms"], "plain_ms": sgd["plain_ms"],
-        "bound_ms": sgd["bound_ms"], "bound_by": sgd["bound_by"],
+                             "train_resnet50_fp16": resnet["mp_sgd"],
+                             "train_bert_adamw_fp16":
+                                 adamw["launches"]["mp_sgd"]},
+        "launches_per_step": {
+            "train_fp16": train["mp_sgd"] / TRAIN_STEPS,
+            "train_resnet50_fp16": resnet["mp_sgd"] / RESNET_STEPS,
+            "train_bert_adamw_fp16": adamw["launches"]["mp_sgd"]
+            / adamw["steps"]},
+        "max_abs_err": max([r["max_abs_err"] for r in sgd_rows]
+                           + [r[f"clip_{c}"]["max_abs_err"]
+                              for r in multi_rows.values()
+                              for c in (-1.0, 1.0)]),
+        "ms": bert_multi["ms"], "plain_ms": bert_multi["plain_ms"],
+        "bound_ms": bert_multi["bound_ms"],
+        "bound_by": bert_multi["bound_by"],
+        "shape": [bert_multi["values"]], "tensors": bert_multi["tensors"],
+        "multi": {"bert_base_fp16": {k: bert_multi[k] for k in multi_keys},
+                  "resnet50_fp16": {k: resnet_multi[k]
+                                    for k in multi_keys},
+                  "fused_sgd_note": bert_multi["fused_sgd_note"],
+                  "capacity": bert_multi["capacity"]},
+        "single_tensor": {k: sgd[k] for k in (
+            "n", "ms", "plain_ms", "bound_ms", "bound_by")},
         "largest_resnet50_tensor": {k: sgd_resnet[k] for k in (
             "n", "ms", "plain_ms", "bound_ms", "bound_by")},
         "library_ms": None,
         "library_none_because": "no single PyTorch call computes the "
                                 "update and the cast together",
-        "shape": [sgd["n"]], "dtype": "float16/float32", **common})
+        "dtype": "float16/float32", **common})
     log(f"[time] chip_smoke ran for {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

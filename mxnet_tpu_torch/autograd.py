@@ -95,11 +95,41 @@ def predict_mode() -> _Scope:
 Tensors = Union[torch.Tensor, Sequence[torch.Tensor]]
 
 
+def _reached_leaves(heads: Sequence[torch.Tensor]) -> list:
+    """The leaves whose gradient a backward from ``heads`` deposits: the
+    variables of the ``AccumulateGrad`` nodes of the heads' graph (and any
+    head that is itself a leaf)."""
+    leaves, seen = [], set()
+    stack = []
+    for h in heads:
+        if h.grad_fn is not None:
+            stack.append(h.grad_fn)
+        elif h.requires_grad:
+            leaves.append(h)
+    while stack:
+        fn = stack.pop()
+        if fn is None or fn in seen:
+            continue
+        seen.add(fn)
+        var = getattr(fn, "variable", None)
+        if var is not None:
+            leaves.append(var)
+            continue
+        stack.extend(nxt for nxt, _ in fn.next_functions)
+    return leaves
+
+
 def backward(heads: Tensors, head_grads: Optional[Tensors] = None,
              retain_graph: bool = False) -> None:
     """Gradients of ``heads`` into the ``.grad`` of the leaves they depend
     on. A head without a head gradient gets ones, as in MXNet, so a
-    per-sample loss sums over its samples."""
+    per-sample loss sums over its samples.
+
+    Each leaf the backward reaches is deposited into by its ``grad_req``,
+    as in the JAX package: under the default ``"write"`` the new gradient
+    replaces what ``.grad`` held; a leaf whose ``grad_req`` attribute is
+    ``"add"`` accumulates. A leaf the backward does not reach keeps its
+    ``.grad``."""
     if isinstance(heads, torch.Tensor):
         heads = [heads]
     if head_grads is None or isinstance(head_grads, torch.Tensor):
@@ -110,4 +140,8 @@ def backward(heads: Tensors, head_grads: Optional[Tensors] = None,
                          "gradients")
     grads = [torch.ones_like(h) if g is None else g
              for h, g in zip(heads, head_grads)]
+    for leaf in _reached_leaves(heads):
+        if leaf.grad is not None and \
+                getattr(leaf, "grad_req", "write") != "add":
+            leaf.grad = None
     torch.autograd.backward(list(heads), grads, retain_graph=retain_graph)

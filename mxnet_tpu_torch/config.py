@@ -1,7 +1,8 @@
-"""Typed flags of the port: the serving flags this slice reads.
+"""Typed flags of the port: the flags its modules read.
 
-Counterpart of ``mxnet_tpu/config.py``, holding only ``MXSERVE_*`` flags
-the serving engine and batcher read. Resolution order: :func:`set_flag`
+Counterpart of ``mxnet_tpu/config.py``, holding the ``MXSERVE_*`` flags
+the serving engine and batcher read and the optimizer's
+``MXNET_OPTIMIZER_AGGREGATION_SIZE``. Resolution order: :func:`set_flag`
 runtime override > environment > declared default.
 """
 from __future__ import annotations
@@ -35,6 +36,11 @@ _FLAGS: Dict[str, Flag] = {f.name: f for f in (
          "raises QueueFullError."),
     Flag("MXSERVE_MAX_BATCH", int, 0,
          "Row cap per serving dispatch. 0 = the ladder's top batch rung."),
+    Flag("MXNET_OPTIMIZER_AGGREGATION_SIZE", int, 4,
+         "Parameters per aggregated update (Optimizer.update_multi) for "
+         "optimizers with a fused_apply; clamped to 1-45. Multi-precision "
+         "SGD with momentum updates all fp16 parameters in one launch "
+         "whatever it is."),
 )}
 _OVERRIDES: Dict[str, Any] = {}
 _LOCK = threading.Lock()

@@ -19,8 +19,12 @@ front, so there is no deferred initialization):
   runs eagerly. Capture of the forward and the step into one program per
   input signature is the fused-step slice (ROADMAP Queue A item 4).
 
-``save_parameters``/``load_parameters``, ``export`` and ``summary`` are
-not ported yet; ``state_dict`` and ``convert.py`` carry weights.
+- ``save_parameters(filename)`` / ``load_parameters(filename, ...)``:
+  every parameter under those names in MXNet's ``.params`` format
+  (:mod:`mxnet_tpu_torch.ndarray.serialization`), so that a file either
+  package writes loads in the other bit for bit.
+
+``export`` and ``summary`` are not ported yet (ROADMAP Queue A item 3).
 """
 from __future__ import annotations
 
@@ -30,6 +34,9 @@ import torch
 from torch import nn
 
 from .. import initializer as init_mod
+from ..base import MXNetError
+from ..context import resolve_device
+from ..ndarray import serialization
 from .parameter import collect_params
 
 __all__ = ["Block", "HybridBlock", "as_dtype"]
@@ -103,6 +110,56 @@ class Block(nn.Module):
 
     def hybridize(self, active=True, **kwargs):
         _hybridize_tree(self, active, **kwargs)
+
+    def save_parameters(self, filename, deduplicate=False):
+        """Write every parameter, named as :meth:`collect_params` names
+        them, to ``filename`` in MXNet's format."""
+        serialization.save(filename, {name: p.detach() for name, p in
+                                      self.collect_params().items()})
+
+    def load_parameters(self, filename, ctx=None, allow_missing=False,
+                        ignore_extra=False, cast_dtype=False,
+                        dtype_source="current"):
+        """Set the parameters from a file :meth:`save_parameters` (of
+        either package) wrote. A parameter absent from the file raises
+        unless ``allow_missing``; a name the model lacks raises unless
+        ``ignore_extra``. Values take each parameter's dtype, as in the
+        JAX package, unless ``cast_dtype`` with ``dtype_source="saved"``,
+        where the parameter takes the file's. ``ctx`` (a device) moves
+        every loaded parameter there; else each stays on its device.
+        Shapes are fixed when a layer is built, so a shape that differs
+        raises."""
+        loaded = serialization.load(filename, device="cpu")
+        params = self.collect_params()
+        if not allow_missing:
+            for name in params:
+                if name not in loaded:
+                    raise MXNetError(f"Parameter '{name}' is missing in "
+                                     f"file '{filename}'")
+        dev = None if ctx is None else resolve_device(ctx)
+        with torch.no_grad():
+            for name, value in loaded.items():
+                if name not in params:
+                    if not ignore_extra:
+                        raise MXNetError(
+                            f"Parameter '{name}' loaded from file "
+                            f"'{filename}' is not present in Block")
+                    continue
+                p = params[name]
+                if tuple(value.shape) != tuple(p.shape):
+                    raise MXNetError(
+                        f"Parameter '{name}' has shape {tuple(p.shape)}, "
+                        f"the file's is {tuple(value.shape)}")
+                dtype = value.dtype if cast_dtype and \
+                    dtype_source == "saved" else p.dtype
+                target = p.device if dev is None else dev
+                if target == p.device and dtype == p.dtype:
+                    p.data.copy_(value)
+                else:
+                    p.data = value.to(device=target, dtype=dtype)
+
+    save_params = save_parameters
+    load_params = load_parameters
 
 
 class HybridBlock(Block):

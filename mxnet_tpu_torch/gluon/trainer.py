@@ -9,12 +9,20 @@ Counterpart of ``mxnet_tpu/gluon/trainer.py`` on one device::
 
 ``step`` sets ``rescale_grad = rescale_grad / batch_size``, reduces the
 gradients (a no-op on one device) and applies the optimizer to every
-parameter that requires a gradient, one ``Updater`` call per parameter.
+parameter that requires a gradient: one list-form ``Updater`` call over
+all of them where there are several (the reference's aggregated branch:
+``update_multi`` in chunks for optimizers with a ``fused_apply``, and one
+``mp_sgd`` launch for every fp16 parameter of multi-precision SGD with
+momentum), else one call per parameter. ``save_states``/``load_states``
+keep the optimizer and its states in a file (the path without a
+kvstore).
+
 A gradient is consumed by the step that applies it (``.grad`` is set to
-None afterwards), so each backward writes fresh gradients, as MXNet's
-``grad_req="write"`` does, and a parameter that the last backward did not
-reach is found: its ``.grad`` is None, which raises unless
-``ignore_stale_grad`` is set, and then it is skipped.
+None afterwards), so a parameter that the last backward did not reach is
+found: its ``.grad`` is None, which raises unless ``ignore_stale_grad`` is
+set, and then it is skipped. A parameter whose ``grad_req`` attribute is
+``"add"`` keeps its gradient across steps, as in the reference; the
+caller zeroes it.
 """
 from __future__ import annotations
 
@@ -125,7 +133,35 @@ class Trainer:
                     "backward did not reach it. Call step(batch_size, "
                     "ignore_stale_grad=True) to skip such parameters.")
             live.append((i, p))
+        updater = self._updaters[0]
         with torch.no_grad():
-            for i, p in live:
-                self._updaters[0](i, p.grad, p.data)
-                p.grad = None
+            if len(live) > 1 and updater.aggregate_updates:
+                updater([i for i, _ in live], [p.grad for _, p in live],
+                        [p.data for _, p in live])
+            else:
+                for i, p in live:
+                    updater(i, p.grad, p.data)
+            for _, p in live:
+                if getattr(p, "grad_req", "write") != "add":
+                    p.grad = None
+
+    def save_states(self, fname):
+        """Write the optimizer and every state it holds to ``fname`` (the
+        port's own pickle, tensors on the CPU: the JAX package's file
+        pickles its own classes, and neither reads the other's)."""
+        with open(fname, "wb") as fout:
+            fout.write(self._updaters[0].get_states(dump_optimizer=True))
+
+    def load_states(self, fname):
+        """Read what :meth:`save_states` wrote: the optimizer replaces this
+        Trainer's, and each state moves to its parameter's device."""
+        with open(fname, "rb") as f:
+            states = f.read()
+        for updater in self._updaters:
+            updater.set_states(states)
+            updater.optimizer = self._updaters[0].optimizer
+            updater.states = {
+                i: opt_mod._to_device(s, self._params[i].device)
+                for i, s in updater.states.items()}
+        self._optimizer = self._updaters[0].optimizer
+        self._optimizer.param_dict = dict(enumerate(self._params))

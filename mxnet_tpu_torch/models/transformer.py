@@ -17,6 +17,9 @@ dim up to 64 in the forward and up to 128 in the backward), on the CPU it
 takes their plain versions. Elsewhere it is dense
 :func:`~mxnet_tpu_torch.parallel.local_attention`.
 ``dtype=torch.float16`` builds the model for mixed-precision training.
+The models are Gluon ``HybridBlock``s, as there: ``collect_params``,
+``save_parameters`` and ``load_parameters`` address their parameters in
+the JAX package's naming.
 The JAX package's measured choice between flash and dense attention on
 shapes both take (``operator_tune``), context parallelism and the
 mixture-of-experts FFN come with later slices.
@@ -24,9 +27,9 @@ mixture-of-experts FFN come with later slices.
 from __future__ import annotations
 
 import torch
-from torch import nn
 
 from ..context import resolve_device
+from ..gluon.block import HybridBlock
 from ..gluon.nn import (GELU, Dense, Dropout, Embedding, HybridSequential,
                         LayerNorm)
 from ..ops.flash_attention import flash_attention, flash_attention_available
@@ -36,7 +39,7 @@ __all__ = ["MultiHeadAttention", "TransformerEncoderLayer", "TransformerLM",
            "BERTModel"]
 
 
-class MultiHeadAttention(nn.Module):
+class MultiHeadAttention(HybridBlock):
     """Self-attention over ``(B, T, C)``.
 
     ``attention`` is the function applied to the ``(B, H, T, D)`` q/k/v,
@@ -80,7 +83,7 @@ class MultiHeadAttention(nn.Module):
         return self.drop(self.proj(out))
 
 
-class TransformerEncoderLayer(nn.Module):
+class TransformerEncoderLayer(HybridBlock):
     def __init__(self, units: int, num_heads: int, hidden_size: int,
                  dropout: float = 0.0, pre_norm: bool = True,
                  num_experts: int = 0, num_experts_per_tok: int = 2,
@@ -114,7 +117,7 @@ class TransformerEncoderLayer(nn.Module):
         return self.ln2(x + self.drop(self._ffn(x)))
 
 
-class TransformerLM(nn.Module):
+class TransformerLM(HybridBlock):
     """Encoder / decoder-only LM over token ids ``(B, T)`` -> logits
     ``(B, T, vocab)``: BERT-style (``causal=False``) or GPT-style
     (``causal=True``)."""

@@ -470,8 +470,8 @@ def test_mp_sgd_kernel_refuses_what_it_does_not_take():
 def test_trainer_steps_small_fp16_bert_through_the_kernels():
     """record -> backward -> Trainer.step with multi-precision SGD on an
     fp16 model: launches per step are L forward, L dQ, L dK/dV (all on the
-    tensor-core route) and one update per parameter; two steps agree with
-    plain attention and the plain update to fp16's precision."""
+    tensor-core route) and one B1 launch for every parameter; two steps
+    agree with plain attention and the plain update to fp16's precision."""
     _need_cuda()
     torch.backends.cuda.matmul.allow_tf32 = False
     from mxnet_tpu_torch import autograd
@@ -516,8 +516,8 @@ def test_trainer_steps_small_fp16_bert_through_the_kernels():
         assert all(p.grad is not None for p in params.values())
         trainer.step(tok.numel() * scale)
         # fp16, head dim 16: every attention launch on the tensor-core route
-        assert [c.count for c in counters] == [L, L, L, len(params), L, L,
-                                               L]
+        # one B1 launch updates every fp16 parameter
+        assert [c.count for c in counters] == [L, L, L, 1, L, L, L]
         with autograd.record():
             ref_loss = loss_fn(ref(tok).reshape(-1, V), lab.reshape(-1))
         autograd.backward(ref_loss * scale)
@@ -663,8 +663,8 @@ def test_batch_norm_on_the_card_matches_the_cpu(dtype):
 def test_trainer_steps_narrow_fp16_resnet_through_b1():
     """A narrow ResNetV1 (BottleneckV1, one block per stage, 16-256
     channels) cast to fp16, BatchNorm fp32: record -> backward ->
-    Trainer.step with multi-precision SGD launches B1 once per fp16
-    parameter (27) and never for BatchNorm; two steps agree with a run
+    Trainer.step with multi-precision SGD launches B1 once a step for
+    its 27 fp16 parameters, none of them BatchNorm's; two steps agree with a run
     whose update is B1's plain version (cuDNN's deterministic algorithms
     in both, so that only the update differs, and it rounds alike)."""
     _need_cuda()
@@ -708,7 +708,7 @@ def test_trainer_steps_narrow_fp16_resnet_through_b1():
             loss = loss_fn(net(x), y)
         autograd.backward(loss * scale)
         trainer.step(8 * scale)
-        assert kernels.LAUNCHES.count == n16
+        assert kernels.LAUNCHES.count == 1
         with autograd.record():
             ref_loss = loss_fn(ref(x), y)
         autograd.backward(ref_loss * scale)
@@ -737,3 +737,102 @@ def test_trainer_steps_narrow_fp16_resnet_through_b1():
         want = ref_state[n][0] if p.dtype == torch.float16 else ref_params[n]
         torch.testing.assert_close(got, want.detach(), rtol=1e-2, atol=1e-3)
     torch.backends.cudnn.deterministic = False
+
+
+def _sgd_list(sizes, seed, unaligned=()):
+    """fp16 weights and gradients, fp32 momenta and master weights of
+    ``sizes``; the indices in ``unaligned`` are views at an odd element
+    offset, too unaligned for the kernel's 16-byte accesses."""
+    g = torch.Generator().manual_seed(seed)
+    ws, gs, ms, w32s = [], [], [], []
+    for i, n in enumerate(sizes):
+        off = 1 if i in unaligned else 0
+        w32 = torch.zeros(n + off, device="cuda")[off:]
+        w32.copy_(torch.randn(n, generator=g))
+        m = torch.zeros(n + off, device="cuda")[off:]
+        m.copy_(torch.randn(n, generator=g) * 0.01)
+        w = torch.zeros(n + off, dtype=torch.float16, device="cuda")[off:]
+        w.copy_(w32.half())
+        grad = torch.zeros(n + off, dtype=torch.float16, device="cuda")[off:]
+        grad.copy_((torch.randn(n, generator=g) * 300).half())
+        ws.append(w), gs.append(grad), ms.append(m), w32s.append(w32)
+    return ws, gs, ms, w32s
+
+
+@pytest.mark.parametrize("clip", [-1.0, 1.0])
+@pytest.mark.parametrize("case", ["short", "mixed", "above_capacity"])
+def test_mp_sgd_multi_kernel_is_bit_equal_to_plain_version(case, clip):
+    """One launch updates a list in place, each tensor with its own lr and
+    wd, bit-equal to the per-tensor plain version: sizes with and without
+    a partial quad and over many blocks, tensors at an odd element
+    offset, a short list (the kernel's small table) and a long one; a list
+    above the table's capacity takes one launch per capacity's worth."""
+    _need_cuda()
+    from mxnet_tpu_torch.opt.kernels import (LAUNCHES, capacity,
+                                             mp_sgd_mom_update_multi_kernel,
+                                             mp_sgd_mom_update_multi_ref)
+    cap = capacity()
+    assert cap >= 150
+    if case == "short":
+        sizes, unaligned, launches = [3, 4097, 1_000_003], (0,), 1
+    elif case == "mixed":
+        sizes = [1, 7, 8, 768, 4097, 1_000_003, 2_359_296, 13]
+        unaligned, launches = (1, 5), 1
+    else:
+        sizes = [(i * 37) % 300 + 1 for i in range(cap + 5)]
+        unaligned, launches = (3,), 2
+    ws, gs, ms, w32s = _sgd_list(sizes, len(sizes), unaligned)
+    lrs = [0.05 * (1 + i % 3) for i in range(len(sizes))]
+    wds = [1e-4 * (i % 2) for i in range(len(sizes))]
+    kw = dict(momentum=0.9, rescale_grad=1 / 256, clip_gradient=clip)
+    want = mp_sgd_mom_update_multi_ref(ws, gs, ms, w32s, lrs, wds, **kw)
+    before = LAUNCHES.count
+    mp_sgd_mom_update_multi_kernel(ws, gs, ms, w32s, lrs, wds, **kw)
+    torch.cuda.synchronize()
+    assert LAUNCHES.count == before + launches
+    for got, exp in zip(zip(ws, ms, w32s), want):
+        for a, b in zip(got, exp):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+def test_has_overflow_on_cuda_gradients():
+    """One reduction over every gradient finds an inf or a NaN in any of
+    them, fp16 or fp32, and nothing in finite ones at fp16's extremes."""
+    _need_cuda()
+    from mxnet_tpu_torch.amp import LossScaler
+    big = torch.full((1000,), 65504.0, dtype=torch.float16, device="cuda")
+    params = [torch.nn.Parameter(torch.zeros(n, dtype=dt, device="cuda"))
+              for n, dt in ((1000, torch.float16), (5, torch.float32),
+                            (300_000, torch.float16))]
+    for p in params:
+        p.grad = torch.ones_like(p)
+    params[0].grad = big.clone()
+    scaler = LossScaler()
+    assert not scaler.has_overflow(params)
+    for bad in (float("inf"), float("-inf"), float("nan")):
+        for p in params:
+            g = p.grad.clone()
+            p.grad[-1] = bad
+            assert scaler.has_overflow(params), (bad, p.dtype)
+            p.grad = g
+
+
+def test_backward_writes_gradients_on_cuda_tensors():
+    """Two backward passes without a step leave the second pass's
+    gradient (grad_req "write"); a parameter marked "add" sums both, and
+    one the second pass does not reach keeps its gradient."""
+    _need_cuda()
+    from mxnet_tpu_torch import autograd
+    w = torch.nn.Parameter(torch.ones(4, device="cuda"))
+    a = torch.nn.Parameter(torch.ones(4, device="cuda"))
+    a.grad_req = "add"
+    u = torch.nn.Parameter(torch.ones(4, device="cuda"))
+    for scale in (2.0, 3.0):
+        with autograd.record():
+            y = (w * scale).sum() + (a * scale).sum()
+            if scale == 2.0:
+                y = y + (u * 5.0).sum()
+        autograd.backward(y)
+    assert torch.equal(w.grad, torch.full_like(w, 3.0))
+    assert torch.equal(a.grad, torch.full_like(a, 5.0))
+    assert torch.equal(u.grad, torch.full_like(u, 5.0))

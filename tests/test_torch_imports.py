@@ -25,7 +25,10 @@ SLICE_MODULES = [
     "mxnet_tpu_torch.ops.nn", "mxnet_tpu_torch.random",
     "mxnet_tpu_torch.initializer", "mxnet_tpu_torch.lr_scheduler",
     "mxnet_tpu_torch.gluon.block", "mxnet_tpu_torch.gluon.nn.conv_layers",
-    "mxnet_tpu_torch.gluon.model_zoo", "mxnet_tpu_torch.gluon.model_zoo.vision"]
+    "mxnet_tpu_torch.gluon.model_zoo", "mxnet_tpu_torch.gluon.model_zoo.vision",
+    # slice 10: the optimizers, amp, checkpoints
+    "mxnet_tpu_torch.amp", "mxnet_tpu_torch.ndarray",
+    "mxnet_tpu_torch.ndarray.serialization", "mxnet_tpu_torch.config"]
 
 _PROBE = r"""
 import importlib, pkgutil, sys
@@ -88,6 +91,7 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
     from mxnet_tpu_torch.gluon.model_zoo.vision import resnet50_v1
     from mxnet_tpu_torch.gluon.nn import BatchNorm, Conv2D, Dense, Dropout
     from mxnet_tpu_torch.models import BERTModel, TransformerLM
+    from mxnet_tpu_torch.ndarray import load_frombuffer
     from mxnet_tpu_torch.random import generator
     from mxnet_tpu_torch.serve import ServingEngine
     for make in (lambda: ServingEngine(lambda x: x),
@@ -100,6 +104,7 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
                  lambda: BatchNorm(in_channels=8),
                  lambda: Dense(4, 8),
                  lambda: generator(),
+                 lambda: load_frombuffer(b""),
                  lambda: resolve_device(None)):
         with pytest.raises(MXNetError, match="CUDA is not available"):
             make()

@@ -184,4 +184,4 @@ def test_updater_steps_match_jax(dtype):
 def test_create_names_what_is_registered():
     assert isinstance(torch_opt.create("SGD"), torch_opt.SGD)
     with pytest.raises(MXNetError, match="not registered"):
-        torch_opt.create("adamw")
+        torch_opt.create("no_such_optimizer")
