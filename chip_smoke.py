@@ -99,6 +99,33 @@ end, failing on the first phase that fails:
     reference run with B1's plain version; images/s, the step's windows,
     device busy share and top kernels, B1's time, peak memory and the
     share of the fp16 tensor-core peak.
+12. nd ops (``[nd_ops]``) — every registered dense op of ``mx.nd`` (one
+    name per function) on the card and on the CPU on the same fp32 inputs
+    (TF32 off): every output on the card, shapes and dtypes equal, values
+    within rtol 1e-5 / atol 1e-6 (rtol 1e-4 / atol 1e-5 where the op
+    sums), samplers by shape, dtype and finiteness; the counts of ops and
+    stubs; ``nd.mp_sgd_mom_update`` (with ``out=``) and
+    ``nd.multi_mp_sgd_mom_update`` on BERT-base's 150 fp16 tensors: 150
+    and 1 B1 launches, bit-equal to B1's plain version;
+    ``nd._fused_attention`` at (8, 12, 512, 512, 64) in fp16 and fp32: the
+    forward on B2's tensor-core route and, under ``record``, the backward
+    on B3/B4's, within ``FWD_TOL`` / ``BWD_TOL`` of the plain version; and
+    the host cost of an nd call against the bare torch call (printed,
+    not gated);
+13. index fault (``[index_fault]``) — labels and indices -1, n and n + 2
+    through ``SoftmaxCrossEntropyLoss``, the ``Embedding`` layer,
+    ``nd.pick`` and ``nd.Embedding`` on the card: no device-side assert,
+    the CPU path's values (-1 wraps, the others NaN);
+14. ``train_gluon.py``'s loop (``[train_gluon_nd]``) — ``get_model(
+    "resnet50_v1", classes=1000)`` with the classifier replaced by a user
+    ``HybridBlock`` whose ``hybrid_forward`` calls ``F.FullyConnected``,
+    Xavier, fp16 (BatchNorm fp32), ``Trainer("sgd", multi_precision)``,
+    256 NDArray images on ``mx.gpu(0)``: ``record`` ->
+    ``loss.backward()`` -> ``trainer.step(256)`` ->
+    ``metric.Accuracy().update`` for one warm step and eight more; one B1
+    launch a step, every output an NDArray on the card, the loss finite
+    and falling, the metric's count equal to a torch recount; its median
+    step and images/s beside ``[train_resnet50]``'s.
 
 The script prints its own wall time. The last three lines are the card
 (``nvidia-smi``), ``{"kernels": [...]}`` and ``{"ok": true, "device":
@@ -1841,11 +1868,11 @@ def phase_checkpoint(card, run):
     on the same batch: weights, fp32 masters, means and variances
     bit-equal to the uninterrupted run. The saved ``.params`` decode with
     the port's reader to the tensors saved."""
-    from mxnet_tpu_torch import ndarray
     from mxnet_tpu_torch.gluon import collect_params
     from mxnet_tpu_torch.gluon.nn import Dropout
+    from mxnet_tpu_torch.ndarray import serialization
     ckpt = run["ckpt"]
-    decoded = ndarray.load(ckpt["params"], device="cuda")
+    decoded = serialization.load(ckpt["params"], device="cuda")
     if sorted(decoded) != sorted(ckpt["weights"]) or not all(
             decoded[n].dtype == w.dtype and torch.equal(decoded[n], w)
             for n, w in ckpt["weights"].items()):
@@ -2573,7 +2600,549 @@ def phase_train_resnet50(card, peaks):
     log("[train_resnet50] " + json.dumps(summary))
     del ref, ref_params, ref_state, init_state, x, y
     torch.cuda.empty_cache()
-    return totals
+    return totals, summary
+
+
+# -- the mx.nd surface (slice 11) -----------------------------------------------
+
+# nd ops on the card against the same op on the CPU, on the same fp32
+# inputs (TF32 off): an elementwise op agrees to a few fp32 ulps (rtol 1e-5,
+# atol 1e-6: CUDA's and the CPU's libm differ in the last bits); an op
+# that sums (GEMM, convolution, reductions, normalizations, softmax,
+# pooling, resizes) may sum in another order on cuBLAS / cuDNN / ATen's
+# CUDA kernels: rtol 1e-4, atol 1e-5
+ND_TOL_EXACT, ND_TOL_SUMS = (1e-5, 1e-6), (1e-4, 1e-5)
+ND_SUMS = {
+    "dot", "batch_dot", "FullyConnected", "Convolution", "Deconvolution",
+    "khatri_rao", "_fused_attention", "norm", "sum", "nansum", "mean",
+    "prod", "nanprod", "moments", "_square_sum", "add_n", "cumsum",
+    "softmax", "log_softmax", "softmin", "SoftmaxActivation",
+    "SoftmaxOutput", "softmax_cross_entropy", "BatchNorm", "LayerNorm",
+    "GroupNorm", "InstanceNorm", "L2Normalization", "LRN", "Pooling",
+    "_contrib_AdaptiveAvgPooling2D", "_contrib_BilinearResize2D",
+    "UpSampling", "_random_pdf_dirichlet", "multi_all_finite", "gamma",
+    "gammaln", "_random_pdf_gamma", "_random_pdf_poisson",
+    "_random_pdf_negative_binomial",
+    "_random_pdf_generalized_negative_binomial", "erfinv"}
+ND_SAMPLERS = ("_random_", "_sample_", "_shuffle")
+ND_ATTN = (8, HEADS, 512, 512, HEAD_DIM)
+ND_ATTN_COUNTS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+                  "fwd_tensor_core", "dq_tensor_core", "dkv_tensor_core",
+                  "split_bf16x3")
+
+
+def _nd_inputs(name, info, rs):
+    """Inputs and params for op ``name`` as numpy arrays: the curated
+    cases of ``tests/test_op_sweep.py::CASES`` for the ops that need them
+    (copied here, as this script imports nothing of the tests), else
+    (2, 3, 4) tensors, one per required input."""
+    def T(*s, lo=0.1, hi=0.9):
+        return rs.uniform(lo, hi, s).astype(np.float32)
+
+    def I(*s, hi=3):
+        return rs.randint(0, hi, s).astype(np.float32)
+
+    def softmax_rows(x):
+        e = np.exp(x - x.max(-1, keepdims=True))
+        return (e / e.sum(-1, keepdims=True)).astype(np.float32)
+
+    arr = np.array
+    quads = [T(3, 4), T(3, 4), T(3, 4), T(3, 4), T(2, 2), T(2, 2),
+             T(2, 2), T(2, 2)]
+    cases = {
+        "pick": lambda: ([T(4, 5), I(4, hi=5)], {}),
+        "_graph_const": lambda: ([], {"data": [[1.0, 2.0], [3.0, 4.0]],
+                                      "shape": (2, 2), "dtype": "float32"}),
+        "_fused_attention": lambda: ([T(2, 2, 8, 4), T(2, 2, 8, 4),
+                                      T(2, 2, 8, 4)], {"scale": 0.5}),
+        "dot": lambda: ([T(3, 4), T(4, 5)], {}),
+        "batch_dot": lambda: ([T(2, 3, 4), T(2, 4, 5)], {}),
+        "reshape": lambda: ([T(2, 6)], {"shape": (3, 4)}),
+        "slice": lambda: ([T(4, 5)], {"begin": (1, 0), "end": (3, 4)}),
+        "tile": lambda: ([T(2, 3)], {"reps": (2, 2)}),
+        "reverse": lambda: ([T(3, 4)], {"axis": 1}),
+        "depth_to_space": lambda: ([T(1, 8, 2, 3)], {"block_size": 2}),
+        "space_to_depth": lambda: ([T(1, 2, 4, 6)], {"block_size": 2}),
+        "broadcast_to": lambda: ([T(1, 3)], {"shape": (4, 3)}),
+        "broadcast_axis": lambda: ([T(1, 3)], {"axis": 0, "size": 4}),
+        "Pad": lambda: ([T(1, 2, 4, 4)], {
+            "mode": "constant", "pad_width": (0, 0, 0, 0, 1, 1, 1, 1)}),
+        "batch_take": lambda: ([T(4, 5), I(4, hi=5)], {}),
+        "scatter_nd": lambda: ([T(3), arr([[0, 2, 1]], np.float32)],
+                               {"shape": (4,)}),
+        "_scatter_set_nd": lambda: ([T(4), T(3), arr([[0, 2, 1]],
+                                                     np.float32)],
+                                    {"shape": (4,)}),
+        "_ravel_multi_index": lambda: ([arr([[0, 1], [1, 2]], np.float32)],
+                                       {"shape": (3, 4)}),
+        "_unravel_index": lambda: ([arr([5, 7], np.float32)],
+                                   {"shape": (3, 4)}),
+        "FullyConnected": lambda: ([T(2, 5), T(4, 5), T(4)],
+                                   {"num_hidden": 4}),
+        "Deconvolution": lambda: ([T(1, 2, 4, 4), T(2, 3, 2, 2)], {
+            "kernel": (2, 2), "num_filter": 3, "no_bias": True}),
+        "Pooling": lambda: ([T(1, 2, 6, 6)], {
+            "kernel": (2, 2), "pool_type": "max", "stride": (2, 2)}),
+        "_contrib_AdaptiveAvgPooling2D": lambda: ([T(1, 2, 8, 8)],
+                                                  {"output_size": 2}),
+        "UpSampling": lambda: ([T(1, 2, 4, 4)], {"scale": 2,
+                                                 "sample_type": "nearest"}),
+        "_contrib_BilinearResize2D": lambda: ([T(1, 2, 4, 4)],
+                                              {"height": 8, "width": 8}),
+        "softmax_cross_entropy": lambda: ([T(4, 5), I(4, hi=5)], {}),
+        "SoftmaxOutput": lambda: ([T(4, 5), I(4, hi=5)], {}),
+        "SVMOutput": lambda: ([T(4, 5), I(4, hi=5)], {}),
+        "BatchNorm": lambda: ([T(2, 3, 4, 4), T(3), T(3), T(3), T(3)], {}),
+        "LayerNorm": lambda: ([T(2, 5), T(5), T(5)], {}),
+        "GroupNorm": lambda: ([T(2, 4, 3, 3), T(4), T(4)],
+                              {"num_groups": 2}),
+        "InstanceNorm": lambda: ([T(2, 3, 5), T(3), T(3)], {}),
+        "LRN": lambda: ([T(1, 4, 5, 5)], {"nsize": 3}),
+        "Crop": lambda: ([T(1, 2, 8, 8)], {"h_w": (4, 4),
+                                           "center_crop": True}),
+        "arccosh": lambda: ([T(2, 3, lo=1.1, hi=3.0)], {}),
+        "rmspropalex_update": lambda: ([T(3, 4), T(3, 4),
+                                        T(3, 4, lo=1.0, hi=2.0),
+                                        T(3, 4, lo=0.0, hi=0.5), T(3, 4)],
+                                       {}),
+        "multi_sgd_update": lambda: ([T(3, 4), T(3, 4), T(2, 2), T(2, 2)], {
+            "lrs": (0.1, 0.1), "wds": (0, 0), "num_weights": 2}),
+        "multi_sgd_mom_update": lambda: (
+            [T(3, 4), T(3, 4), T(3, 4), T(2, 2), T(2, 2), T(2, 2)],
+            {"lrs": (0.1, 0.1), "wds": (0, 0), "momentum": 0.9,
+             "num_weights": 2}),
+        "multi_mp_sgd_update": lambda: (
+            [T(3, 4), T(3, 4), T(3, 4), T(2, 2), T(2, 2), T(2, 2)],
+            {"lrs": (0.1, 0.1), "wds": (0, 0), "num_weights": 2}),
+        "multi_mp_sgd_mom_update": lambda: (quads, {
+            "lrs": (0.1, 0.1), "wds": (0, 0), "momentum": 0.9,
+            "num_weights": 2}),
+        "_contrib_boolean_mask": lambda: ([T(5, 3), arr([0, 1, 0, 1, 1],
+                                                        np.float32)], {}),
+        "_random_randint": lambda: ([], {"low": 0, "high": 5,
+                                         "shape": (3, 4)}),
+        "_sample_multinomial": lambda: ([softmax_rows(T(2, 5))],
+                                        {"shape": (3,)}),
+        "_sample_unique_zipfian": lambda: ([], {"range_max": 100,
+                                                "shape": (1, 8)}),
+        "_shuffle": lambda: ([T(6, 3)], {}),
+        "_sample_uniform": lambda: ([T(3), T(3, lo=1.1, hi=2.0)],
+                                    {"shape": (4,)}),
+        "_sample_negative_binomial": lambda: ([I(3, hi=5) + 1, T(3)],
+                                              {"shape": (4,)}),
+    }
+    if name in cases:
+        return cases[name]()
+    if name.startswith("_random_") and not name.startswith("_random_pdf") \
+            and not name.endswith("_like"):
+        return [], {"shape": (3, 4)}
+    if name.startswith("_sample_"):
+        n = sum(1 for a in info.arg_names if a not in info.defaults
+                and a != "*")
+        return [T(3) for _ in range(n)], {"shape": (4,)}
+    n = 0
+    for a in info.arg_names:
+        if a == "*":
+            n = max(n, 1)
+            break
+        if a in info.defaults:
+            break
+        n += 1
+    return [T(2, 3, 4) for _ in range(n)], {}
+
+
+def _nd_sweep():
+    """Every registered dense op (one name per function) on the card and
+    on the CPU, on the same inputs; returns the rows and the stub
+    count."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import nd
+    from mxnet_tpu_torch.ops.registry import _OPS
+    seen = {}
+    for info in _OPS.values():
+        if not info.stub:
+            seen.setdefault(id(info.fn), info)
+    stubs = sorted(n for n, i in _OPS.items() if i.stub)
+    rows, bad = [], []
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    for info in sorted(seen.values(), key=lambda i: i.name):
+        name = info.name
+        args, params = _nd_inputs(name, info, np.random.RandomState(SEED))
+        outs = {}
+        for ctx in (mx.cpu(), mx.gpu(0)):
+            mx.random.seed(SEED)
+            with ctx:
+                res = getattr(nd, name)(*[nd.array(a, dtype=a.dtype)
+                                          for a in args], **params)
+            outs[ctx.device_type] = res if isinstance(res, list) else [res]
+        sampler = name.startswith(ND_SAMPLERS) \
+            and not name.startswith("_random_pdf")
+        rtol, atol = ND_TOL_SUMS if name in ND_SUMS else ND_TOL_EXACT
+        worst, ok = 0.0, len(outs["cpu"]) == len(outs["gpu"])
+        for c, g in zip(outs["cpu"], outs["gpu"]):
+            ok &= g._data.is_cuda and c.shape == g.shape \
+                and c.dtype == g.dtype
+            if sampler or not ok:
+                ok &= bool(torch.isfinite(g._data.float()).all())
+                continue
+            cn = c.asnumpy().astype(np.float64)
+            gn = g.asnumpy().astype(np.float64)
+            same_nan = np.array_equal(np.isnan(cn), np.isnan(gn))
+            fin = np.isfinite(cn) & np.isfinite(gn)
+            share = float(np.max(np.abs(gn - cn)[fin]
+                                 / (atol + rtol * np.abs(cn[fin])),
+                                 initial=0.0))
+            worst = max(worst, share)
+            ok &= same_nan and np.array_equal(cn[~fin], gn[~fin],
+                                              equal_nan=True) and share <= 1
+        rows.append({"op": name, "outputs": len(outs["gpu"]),
+                     "sampler": sampler, "limit_share": worst,
+                     "tol": None if sampler else [rtol, atol]})
+        if not ok:
+            bad.append(rows[-1])
+    torch.backends.cuda.matmul.allow_tf32, \
+        torch.backends.cudnn.allow_tf32 = tf32
+    if bad:
+        raise SystemExit(f"chip_smoke: nd_ops: card and CPU disagree or an "
+                         f"output left the card: {bad[:10]}")
+    return rows, stubs
+
+
+def _nd_b1(shapes):
+    """``nd.mp_sgd_mom_update`` over each of ``shapes`` (with ``out=``) and
+    ``nd.multi_mp_sgd_mom_update`` over all of them: B1's launches and
+    bit-equality with the plain update, tensor by tensor."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import nd
+    from mxnet_tpu_torch.opt import kernels as opt_kernels
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    lrs = [0.01 * (1 + i % 5) for i in range(len(shapes))]
+    wds = [1e-4 * (i % 3) for i in range(len(shapes))]
+
+    def quads():
+        out = []
+        for s in shapes:
+            w32 = torch.randn(s, device="cuda", generator=gen)
+            out.append([w32.half(), torch.randn(s, device="cuda",
+                                                generator=gen).half(),
+                        torch.randn(s, device="cuda", generator=gen) * 0.01,
+                        w32])
+        return out
+
+    ref_in = quads()
+    ref = [opt_kernels.mp_sgd_mom_update_ref(w, g, m, w32, lr, 0.9, wd)
+           for (w, g, m, w32), lr, wd in zip(ref_in, lrs, wds)]
+    result = {}
+    for form in ("single", "multi"):
+        arrs = [[nd.array(t) for t in q] for q in ref_in]
+        torch.cuda.synchronize()
+        opt_kernels.LAUNCHES.reset()
+        t0 = time.perf_counter()
+        with mx.gpu(0):
+            if form == "single":
+                for (w, g, m, w32), lr, wd in zip(arrs, lrs, wds):
+                    nd.mp_sgd_mom_update(w, g, m, w32, lr=lr, momentum=0.9,
+                                         wd=wd, out=w)
+            else:
+                nd.multi_mp_sgd_mom_update(
+                    *[a for q in arrs for a in q], lrs=lrs, wds=wds,
+                    momentum=0.9, num_weights=len(shapes),
+                    out=[q[0] for q in arrs])
+        host_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        launches = opt_kernels.LAUNCHES.count
+        equal = all(torch.equal(a._data, r) for q, rq in zip(arrs, ref)
+                    for a, r in zip((q[0], q[2], q[3]), rq))
+        result[form] = {"launches": launches, "bit_equal": equal,
+                        "host_ms": host_ms}
+        del arrs
+    cap = opt_kernels.capacity()
+    want = {"single": len(shapes), "multi": -(-len(shapes) // cap)}
+    if any(result[f]["launches"] != want[f] or not result[f]["bit_equal"]
+           for f in want):
+        raise SystemExit(f"chip_smoke: nd_ops: nd's B1 routes {result}, "
+                         f"expected {want} launches, bit-equal")
+    return result
+
+
+def _nd_attention():
+    """``nd._fused_attention`` at the training rung, fp16 and fp32: the
+    forward on B2's tensor-core route, the backward under ``record`` on
+    B3/B4's, each against the plain version within FWD_TOL / BWD_TOL."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, nd
+    from mxnet_tpu_torch.ops.flash_attention import (
+        LAUNCHES, LAUNCHES_DKV, LAUNCHES_DKV_TC, LAUNCHES_DKV_TC32,
+        LAUNCHES_DQ, LAUNCHES_DQ_TC, LAUNCHES_DQ_TC32, LAUNCHES_SPLIT,
+        LAUNCHES_TC, LAUNCHES_TC32, flash_attention_ref_bwd,
+        flash_attention_ref_fwd)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    B, H, Tq, Tk, D = ND_ATTN
+    scale = 1 / D ** 0.5
+    rows = []
+    for dtype, tc in ((torch.float16, (LAUNCHES_TC, LAUNCHES_DQ_TC,
+                                       LAUNCHES_DKV_TC)),
+                      (torch.float32, (LAUNCHES_TC32, LAUNCHES_DQ_TC32,
+                                       LAUNCHES_DKV_TC32))):
+        ts = [torch.randn(B, H, T, D, device="cuda", generator=gen).to(dtype)
+              for T in (Tq, Tk, Tk, Tq)]
+        counters = (LAUNCHES, LAUNCHES_DQ, LAUNCHES_DKV) + tc \
+            + (LAUNCHES_SPLIT,)
+        for c in counters:
+            c.reset()
+        with mx.gpu(0):
+            q, k, v, dout = (nd.array(t) for t in ts)
+            fwd = nd._fused_attention(q, k, v, scale=scale)
+            torch.cuda.synchronize()
+            fwd_launches = [c.count for c in counters]
+            for a in (q, k, v):
+                a.attach_grad()
+            with autograd.record():
+                out = nd._fused_attention(q, k, v, scale=scale)
+            out.backward(dout)
+        torch.cuda.synchronize()
+        all_launches = [c.count for c in counters]
+        f32 = [t.float() for t in ts[:3]]
+        ref_out, ref_lse = flash_attention_ref_fwd(*f32, False, scale)
+        ref_grads = flash_attention_ref_bwd(*f32, ref_out, ref_lse,
+                                            ts[3].float(), False, scale)
+        name = str(dtype).replace("torch.", "")
+        fwd_err = max((o._data.float() - ref_out).abs().max().item()
+                      for o in (fwd, out))
+        atol, rtol = BWD_TOL[name]
+        share = max(((a.grad._data.float() - r).abs()
+                     / (atol + rtol * r.abs())).max().item()
+                    for a, r in zip((q, k, v), ref_grads))
+        row = {"shape": list(ND_ATTN), "dtype": name,
+               "forward_launches": dict(zip(ND_ATTN_COUNTS, fwd_launches)),
+               "launches": dict(zip(ND_ATTN_COUNTS, all_launches)),
+               "max_abs_err": fwd_err, "tol": FWD_TOL[name],
+               "grad_limit_share": share,
+               "on_card": all(a._data.is_cuda for a in (fwd, out, q.grad))}
+        rows.append(row)
+        # the fp32 route splits its operands once a forward and once a
+        # backward
+        splits = int(dtype == torch.float32)
+        if not (fwd_launches == [1, 0, 0, 1, 0, 0, splits]
+                and all_launches == [2, 1, 1, 2, 1, 1, 3 * splits]
+                and fwd_err <= FWD_TOL[name] and share <= 1.0
+                and row["on_card"]):
+            raise SystemExit(f"chip_smoke: nd_ops: nd._fused_attention "
+                             f"{row}")
+        del ts, q, k, v, dout, fwd, out
+    return rows
+
+
+def _nd_host_cost():
+    """Host microseconds of one nd call against the bare torch call on a
+    small tensor on the card (reported, not gated)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import nd
+    with mx.gpu(0):
+        x = nd.ones((64,))
+    t = x._data
+    pairs = {"relu": (lambda: nd.relu(x), lambda: torch.relu(t)),
+             "add_scalar": (lambda: x + 1.0, lambda: t + 1.0),
+             "broadcast_mul": (lambda: nd.broadcast_mul(x, x),
+                               lambda: torch.mul(t, t))}
+    out = {}
+    for key, fns in pairs.items():
+        us = []
+        for fn in fns:
+            for _ in range(200):
+                fn()
+            best = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                for _ in range(2000):
+                    fn()
+                best.append((time.perf_counter() - t0) / 2000 * 1e6)
+            us.append(min(best))
+        torch.cuda.synchronize()
+        out[key] = {"nd_us": us[0], "torch_us": us[1],
+                    "boundary_us": us[0] - us[1]}
+    return out
+
+
+def phase_nd_ops():
+    """The ``mx.nd`` surface on the card: every dense op against the CPU,
+    the nd routes to B1 on BERT-base's 150 fp16 parameters, the nd route
+    to B2/B3/B4, and the host cost of the nd boundary."""
+    t0 = time.perf_counter()
+    rows, stubs = _nd_sweep()
+    worst = sorted(rows, key=lambda r: -r["limit_share"])[:5]
+    log(f"[nd_ops] {len(rows)} ops checked on the card against the CPU "
+        f"({sum(r['sampler'] for r in rows)} samplers by shape, dtype and "
+        f"finiteness), every output on the card; {len(stubs)} stubs; "
+        f"largest limit shares "
+        f"{[(r['op'], round(r['limit_share'], 3)) for r in worst]} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    b1 = _nd_b1(_fp16_shapes("bert"))
+    log("[nd_ops] B1 through nd on BERT-base's 150 fp16 tensors "
+        + json.dumps(b1))
+    attn = _nd_attention()
+    for row in attn:
+        log("[nd_ops] nd._fused_attention " + json.dumps(row))
+    cost = _nd_host_cost()
+    log("[nd_ops] host cost of one call on a (64,) tensor, nd against the "
+        "bare torch call (us, not gated) " + json.dumps(cost))
+    return {"ops": len(rows), "stubs": len(stubs), "b1": b1,
+            "attention": attn, "host_cost_us": cost}
+
+
+def phase_index_fault():
+    """Labels and indices -1, n and n + 2 through the loss, the Embedding
+    layer, ``nd.pick`` and ``nd.Embedding`` on the card: no device-side
+    assert, and the CPU path's values (-1 wraps, the rest NaN)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import nd
+    from mxnet_tpu_torch.gluon import loss as gloss
+    from mxnet_tpu_torch.gluon import nn as gnn
+    rs = np.random.RandomState(SEED)
+    n = 5
+    pred = rs.randn(5, n).astype(np.float32)
+    table = rs.randn(n, 3).astype(np.float32)
+    idx = np.array([0, n - 1, -1, n, n + 2], np.float32)
+    got = {}
+    for dev in ("cpu", "cuda"):
+        emb = gnn.Embedding(n, 3, device=dev)
+        with torch.no_grad():
+            emb.weight.copy_(torch.from_numpy(table))
+        ctx = mx.cpu() if dev == "cpu" else mx.gpu(0)
+        p, t, i = (torch.from_numpy(a).to(dev) for a in (pred, table, idx))
+        with ctx:
+            vals = [gloss.SoftmaxCrossEntropyLoss()(p, i),
+                    emb(i.long()).detach(),
+                    nd.pick(nd.array(pred), nd.array(idx))._data,
+                    nd.Embedding(nd.array(idx), nd.array(table),
+                                 input_dim=n, output_dim=3)._data,
+                    gloss.SoftmaxCrossEntropyLoss()(
+                        nd.array(pred), nd.array(idx))._data]
+        if dev == "cuda":
+            torch.cuda.synchronize()   # a device-side assert surfaces here
+        got[dev] = [v.cpu().numpy() for v in vals]
+    same = all(np.array_equal(np.isnan(c), np.isnan(g))
+               and np.allclose(c[~np.isnan(c)], g[~np.isnan(g)], rtol=1e-5,
+                               atol=1e-6)
+               for c, g in zip(got["cpu"], got["cuda"]))
+    nan_rows = [bool(np.isnan(got["cuda"][0][j])) for j in range(len(idx))]
+    row = {"indices": idx.tolist(), "loss_nan": nan_rows,
+           "equal_to_cpu": same}
+    log("[index_fault] " + json.dumps(row))
+    if not same or nan_rows != [False, False, False, True, True]:
+        raise SystemExit(f"chip_smoke: index_fault: {row}")
+    return row
+
+
+def phase_train_gluon_nd(card, resnet_summary):
+    """``examples/image_classification/train_gluon.py``'s loop written
+    with the port's public API at ResNet-50 v1's full width: NDArray
+    batches on ``mx.gpu(0)``, a user-written output ``HybridBlock`` whose
+    ``hybrid_forward`` calls ``F.FullyConnected``, fp16 with BatchNorm
+    fp32, multi-precision SGD, ``record`` -> ``loss.backward()`` ->
+    ``trainer.step`` -> ``metric.Accuracy().update`` every step."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, gluon, initializer, metric, nd
+    from mxnet_tpu_torch.gluon.model_zoo.vision import get_model
+    from mxnet_tpu_torch.gluon.parameter import make_param
+    from mxnet_tpu_torch.opt import kernels as opt_kernels
+
+    class Classifier(gluon.HybridBlock):
+        """The output layer as a user writes it."""
+
+        def __init__(self, units, in_units, device):
+            super().__init__()
+            self.weight = make_param("weight", (units, in_units), device,
+                                     torch.float32)
+            self.bias = make_param("bias", (units,), device, torch.float32,
+                                   "zeros")
+
+        def hybrid_forward(self, F, x, weight, bias):
+            return F.FullyConnected(x, weight, bias,
+                                    num_hidden=weight.shape[0])
+
+    t0 = time.perf_counter()
+    ctx = mx.gpu(0)
+    mx.random.seed(SEED)
+    net = get_model("resnet50_v1", classes=RESNET_CLASSES, device="cuda")
+    net.output = Classifier(RESNET_CLASSES, 2048, ctx.torch_device)
+    net.initialize(initializer.Xavier(rnd_type="gaussian", factor_type="in",
+                                      magnitude=2))
+    net.cast("float16")
+    trainer = gluon.Trainer(net.collect_params(), "sgd", {
+        "learning_rate": RESNET_LR, "momentum": RESNET_MOMENTUM,
+        "wd": RESNET_WD, "multi_precision": True})
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    acc = metric.Accuracy()
+    rng = np.random.RandomState(SEED)
+    x_np = rng.uniform(-1, 1, (RESNET_B, 3, RESNET_SIZE, RESNET_SIZE))
+    y_np = rng.randint(0, RESNET_CLASSES, (RESNET_B,)).astype(np.float32)
+    x = nd.array(x_np.astype(np.float32), ctx=ctx, dtype="float16")
+    y = nd.array(y_np, ctx=ctx)
+    log(f"[train_gluon_nd] resnet50_v1 with a user HybridBlock classifier "
+        f"(F.FullyConnected), fp16 (BatchNorm fp32), batch {RESNET_B} as "
+        f"NDArray on {ctx}; SGD lr {RESNET_LR} momentum {RESNET_MOMENTUM} "
+        f"wd {RESNET_WD} multi_precision; built in "
+        f"{time.perf_counter() - t0:.2f} s")
+    counters = _train_counters()
+    want = dict.fromkeys(counters, 0)
+    want["mp_sgd"] = 1
+    walls, losses, outs, totals = [], [], [], dict.fromkeys(counters, 0)
+    on_card = True
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(RESNET_STEPS):
+        for c in counters.values():
+            c.reset()
+        t_step = time.perf_counter()
+        with autograd.record():
+            out = net(x)
+            loss = loss_fn(out, y)
+        loss.backward()
+        trainer.step(RESNET_B)
+        acc.update(y, out)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t_step) * 1e3)
+        counts = {n: c.count for n, c in counters.items()}
+        for n in counts:
+            totals[n] += counts[n]
+        on_card &= all(isinstance(a, nd.NDArray) and a._data.is_cuda
+                       for a in (out, loss))
+        losses.append(loss.mean())
+        outs.append(out._data)
+        if counts != want:
+            raise SystemExit(f"chip_smoke: train_gluon_nd: launches "
+                             f"{counts}, expected {want}")
+    peak = torch.cuda.max_memory_allocated()
+    losses = [v.asscalar() for v in losses]
+    recount = int(sum((o.argmax(1) == y._data.long()).sum().item()
+                      for o in outs))
+    wall_ms = float(np.median(walls[1:]))
+    row = {"card": card, "batch": [RESNET_B, 3, RESNET_SIZE, RESNET_SIZE],
+           "steps": len(walls), "losses": losses,
+           "step_wall_ms_median": wall_ms, "step_wall_ms": walls,
+           "images_per_s": RESNET_B / (wall_ms / 1e3),
+           "train_resnet50_step_wall_ms_median":
+               resnet_summary["step_wall_ms_median"],
+           "train_resnet50_images_per_s": resnet_summary["images_per_s"],
+           "nd_over_torch_ms": wall_ms
+           - resnet_summary["step_wall_ms_median"],
+           "metric": acc.get(), "metric_correct": acc.sum_metric,
+           "torch_recount_correct": recount, "metric_count": acc.num_inst,
+           "b1_launches_per_step": totals["mp_sgd"] / len(walls),
+           "outputs_ndarray_on_card": on_card, "peak_memory_bytes": peak,
+           "launches": totals}
+    log("[train_gluon_nd] " + json.dumps(row))
+    if not (on_card and np.all(np.isfinite(losses))
+            and losses[-1] < losses[0] and recount == acc.sum_metric
+            and acc.num_inst == RESNET_B * len(walls)):
+        raise SystemExit(f"chip_smoke: train_gluon_nd: {row}")
+    del net, trainer, x, y, outs, out, loss
+    torch.cuda.empty_cache()
+    return row
 
 
 # each port kernel's symbols in the profiler (substrings): every design of
@@ -2664,7 +3233,12 @@ def main():
     train32 = phase_train_fp32(card)
     gpt = phase_train_gpt32(card)
     phase_resnet_check(card)
-    resnet = phase_train_resnet50(card, peaks)
+    resnet, resnet_summary = phase_train_resnet50(card, peaks)
+    nd_run = phase_nd_ops()
+    phase_index_fault()
+    gluon_nd = phase_train_gluon_nd(card, resnet_summary)
+    nd_attn = {r["dtype"]: r["launches"] for r in nd_run["attention"]}
+    nd_b1 = nd_run["b1"]
 
     def pick(table, **want):
         return next(r for r in table if "ms" in r
@@ -2714,9 +3288,13 @@ def main():
         "source": "mxnet_tpu_torch/csrc/flash_fwd_tc.cu",
         "replaces": "mxnet_tpu/ops/pallas_kernels.py:126",
         "launches": serve_launches + train["flash_fwd"]
-        + train32["flash_fwd"] + gpt["flash_fwd"],
+        + train32["flash_fwd"] + gpt["flash_fwd"]
+        + sum(r["flash_fwd"] for r in nd_attn.values()),
         "launches_by_path": {"serve": serve_launches,
-                             **launches("flash_fwd")},
+                             **launches("flash_fwd"),
+                             "nd_fused_attention": {
+                                 d: r["flash_fwd"]
+                                 for d, r in nd_attn.items()}},
         "launches_tensor_core": train["flash_fwd_tc"],
         "max_abs_err": max(r["max_abs_err"] for r in rows
                            if r["route"] == "tc"),
@@ -2777,8 +3355,13 @@ def main():
             "source": "mxnet_tpu_torch/csrc/flash_bwd_tc.cu",
             "replaces": f"mxnet_tpu/ops/{line}",
             "launches": train[f"flash_bwd_{which}"]
-            + train32[f"flash_bwd_{which}"] + gpt[f"flash_bwd_{which}"],
-            "launches_by_path": launches(f"flash_bwd_{which}"),
+            + train32[f"flash_bwd_{which}"] + gpt[f"flash_bwd_{which}"]
+            + sum(r[f"flash_bwd_{which}"] for r in nd_attn.values()),
+            "launches_by_path": {
+                **launches(f"flash_bwd_{which}"),
+                "nd_fused_attention_under_record": {
+                    d: r[f"flash_bwd_{which}"]
+                    for d, r in nd_attn.items()}},
             "launches_tensor_core": train[f"flash_bwd_{which}_tc"],
             "max_abs_err": bwd_err(which, route="tc"),
             "ms": bwd16[f"{which}_ms"],
@@ -2834,7 +3417,14 @@ def main():
         "replaces": "mxnet_tpu/ops/pallas_kernels.py:243",
         "part_of": "flash_fwd, flash_bwd_dq and flash_bwd_dkv in float32",
         "launches": serve_launches + train32["split_bf16x3"]
-        + gpt["split_bf16x3"],
+        + gpt["split_bf16x3"]
+        + sum(r["split_bf16x3"] for r in nd_attn.values()),
+        "launches_by_path": {"serve": serve_launches,
+                             "train_fp32": train32["split_bf16x3"],
+                             "train_gpt_fp32": gpt["split_bf16x3"],
+                             "nd_fused_attention": {
+                                 d: r["split_bf16x3"]
+                                 for d, r in nd_attn.items()}},
         "max_abs_err": max(r["max_abs_err"] for r in split_rows),
         "ms": split["ms"], "plain_ms": split["plain_ms"],
         "bound_ms": split["bound_ms"], "bound_by": split["bound_by"],
@@ -2857,16 +3447,24 @@ def main():
         "source": "mxnet_tpu_torch/csrc/mp_sgd.cu",
         "replaces": "mxnet_tpu/opt/kernels.py:95",
         "launches": train["mp_sgd"] + resnet["mp_sgd"]
-        + adamw["launches"]["mp_sgd"],
+        + adamw["launches"]["mp_sgd"] + gluon_nd["launches"]["mp_sgd"]
+        + nd_b1["single"]["launches"] + nd_b1["multi"]["launches"],
         "launches_by_path": {"train_fp16": train["mp_sgd"],
                              "train_resnet50_fp16": resnet["mp_sgd"],
                              "train_bert_adamw_fp16":
-                                 adamw["launches"]["mp_sgd"]},
+                                 adamw["launches"]["mp_sgd"],
+                             "train_gluon_nd_fp16":
+                                 gluon_nd["launches"]["mp_sgd"],
+                             "nd_mp_sgd_mom_update_bert_150":
+                                 nd_b1["single"]["launches"],
+                             "nd_multi_mp_sgd_mom_update_bert_150":
+                                 nd_b1["multi"]["launches"]},
         "launches_per_step": {
             "train_fp16": train["mp_sgd"] / TRAIN_STEPS,
             "train_resnet50_fp16": resnet["mp_sgd"] / RESNET_STEPS,
             "train_bert_adamw_fp16": adamw["launches"]["mp_sgd"]
-            / adamw["steps"]},
+            / adamw["steps"],
+            "train_gluon_nd_fp16": gluon_nd["b1_launches_per_step"]},
         "max_abs_err": max([r["max_abs_err"] for r in sgd_rows]
                            + [r[f"clip_{c}"]["max_abs_err"]
                               for r in multi_rows.values()

@@ -3,13 +3,28 @@
 The JAX package ``mxnet_tpu`` is the reference this package is held
 against; the two share module names so that each counterpart can be
 found, but this package imports neither JAX nor ``mxnet_tpu``. Entry
-points default to ``device="cuda"`` and raise without a GPU unless the
-caller passes ``device="cpu"``. The hand-written kernels (the
+points default to CUDA (``device="cuda"``, ``mx.gpu(0)`` as the current
+context) and raise without a GPU unless the caller names the CPU
+(``device="cpu"``, ``with mx.cpu():``). The hand-written kernels (the
 flash-attention forward and backward, mixed-precision SGD) live in
 ``csrc/`` and are built at first use.
+
+``import mxnet_tpu_torch as mx`` gives MXNet's namespaces: ``mx.nd``
+(NDArray and the op corpus), ``mx.autograd``, ``mx.gluon``,
+``mx.metric``, ``mx.random``, ``mx.initializer``, ``mx.optimizer``,
+``mx.lr_scheduler``, and ``mx.cpu()`` / ``mx.gpu(i)``.
 """
+from . import autograd, initializer, lr_scheduler, optimizer  # noqa: F401
+from . import metric, ndarray, random  # noqa: F401
+from . import gluon  # noqa: F401
 from .base import MXNetError  # noqa: F401
-from .context import resolve_device  # noqa: F401
+from .context import (Context, cpu, current_context, gpu,  # noqa: F401
+                      num_gpus, resolve_device)
+
+nd = ndarray
 
 __version__ = "0.1.0"
-__all__ = ["MXNetError", "resolve_device"]
+__all__ = ["MXNetError", "resolve_device", "Context", "cpu", "gpu",
+           "current_context", "num_gpus", "nd", "ndarray", "autograd",
+           "gluon", "metric", "random", "initializer", "optimizer",
+           "lr_scheduler"]

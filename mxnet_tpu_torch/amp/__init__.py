@@ -22,8 +22,10 @@ answer (any non-finite gradient) from one device reduction over every
 gradient and one host sync, where the reference syncs once per parameter.
 
 ``init`` (the cast policy) and ``convert_model`` / ``convert_hybrid_block``
-act through the ``mx.nd`` op-dispatch layer, which comes with the
-``mx.nd`` slice (ROADMAP Queue A item 3); they raise until then.
+act through the registry's cast hook of the ``mx.nd`` op dispatch
+(:func:`is_active`, :func:`cast_plan`); they are the deferred half of the
+``mx.nd`` slice (ROADMAP Queue A item 1) and raise until then, and the
+hook has no plan.
 """
 from __future__ import annotations
 
@@ -32,10 +34,21 @@ import torch
 from ..ops.optimizer_ops import multi_all_finite
 
 __all__ = ["init", "init_trainer", "scale_loss", "unscale", "convert_model",
+           "is_active", "cast_plan",
            "convert_hybrid_block", "LossScaler"]
 
-_WAITS = ("comes with the mx.nd slice: the cast policy acts through the "
-          "mx.nd op-dispatch layer (ROADMAP Queue A item 3)")
+_WAITS = ("is the deferred half of the mx.nd slice: the cast policy acts "
+          "through the registry's cast hook (ROADMAP Queue A item 1)")
+
+
+def is_active() -> bool:
+    """Whether ``init`` set a cast policy (never, until it is ported)."""
+    return False
+
+
+def cast_plan(op_name: str):
+    """The cast the policy applies to ``op_name``'s inputs, or None."""
+    return None
 
 
 def init(target_dtype="bfloat16", target_precision_ops=None,

@@ -1,21 +1,26 @@
-"""Autograd scopes and backward over torch autograd.
+"""Autograd scopes, backward and grad over torch autograd.
 
-Counterpart of ``mxnet_tpu/autograd.py``'s scopes (``record``, ``pause``,
-``train_mode``, ``predict_mode``) and ``backward``. There is no tape of
-its own: torch records the graph. The thread-local flags say what MXNet's
-say: ``is_recording()`` (inside ``record``, where torch records gradients;
+Counterpart of ``mxnet_tpu/autograd.py``: the scopes (``record``,
+``pause``, ``train_mode``, ``predict_mode``), ``backward``, ``grad``,
+``mark_variables`` and ``Function``. There is no tape of its own: torch
+records the graph. The thread-local flags say what MXNet's say:
+``is_recording()`` (inside ``record``, where torch records gradients;
 ``pause`` turns torch's recording off) and ``is_training()``, which layers
-such as ``Dropout`` read to decide whether they act.
+such as ``Dropout`` read to decide whether they act. Heads, head
+gradients and variables may be tensors or NDArrays; ``grad`` returns
+NDArrays. ``get_symbol`` waits with the symbolic stack (ROADMAP Queue A
+item 5).
 """
 from __future__ import annotations
 
 import threading
-from typing import Optional, Sequence, Union
+from typing import Optional, Sequence
 
 import torch
 
 __all__ = ["record", "pause", "train_mode", "predict_mode", "is_recording",
-           "is_training", "set_recording", "set_training", "backward"]
+           "is_training", "set_recording", "set_training", "backward",
+           "grad", "mark_variables", "Function", "get_symbol"]
 
 
 class _State(threading.local):
@@ -92,7 +97,17 @@ def predict_mode() -> _Scope:
     return _Scope(None, False)
 
 
-Tensors = Union[torch.Tensor, Sequence[torch.Tensor]]
+def _tensor(a):
+    """The tensor of an NDArray (or the tensor itself)."""
+    return getattr(a, "_data", a)
+
+
+def _tensors(xs) -> list:
+    if xs is None:
+        return None
+    if isinstance(xs, (list, tuple)):
+        return [None if x is None else _tensor(x) for x in xs]
+    return [_tensor(xs)]
 
 
 def _reached_leaves(heads: Sequence[torch.Tensor]) -> list:
@@ -119,8 +134,8 @@ def _reached_leaves(heads: Sequence[torch.Tensor]) -> list:
     return leaves
 
 
-def backward(heads: Tensors, head_grads: Optional[Tensors] = None,
-             retain_graph: bool = False) -> None:
+def backward(heads, head_grads=None, retain_graph: bool = False,
+             train_mode: bool = True) -> None:
     """Gradients of ``heads`` into the ``.grad`` of the leaves they depend
     on. A head without a head gradient gets ones, as in MXNet, so a
     per-sample loss sums over its samples.
@@ -129,19 +144,140 @@ def backward(heads: Tensors, head_grads: Optional[Tensors] = None,
     as in the JAX package: under the default ``"write"`` the new gradient
     replaces what ``.grad`` held; a leaf whose ``grad_req`` attribute is
     ``"add"`` accumulates. A leaf the backward does not reach keeps its
-    ``.grad``."""
-    if isinstance(heads, torch.Tensor):
-        heads = [heads]
-    if head_grads is None or isinstance(head_grads, torch.Tensor):
-        head_grads = [head_grads] * len(heads) if head_grads is None \
-            else [head_grads]
+    ``.grad``; a head that depends on no variable gives nothing. The
+    gradient buffer of an NDArray variable
+    (``attach_grad``, :func:`mark_variables`) keeps its identity: it is
+    zeroed and written in place, so a reference to ``x.grad`` taken before
+    the backward sees the new gradient, as in MXNet."""
+    heads = _tensors(heads)
+    head_grads = [None] * len(heads) if head_grads is None \
+        else _tensors(head_grads)
     if len(head_grads) != len(heads):
         raise ValueError(f"{len(heads)} heads but {len(head_grads)} head "
                          "gradients")
-    grads = [torch.ones_like(h) if g is None else g
+    grads = [torch.ones_like(h) if g is None else g.to(h.dtype)
              for h, g in zip(heads, head_grads)]
+    # a head that depends on no variable (a BlockGrad output, say) has no
+    # gradient to give, as in the reference
+    keep = [i for i, h in enumerate(heads) if h.requires_grad]
+    if not keep:
+        return
+    heads, grads = [heads[i] for i in keep], [grads[i] for i in keep]
     for leaf in _reached_leaves(heads):
         if leaf.grad is not None and \
                 getattr(leaf, "grad_req", "write") != "add":
-            leaf.grad = None
+            if getattr(leaf, "_mx_keep_grad", False):
+                leaf.grad.zero_()
+            else:
+                leaf.grad = None
     torch.autograd.backward(list(heads), grads, retain_graph=retain_graph)
+
+
+def grad(heads, variables, head_grads=None, retain_graph=None,
+         create_graph: bool = False, train_mode: bool = True):
+    """The gradients of ``heads`` with respect to ``variables``, as
+    NDArrays, without touching any ``.grad`` (zeros for a variable the
+    heads do not depend on). With ``create_graph`` (inside ``record``)
+    the gradients are themselves recorded, so they can be differentiated
+    again."""
+    from .base import MXNetError
+    from .ndarray.ndarray import _wrap
+    if create_graph and not is_recording():
+        raise MXNetError("create_graph=True requires an active "
+                         "autograd.record() scope")
+    heads = _tensors(heads)
+    variables = _tensors(variables)
+    head_grads = [None] * len(heads) if head_grads is None \
+        else _tensors(head_grads)
+    outs = [torch.ones_like(h) if g is None else g.to(h.dtype)
+            for h, g in zip(heads, head_grads)]
+    res = torch.autograd.grad(heads, variables, outs,
+                              retain_graph=bool(retain_graph) or create_graph,
+                              create_graph=create_graph, allow_unused=True)
+    return [_wrap(torch.zeros_like(v) if g is None else g)
+            for v, g in zip(variables, res)]
+
+
+def mark_variables(variables, gradients, grad_reqs="write") -> None:
+    """Make each variable a leaf whose gradient is written into the
+    matching array of ``gradients`` (in place, by its ``grad_req``)."""
+    variables, gradients = _tensors(variables), _tensors(gradients)
+    if isinstance(grad_reqs, str):
+        grad_reqs = [grad_reqs] * len(variables)
+    for var, g, req in zip(variables, gradients, grad_reqs):
+        if req == "null":
+            var.requires_grad_(False)
+            var.grad = None
+            continue
+        var.requires_grad_(True)
+        var.grad = g
+        var.grad_req = req
+        var._mx_keep_grad = True
+
+
+def get_symbol(x):
+    raise NotImplementedError(
+        "autograd.get_symbol: the symbolic stack is not ported yet "
+        "(ROADMAP Queue A item 5)")
+
+
+class _FunctionBridge(torch.autograd.Function):
+    """Runs a :class:`Function`'s forward and backward on NDArrays inside
+    one torch autograd node."""
+
+    @staticmethod
+    def forward(ctx, fobj, *tensors):
+        from .ndarray.ndarray import _wrap
+        ctx.fobj = fobj
+        with pause():
+            outs = fobj.forward(*[_wrap(t) for t in tensors])
+        fobj._single = not isinstance(outs, (tuple, list))
+        outs = [outs] if fobj._single else list(outs)
+        ins = {id(t) for t in tensors}
+        # an output that is an input is given its own tensor, so the node
+        # does not alias an input
+        return tuple(_tensor(o).clone() if id(_tensor(o)) in ins
+                     else _tensor(o) for o in outs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        from .ndarray.ndarray import _wrap
+        with pause():
+            in_grads = ctx.fobj.backward(*[_wrap(g) for g in grads])
+        if not isinstance(in_grads, (tuple, list)):
+            in_grads = (in_grads,)
+        return (None,) + tuple(None if g is None else _tensor(g)
+                               for g in in_grads)
+
+
+class Function:
+    """A differentiable function with its own backward: subclass and
+    define ``forward(self, *inputs)`` and ``backward(self,
+    *output_grads)`` on NDArrays (both run with recording paused);
+    ``save_for_backward`` keeps what the backward needs."""
+
+    def __init__(self):
+        self._saved = ()
+        self._single = True
+
+    def save_for_backward(self, *args):
+        self._saved = args
+
+    @property
+    def saved_tensors(self):
+        return self._saved
+
+    def forward(self, *inputs):
+        raise NotImplementedError
+
+    def backward(self, *output_grads):
+        raise NotImplementedError
+
+    def __call__(self, *inputs):
+        from .ndarray.ndarray import _wrap
+        if not is_recording():
+            with pause():
+                return self.forward(*inputs)
+        outs = _FunctionBridge.apply(self, *[_tensor(i) for i in inputs])
+        outs = [_wrap(o) for o in outs]
+        return outs[0] if self._single else outs

@@ -1,8 +1,9 @@
 """Typed flags of the port: the flags its modules read.
 
 Counterpart of ``mxnet_tpu/config.py``, holding the ``MXSERVE_*`` flags
-the serving engine and batcher read and the optimizer's
-``MXNET_OPTIMIZER_AGGREGATION_SIZE``. Resolution order: :func:`set_flag`
+the serving engine and batcher read, the optimizer's
+``MXNET_OPTIMIZER_AGGREGATION_SIZE`` and the nd ops'
+``MXNET_SAFE_ACCUMULATION``. Resolution order: :func:`set_flag`
 runtime override > environment > declared default.
 """
 from __future__ import annotations
@@ -41,6 +42,9 @@ _FLAGS: Dict[str, Flag] = {f.name: f for f in (
          "optimizers with a fused_apply; clamped to 1-45. Multi-precision "
          "SGD with momentum updates all fp16 parameters in one launch "
          "whatever it is."),
+    Flag("MXNET_SAFE_ACCUMULATION", int, 0,
+         "1: the nd reductions and softmax of 16-bit floats accumulate "
+         "in fp32 and round the result back."),
 )}
 _OVERRIDES: Dict[str, Any] = {}
 _LOCK = threading.Lock()

@@ -339,6 +339,8 @@ inline cudaError_t make_planes_map(CUtensorMap* map, const void* ptr, int BH, in
                                    long long plane, int rows = TILE) {
   const EncodeTiled enc = encode_tiled();
   if (enc == nullptr) return cudaErrorNotSupported;
+  const cudaError_t bound = bind_device(ptr);
+  if (bound != cudaSuccess) return bound;
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)T, (cuuint64_t)BH, 3};
   const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)T * D * 2,
                                  (cuuint64_t)plane * 2};

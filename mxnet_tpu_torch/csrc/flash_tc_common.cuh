@@ -294,11 +294,26 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
+// Make current the context of the device that holds ptr. The tensor maps
+// are made by a driver call, which needs a current context, and a thread
+// that has made no CUDA runtime call yet has none: autograd's backward
+// thread, when a kernel's backward is the first work it does, got
+// "invalid argument" from the map's encoding. The runtime calls here bind
+// the primary context of ptr's device (and make the launch go there).
+inline cudaError_t bind_device(const void* ptr) {
+  cudaPointerAttributes a;
+  cudaError_t e = cudaPointerGetAttributes(&a, ptr);
+  if (e != cudaSuccess) return e;
+  return cudaSetDevice(a.device);
+}
+
 // The (D, T, BH) map of a contiguous (BH, T, D) 16-bit tensor: 64 x 64 boxes,
 // 128-byte swizzle, zero fill out of bounds.
 inline cudaError_t make_map(CUtensorMap* map, const void* ptr, int dtype, int BH, int T, int D) {
   const EncodeTiled enc = encode_tiled();
   if (enc == nullptr) return cudaErrorNotSupported;
+  const cudaError_t bound = bind_device(ptr);
+  if (bound != cudaSuccess) return bound;
   const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)T, (cuuint64_t)BH};
   const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)T * D * 2};
   const cuuint32_t box[3] = {64, TILE, 1};

@@ -17,14 +17,26 @@ front, so there is no deferred initialization):
   Trainer made afterwards sees the cast tensors;
 - ``hybridize(active, static_alloc, static_shape)``: keeps the flags and
   runs eagerly. Capture of the forward and the step into one program per
-  input signature is the fused-step slice (ROADMAP Queue A item 4).
+  input signature is the fused-step slice (ROADMAP Queue A item 3).
 
 - ``save_parameters(filename)`` / ``load_parameters(filename, ...)``:
   every parameter under those names in MXNet's ``.params`` format
   (:mod:`mxnet_tpu_torch.ndarray.serialization`), so that a file either
   package writes loads in the other bit for bit.
 
-``export`` and ``summary`` are not ported yet (ROADMAP Queue A item 3).
+A block takes NDArrays as MXNet's do: ``Block.__call__`` unwraps NDArray
+arguments once, runs the block on their tensors (recorded inside
+``autograd.record()``, under ``torch.no_grad()`` outside it, as any nd op)
+and wraps the outputs as NDArrays; the layers inside run plain torch.
+Tensors in give tensors out, unchanged. A ``HybridBlock`` that defines
+only ``hybrid_forward(self, F, x, *args, **params)`` runs it with ``F`` =
+:mod:`mxnet_tpu_torch.ndarray`, its inputs as NDArrays and each of its
+own parameters (``torch.nn.Parameter`` attributes, made with
+:func:`~mxnet_tpu_torch.gluon.parameter.make_param` or directly) passed
+by name as an NDArray view of the parameter: no copy, and gradients reach
+it.
+
+``export`` and ``summary`` are not ported yet (ROADMAP Queue A item 2).
 """
 from __future__ import annotations
 
@@ -33,10 +45,13 @@ from typing import Dict, Optional, Union
 import torch
 from torch import nn
 
+from .. import autograd
 from .. import initializer as init_mod
 from ..base import MXNetError
 from ..context import resolve_device
 from ..ndarray import serialization
+from ..ndarray.ndarray import NDArray, _wrap
+from ..ops.registry import call_op
 from .parameter import collect_params
 
 __all__ = ["Block", "HybridBlock", "as_dtype"]
@@ -75,6 +90,22 @@ def _cast_tree(module: nn.Module, dtype: torch.dtype) -> None:
         _cast_tree(child, dtype)
 
 
+def _unwrap_tree(x):
+    if isinstance(x, NDArray):
+        return x._data
+    if isinstance(x, (list, tuple)):
+        return type(x)(_unwrap_tree(v) for v in x)
+    return x
+
+
+def _wrap_tree(x):
+    if isinstance(x, torch.Tensor):
+        return _wrap(x)
+    if isinstance(x, (list, tuple)):
+        return type(x)(_wrap_tree(v) for v in x)
+    return x
+
+
 def _hybridize_tree(module: nn.Module, active: bool, **kwargs) -> None:
     for child in module.children():
         if isinstance(child, Block):
@@ -86,6 +117,20 @@ def _hybridize_tree(module: nn.Module, active: bool, **kwargs) -> None:
 class Block(nn.Module):
     """A module with the Gluon calls of a model (see the module's
     docstring)."""
+
+    def __call__(self, *args, **kwargs):
+        for a in args:
+            if isinstance(a, NDArray):
+                break
+        else:
+            if not kwargs or not any(isinstance(v, NDArray)
+                                     for v in kwargs.values()):
+                return super().__call__(*args, **kwargs)
+        args = [_unwrap_tree(a) for a in args]
+        kwargs = {k: _unwrap_tree(v) for k, v in kwargs.items()}
+        out = call_op(super().__call__, autograd.is_recording(), *args,
+                      **kwargs)
+        return _wrap_tree(out)
 
     def collect_params(self, select: Optional[str] = None
                        ) -> Dict[str, nn.Parameter]:
@@ -164,7 +209,24 @@ class Block(nn.Module):
 
 class HybridBlock(Block):
     """A Block that may be hybridized; in the port it keeps the flags and
-    runs eagerly."""
+    runs eagerly. A subclass defines ``forward`` on tensors, or
+    ``hybrid_forward(F, x, *args, **params)`` on NDArrays (see the
+    module's docstring)."""
+
+    def forward(self, x, *args):
+        if type(self).hybrid_forward is HybridBlock.hybrid_forward:
+            # a block whose forward comes from another base (a
+            # HybridSequential's from nn.Sequential); a bare module raises
+            return super().forward(x, *args)
+        from .. import ndarray as nd
+        params = {name: _wrap(p) for name, p in self._parameters.items()
+                  if p is not None}
+        out = self.hybrid_forward(nd, _wrap_tree(x),
+                                  *[_wrap_tree(a) for a in args], **params)
+        return _unwrap_tree(out)
+
+    def hybrid_forward(self, F, x, *args, **kwargs):
+        raise NotImplementedError
 
     def __init__(self, *args, **kwargs):
         super().__init__(*args, **kwargs)

@@ -1,13 +1,20 @@
-"""Gluon losses as ``torch.nn.Module``s: the ones training needs first.
+"""Gluon losses as blocks: the ones training needs first.
 
 Counterpart of ``mxnet_tpu/gluon/loss.py``'s ``Loss``, ``L2Loss`` and
 ``SoftmaxCrossEntropyLoss``, with their weighting and batch-axis handling:
-each loss is per sample, the mean over every axis but ``batch_axis``.
+each loss is per sample, the mean over every axis but ``batch_axis``. A
+loss is a ``HybridBlock``, so it takes NDArrays (and returns one) as well
+as tensors. Sparse labels go through ``pick``
+(:func:`mxnet_tpu_torch.ops.tensor.pick`), as in the JAX package: a label
+in ``[-n, -1]`` wraps and any other out-of-range label gives a NaN loss,
+on the device, where a bare gather would raise.
 """
 from __future__ import annotations
 
 import torch
-from torch import nn
+
+from ..ops.tensor import pick
+from .block import HybridBlock
 
 __all__ = ["Loss", "L2Loss", "SoftmaxCrossEntropyLoss", "SoftmaxCELoss"]
 
@@ -27,7 +34,7 @@ def _batch_mean(loss, batch_axis):
     return loss.mean(dim=axes)
 
 
-class Loss(nn.Module):
+class Loss(HybridBlock):
     def __init__(self, weight, batch_axis):
         super().__init__()
         self._weight = weight
@@ -65,10 +72,7 @@ class SoftmaxCrossEntropyLoss(Loss):
         if not self._from_logits:
             pred = torch.log_softmax(pred, dim=self._axis)
         if self._sparse_label:
-            idx = label.to(torch.int64)
-            if idx.dim() < pred.dim():
-                idx = idx.unsqueeze(self._axis)
-            loss = -torch.gather(pred, self._axis, idx)
+            loss = -pick(pred, label, axis=self._axis, keepdims=True)
         else:
             loss = -(pred * label.reshape(pred.shape)).sum(
                 dim=self._axis, keepdim=True)

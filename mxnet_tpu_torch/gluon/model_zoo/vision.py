@@ -327,6 +327,6 @@ def get_model(name, **kwargs):
     if name in _NOT_PORTED:
         raise NotImplementedError(
             f"model {name!r}: only the ResNet family of the vision zoo is "
-            "ported; the other families wait in ROADMAP Queue A item 3")
+            "ported; the other families wait in ROADMAP Queue A item 2")
     raise ValueError(f"Model {name} is not supported. Available: "
                      f"{sorted(_models)}")

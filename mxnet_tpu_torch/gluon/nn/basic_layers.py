@@ -222,7 +222,9 @@ class LayerNorm(HybridBlock):
 
 
 class Embedding(HybridBlock):
-    """Row lookup into an ``(input_dim, output_dim)`` table."""
+    """Row lookup into an ``(input_dim, output_dim)`` table; an index in
+    ``[-n, -1]`` wraps and any other out-of-range index gives a NaN row,
+    as in the JAX package (:func:`~mxnet_tpu_torch.ops.nn.embedding`)."""
 
     def __init__(self, input_dim: int, output_dim: int, device="cuda",
                  dtype=torch.float32):
@@ -231,7 +233,7 @@ class Embedding(HybridBlock):
                                  resolve_device(device), dtype)
 
     def forward(self, x):
-        return F.embedding(x, self.weight)
+        return nn_ops.embedding(x, self.weight)
 
     def extra_repr(self):
         return f"{self.weight.shape[0]} -> {self.weight.shape[1]}"

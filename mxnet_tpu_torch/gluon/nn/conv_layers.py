@@ -41,7 +41,7 @@ class _Conv(HybridBlock):
             raise NotImplementedError(
                 f"layout {layout!r}: the port's convolutions take "
                 f"{_LAYOUTS[n]}; the channels-last choice waits in ROADMAP "
-                "Queue A item 3")
+                "Queue A item 2")
         if in_channels <= 0:
             raise MXNetError(f"{type(self).__name__}: in_channels is "
                              "required (the port builds shapes up front)")

@@ -52,7 +52,7 @@ class Trainer:
             raise NotImplementedError(
                 f"kvstore={kvstore!r}: the port's Trainer runs on one device "
                 "(kvstore='device'); distributed kvstores come with the "
-                "distribution slice (ROADMAP Queue A item 8)")
+                "distribution slice (ROADMAP Queue A item 6)")
         if isinstance(params, dict):
             names, params = list(params.keys()), list(params.values())
         elif isinstance(params, (list, tuple)):

@@ -24,7 +24,8 @@ Legacy loads: V1 magic 0xF993fac8 (shape/ctx/type/data, no stype), the
 ancient header where the leading uint32 is ndim with uint32 dims
 (ndarray.cc LegacyTShapeLoad), and the JAX package's round-1 interim
 layout. Dense arrays only: a ``row_sparse`` or ``csr`` entry raises until
-the sparse types come with the ``mx.nd`` slice (ROADMAP Queue A item 3).
+the sparse types come with the deferred half of the ``mx.nd`` slice
+(ROADMAP Queue A item 1).
 bfloat16, which numpy lacks, travels as its 16-bit pattern.
 """
 from __future__ import annotations
@@ -63,7 +64,7 @@ _NUM_AUX = {0: 0, 1: 1, 2: 2}
 _DEV_TYPE = {"cpu": 1, "cuda": 2}  # Context: kCPU 1, kGPU 2
 
 _SPARSE_WAITS = ("sparse (row_sparse, csr) arrays come with the mx.nd "
-                 "slice (ROADMAP Queue A item 3)")
+                 "slice's deferred half (ROADMAP Queue A item 1)")
 
 
 def _write_shape(out: List[bytes], shape: Sequence[int]):

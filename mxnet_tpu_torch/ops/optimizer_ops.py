@@ -14,13 +14,22 @@ JAX package, only the mixed-precision momentum update has a kernel: on
 CUDA it launches ``csrc/mp_sgd.cu`` (:mod:`mxnet_tpu_torch.opt.kernels`),
 and so does its list form, ``mp_sgd_mom_update_multi``; the others are
 plain torch, each operation rounded on its own.
+
+Each op is also registered for ``mx.nd`` under its MXNet name, with
+MXNet's ``out=`` contract: ``nd.sgd_mom_update(w, g, mom, out=w)`` writes
+the new weight into ``w`` and the new state into ``mom`` (an op's
+``mutates`` map names its state inputs). On CUDA,
+``nd.mp_sgd_mom_update`` of fp16 weights launches the kernel; other
+dtypes, which the kernel does not take, compute the plain formula.
 """
 from __future__ import annotations
 
 import torch
 
 from ..opt.kernels import (mp_sgd_mom_update_kernel,
-                           mp_sgd_mom_update_multi_kernel)
+                           mp_sgd_mom_update_multi_kernel,
+                           mp_sgd_mom_update_ref)
+from .registry import register_op
 
 __all__ = ["sgd_update", "sgd_mom_update", "mp_sgd_update",
            "mp_sgd_mom_update", "mp_sgd_mom_update_multi", "nag_mom_update",
@@ -221,3 +230,43 @@ def multi_all_finite(*arrays, num_arrays=1, init_output=True):
     norms = torch._foreach_norm(list(arrays), 1, dtype=torch.float64)
     return torch.isfinite(torch.stack(norms).sum()).to(
         torch.float32).reshape(1)
+
+
+# -- the ops under their MXNet names, for mx.nd -------------------------------
+
+def _mp_sgd_mom_update_op(weight, grad, mom, weight32, lr=0.01,
+                          momentum=0.0, wd=0.0, rescale_grad=1.0,
+                          clip_gradient=-1.0, lazy_update=True):
+    """Mixed-precision SGD with momentum: ``(new_weight, new_mom,
+    new_weight32)``; fp16 weights and gradients take the kernel (one
+    launch on CUDA), other dtypes the plain formula."""
+    if weight.dtype == grad.dtype == torch.float16:
+        return mp_sgd_mom_update_kernel(weight, grad, mom, weight32, lr,
+                                        momentum, wd, rescale_grad,
+                                        clip_gradient)
+    return mp_sgd_mom_update_ref(weight, grad, mom, weight32, lr, momentum,
+                                 wd, rescale_grad, clip_gradient)
+
+
+for _name, _fn, _n, _mut, _aliases in (
+        ("sgd_update", sgd_update, 1, None, None),
+        ("sgd_mom_update", sgd_mom_update, 2, {1: 2}, None),
+        ("mp_sgd_update", mp_sgd_update, 2, {1: 2}, None),
+        ("mp_sgd_mom_update", _mp_sgd_mom_update_op, 3, {1: 2, 2: 3}, None),
+        ("nag_mom_update", nag_mom_update, 2, {1: 2}, None),
+        ("adam_update", adam_update, 3, {1: 2, 2: 3}, None),
+        ("_adamw_update", adamw_update, 3, {1: 2, 2: 3},
+         ["_mp_adamw_update"]),
+        ("ftml_update", ftml_update, 4, {1: 2, 2: 3, 3: 4}, None),
+        ("ftrl_update", ftrl_update, 3, {1: 2, 2: 3}, None),
+        ("rmsprop_update", rmsprop_update, 2, {1: 2}, None),
+        ("rmspropalex_update", rmspropalex_update, 4, {1: 2, 2: 3, 3: 4},
+         None),
+        ("signsgd_update", signsgd_update, 1, None, None),
+        ("signum_update", signum_update, 2, {1: 2}, None),
+        ("_sparse_adagrad_update", adagrad_update, 2, {1: 2},
+         ["adagrad_update"]),
+        ("adadelta_update", adadelta_update, 3, {1: 2, 2: 3}, None)):
+    register_op(_name, n_out=_n, mutates=_mut, aliases=_aliases)(_fn)
+register_op("all_finite", differentiable=False)(all_finite)
+register_op("multi_all_finite", differentiable=False)(multi_all_finite)

@@ -27,7 +27,8 @@ launch; that is the one place the port departs from the JAX package's
 per-parameter loop, and its results are bit-equal to that loop's.
 
 Sparse (``row_sparse``) gradients and ``lazy_update`` wait for the
-``mx.nd`` slice (ROADMAP Queue A item 3): a sparse gradient raises.
+``mx.nd`` slice's deferred half (ROADMAP Queue A item 1): a sparse
+gradient raises.
 """
 from __future__ import annotations
 
@@ -69,12 +70,13 @@ def create(name, **kwargs):
 
 
 def _dense(grad):
-    """Refuse a sparse gradient: the row-wise (lazy) updates come with the
-    ``mx.nd`` slice."""
+    """Refuse a sparse gradient: the row-wise (lazy) updates are the
+    deferred half of the ``mx.nd`` slice."""
     if grad.layout != torch.strided:
         raise NotImplementedError(
             "sparse (row_sparse) gradients and lazy updates are not ported "
-            "yet: they come with the mx.nd slice (ROADMAP Queue A item 3)")
+            "yet: they are the deferred half of the mx.nd slice (ROADMAP "
+            "Queue A item 1)")
 
 
 def _write(targets, values):

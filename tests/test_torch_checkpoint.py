@@ -16,7 +16,8 @@ import torch
 
 import mxnet_tpu as mx
 from mxnet_tpu.models import transformer as jax_tf
-from mxnet_tpu_torch import MXNetError, amp, autograd, ndarray
+from mxnet_tpu_torch import MXNetError, amp, autograd
+from mxnet_tpu_torch.ndarray import serialization
 from mxnet_tpu_torch.gluon import Trainer, collect_params
 from mxnet_tpu_torch.gluon import loss as torch_loss
 from mxnet_tpu_torch.gluon.nn import Dropout
@@ -49,7 +50,7 @@ def test_64_bit_types_cross_at_the_format_level(tmp_path):
     from mxnet_tpu.ndarray import serialization as jax_ser
     arrays = _arrays(wide=True)
     path = str(tmp_path / "wide.params")
-    ndarray.save(path, {k: torch.from_numpy(v) for k, v in arrays.items()})
+    serialization.save(path, {k: torch.from_numpy(v) for k, v in arrays.items()})
     with open(path, "rb") as f:
         entries, names = jax_ser.load_buffer(f.read())
     for name, (_, shape, dt, data, _) in zip(names, entries):
@@ -60,7 +61,7 @@ def test_64_bit_types_cross_at_the_format_level(tmp_path):
         [types.SimpleNamespace(stype="default", ndim=v.ndim, shape=v.shape,
                                asnumpy=lambda v=v: v)
          for v in arrays.values()], list(arrays))
-    back = ndarray.load_frombuffer(buf, device="cpu")
+    back = serialization.load_frombuffer(buf, device="cpu")
     for name, v in arrays.items():
         assert back[name].numpy().tobytes() == v.tobytes()
         assert str(back[name].dtype) == f"torch.{v.dtype}"
@@ -71,7 +72,7 @@ def test_port_file_loads_in_jax_bit_for_bit(tmp_path, named):
     arrays = _arrays()
     path = str(tmp_path / "port.params")
     data = {k: torch.from_numpy(v) for k, v in arrays.items()}
-    ndarray.save(path, data if named else list(data.values()))
+    serialization.save(path, data if named else list(data.values()))
     loaded = mx.nd.load(path)
     if named:
         assert sorted(loaded) == sorted(arrays)
@@ -90,7 +91,7 @@ def test_jax_file_loads_in_the_port_bit_for_bit(tmp_path, named):
     path = str(tmp_path / "jax.params")
     data = {k: mx.nd.array(v, dtype=str(v.dtype)) for k, v in arrays.items()}
     mx.nd.save(path, data if named else list(data.values()))
-    loaded = ndarray.load(path, device="cpu")
+    loaded = serialization.load(path, device="cpu")
     if named:
         assert sorted(loaded) == sorted(arrays)
         pairs = [(loaded[k], arrays[k]) for k in arrays]
@@ -105,14 +106,14 @@ def test_jax_file_loads_in_the_port_bit_for_bit(tmp_path, named):
 def test_bfloat16_and_refusals(tmp_path):
     path = str(tmp_path / "bf16.params")
     t = torch.randn(9).bfloat16()
-    ndarray.save(path, {"b": t})
-    assert torch.equal(ndarray.load(path, device="cpu")["b"], t)
+    serialization.save(path, {"b": t})
+    assert torch.equal(serialization.load(path, device="cpu")["b"], t)
     assert mx.nd.load(path)["b"].asnumpy().tobytes() == \
         t.view(torch.int16).numpy().tobytes()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ndarray.save(path, [torch.zeros(3, 3).to_sparse()])
+        serialization.save(path, [torch.zeros(3, 3).to_sparse()])
     with pytest.raises(MXNetError, match="format"):
-        ndarray.load_frombuffer(b"\0" * 16, device="cpu")
+        serialization.load_frombuffer(b"\0" * 16, device="cpu")
 
 
 def _jax_bert():
@@ -164,14 +165,14 @@ def test_load_parameters_options(tmp_path):
     path = str(tmp_path / "m.params")
     model.save_parameters(path)
     names = list(collect_params(model))
-    data = ndarray.load(path, device="cpu")
+    data = serialization.load(path, device="cpu")
     partial = str(tmp_path / "partial.params")
-    ndarray.save(partial, {k: v for k, v in data.items() if k != names[0]})
+    serialization.save(partial, {k: v for k, v in data.items() if k != names[0]})
     with pytest.raises(MXNetError, match="missing"):
         _port_bert().load_parameters(partial)
     _port_bert().load_parameters(partial, allow_missing=True)
     extra = str(tmp_path / "extra.params")
-    ndarray.save(extra, dict(data, unknown=torch.zeros(2)))
+    serialization.save(extra, dict(data, unknown=torch.zeros(2)))
     with pytest.raises(MXNetError, match="not present"):
         _port_bert().load_parameters(extra)
     _port_bert().load_parameters(extra, ignore_extra=True)
@@ -263,7 +264,7 @@ def test_resumed_run_equals_the_uninterrupted_one(tmp_path):
     _train(fresh, resumed, batches[2:], 2)
 
     a, b = collect_params(model), collect_params(fresh)
-    saved = ndarray.load(pfile, device="cpu")
+    saved = serialization.load(pfile, device="cpu")
     assert any(not torch.equal(a[n], saved[n]) for n in a)
     for n in a:
         assert torch.equal(a[n], b[n]), n

@@ -836,3 +836,152 @@ def test_backward_writes_gradients_on_cuda_tensors():
     assert torch.equal(w.grad, torch.full_like(w, 3.0))
     assert torch.equal(a.grad, torch.full_like(a, 5.0))
     assert torch.equal(u.grad, torch.full_like(u, 5.0))
+
+
+# -- the mx.nd surface on the card ---------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.float32])
+def test_nd_mp_sgd_mom_update_routes_by_dtype(dtype):
+    """fp16 weights: one B1 launch a call, bit-equal to the plain update,
+    written in place under ``out=``; fp32: the plain formula, no launch."""
+    _need_cuda()
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import nd
+    from mxnet_tpu_torch.opt import kernels as opt_kernels
+    g = torch.Generator(device="cuda").manual_seed(3)
+    w32 = torch.randn(1000, device="cuda", generator=g)
+    ins = [w32.to(dtype), torch.randn(1000, device="cuda",
+                                      generator=g).to(dtype),
+           torch.randn(1000, device="cuda", generator=g) * 0.1, w32]
+    ref = opt_kernels.mp_sgd_mom_update_ref(*ins, lr=0.1, momentum=0.9,
+                                            wd=1e-4)
+    arrs = [nd.array(t) for t in ins]
+    before = opt_kernels.LAUNCHES.count
+    with mx.gpu(0):
+        nd.mp_sgd_mom_update(*arrs, lr=0.1, momentum=0.9, wd=1e-4,
+                             out=arrs[0])
+    torch.cuda.synchronize()
+    assert opt_kernels.LAUNCHES.count - before == int(dtype == torch.float16)
+    for a, r in zip((arrs[0], arrs[2], arrs[3]), ref):
+        assert a._data.is_cuda and torch.equal(a._data, r)
+
+
+def test_nd_multi_mp_sgd_mom_update_is_one_launch():
+    _need_cuda()
+    from mxnet_tpu_torch import nd
+    from mxnet_tpu_torch.opt import kernels as opt_kernels
+    g = torch.Generator(device="cuda").manual_seed(4)
+    quads, lrs, wds = [], [0.1, 0.05, 0.2], [0.0, 1e-4, 1e-3]
+    for n in (7, 1000, 33):
+        w32 = torch.randn(n, device="cuda", generator=g)
+        quads.append([w32.half(), torch.randn(n, device="cuda",
+                                              generator=g).half(),
+                      torch.zeros(n, device="cuda"), w32])
+    ref = [opt_kernels.mp_sgd_mom_update_ref(*q, lr=lr, momentum=0.9, wd=wd)
+           for q, lr, wd in zip(quads, lrs, wds)]
+    arrs = [[nd.array(t) for t in q] for q in quads]
+    before = opt_kernels.LAUNCHES.count
+    nd.multi_mp_sgd_mom_update(*[a for q in arrs for a in q], lrs=lrs,
+                               wds=wds, momentum=0.9, num_weights=3,
+                               out=[q[0] for q in arrs])
+    torch.cuda.synchronize()
+    assert opt_kernels.LAUNCHES.count - before == 1
+    for q, r in zip(arrs, ref):
+        for a, b in zip((q[0], q[2], q[3]), r):
+            assert torch.equal(a._data, b)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float16, 5e-3),
+                                       (torch.float32, 1e-4)])
+def test_nd_fused_attention_launches_the_tensor_core_kernels(dtype, tol):
+    """The forward on B2's tensor-core route; under ``record`` the
+    backward on B3/B4's; within the plain version's limits."""
+    _need_cuda()
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, nd
+    from mxnet_tpu_torch.ops.flash_attention import (
+        LAUNCHES_DKV_TC, LAUNCHES_DKV_TC32, LAUNCHES_DQ_TC,
+        LAUNCHES_DQ_TC32, LAUNCHES_TC, LAUNCHES_TC32,
+        flash_attention_ref_bwd, flash_attention_ref_fwd)
+    tc = (LAUNCHES_TC, LAUNCHES_DQ_TC, LAUNCHES_DKV_TC) \
+        if dtype == torch.float16 else (LAUNCHES_TC32, LAUNCHES_DQ_TC32,
+                                        LAUNCHES_DKV_TC32)
+    q, k, v = _qkv(5, 2, 3, 128, 128, 64, dtype)
+    dout = _qkv(6, 2, 3, 128, 128, 64, dtype)[0]
+    before = [c.count for c in tc]
+    with mx.gpu(0):
+        a = [nd.array(t) for t in (q, k, v)]
+        for x in a:
+            x.attach_grad()
+        with autograd.record():
+            out = nd._fused_attention(*a, scale=0.125, causal=True)
+        out.backward(nd.array(dout))
+    torch.cuda.synchronize()
+    assert [c.count - b for c, b in zip(tc, before)] == [1, 1, 1]
+    f32 = [t.float() for t in (q, k, v)]
+    ref, lse = flash_attention_ref_fwd(*f32, True, 0.125)
+    assert (out._data.float() - ref).abs().max().item() <= tol
+    grads = flash_attention_ref_bwd(*f32, ref, lse, dout.float(), True, 0.125)
+    atol = 1e-4 if dtype == torch.float32 else 8e-3
+    rtol = 0.0 if dtype == torch.float32 else 2e-3
+    for x, r in zip(a, grads):
+        err = (x.grad._data.float() - r).abs()
+        assert bool((err <= atol + rtol * r.abs()).all())
+
+
+def test_out_of_range_labels_raise_no_device_assert():
+    """Labels -1, n and n + 2 on the card: -1 wraps, the others give NaN,
+    and the CUDA context survives (a bare gather would assert)."""
+    _need_cuda()
+    from mxnet_tpu_torch import nd
+    from mxnet_tpu_torch.gluon import loss as gloss
+    from mxnet_tpu_torch.gluon import nn as gnn
+    pred = torch.randn(4, 5, device="cuda")
+    label = torch.tensor([0.0, -1.0, 5.0, 7.0], device="cuda")
+    loss = gloss.SoftmaxCrossEntropyLoss()(pred, label)
+    emb = gnn.Embedding(5, 3, device="cuda")
+    rows = emb(label.long())
+    picked = nd.pick(nd.array(pred), nd.array(label))
+    torch.cuda.synchronize()
+    assert torch.isnan(loss).tolist() == [False, False, True, True]
+    assert torch.equal(rows[1], emb.weight[4]) and \
+        torch.isnan(rows[2:]).all()
+    assert torch.isnan(picked._data).tolist() == [False, False, True, True]
+    assert torch.ones(2, device="cuda").sum().item() == 2.0
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.float32])
+def test_attention_kernels_launch_as_a_thread_s_first_cuda_work(dtype):
+    """A thread that has made no CUDA call yet has no current context
+    (autograd's backward thread, when the attention backward is the first
+    work it does): the tensor-core kernels bind their tensors' device
+    before their driver calls, so they launch there too."""
+    _need_cuda()
+    import threading
+    from mxnet_tpu_torch.ops.flash_attention import (
+        flash_attention_bwd, flash_attention_fwd, flash_attention_ref_bwd,
+        flash_attention_ref_fwd)
+    q, k, v = _qkv(7, 2, 3, 128, 128, 64, dtype)
+    dout = _qkv(8, 2, 3, 128, 128, 64, dtype)[0]
+    got = []
+
+    def work():
+        try:
+            out, lse = flash_attention_fwd(q, k, v)
+            got.append((out, flash_attention_bwd(q, k, v, out, lse, dout)))
+        except Exception as e:  # reported by the main thread
+            got.append(e)
+
+    t = threading.Thread(target=work)
+    t.start()
+    t.join()
+    assert not isinstance(got[0], Exception), got[0]
+    out, grads = got[0]
+    torch.cuda.synchronize()
+    f32 = [x.float() for x in (q, k, v)]
+    ref, lse = flash_attention_ref_fwd(*f32)
+    tol = 1e-4 if dtype == torch.float32 else 5e-3
+    assert (out.float() - ref).abs().max().item() <= tol
+    for g, r in zip(grads, flash_attention_ref_bwd(*f32, ref, lse,
+                                                   dout.float())):
+        assert (g.float() - r).abs().max().item() <= 2e-2

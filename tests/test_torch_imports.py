@@ -28,7 +28,13 @@ SLICE_MODULES = [
     "mxnet_tpu_torch.gluon.model_zoo", "mxnet_tpu_torch.gluon.model_zoo.vision",
     # slice 10: the optimizers, amp, checkpoints
     "mxnet_tpu_torch.amp", "mxnet_tpu_torch.ndarray",
-    "mxnet_tpu_torch.ndarray.serialization", "mxnet_tpu_torch.config"]
+    "mxnet_tpu_torch.ndarray.serialization", "mxnet_tpu_torch.config",
+    # slice 11: the mx.nd surface
+    "mxnet_tpu_torch.context", "mxnet_tpu_torch.ops.registry",
+    "mxnet_tpu_torch.ndarray.ndarray", "mxnet_tpu_torch.ops.tensor",
+    "mxnet_tpu_torch.ops.random_ops", "mxnet_tpu_torch.ops.extra_ops",
+    "mxnet_tpu_torch.ops.fused", "mxnet_tpu_torch.ops.aliases",
+    "mxnet_tpu_torch.ops.deferred", "mxnet_tpu_torch.metric"]
 
 _PROBE = r"""
 import importlib, pkgutil, sys
@@ -87,7 +93,8 @@ def test_no_import_statement_names_jax_or_mxnet_tpu(path):
 def test_entry_points_default_to_cuda_and_raise_without_it():
     if torch.cuda.is_available():
         pytest.skip("this host has a GPU: the default device is valid")
-    from mxnet_tpu_torch import MXNetError, resolve_device
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import MXNetError, nd, resolve_device
     from mxnet_tpu_torch.gluon.model_zoo.vision import resnet50_v1
     from mxnet_tpu_torch.gluon.nn import BatchNorm, Conv2D, Dense, Dropout
     from mxnet_tpu_torch.models import BERTModel, TransformerLM
@@ -105,7 +112,10 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
                  lambda: Dense(4, 8),
                  lambda: generator(),
                  lambda: load_frombuffer(b""),
-                 lambda: resolve_device(None)):
+                 lambda: resolve_device(None),
+                 lambda: mx.gpu(0), lambda: mx.current_context(),
+                 lambda: nd.array([1.0]), lambda: nd.zeros((2,)),
+                 lambda: nd.random.uniform(shape=(2,))):
         with pytest.raises(MXNetError, match="CUDA is not available"):
             make()
     assert resolve_device("cpu") == torch.device("cpu")
