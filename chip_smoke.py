@@ -100,11 +100,12 @@ end, failing on the first phase that fails:
     device busy share and top kernels, B1's time, peak memory and the
     share of the fp16 tensor-core peak.
 12. nd ops (``[nd_ops]``) — every registered dense op of ``mx.nd`` (one
-    name per function) on the card and on the CPU on the same fp32 inputs
-    (TF32 off): every output on the card, shapes and dtypes equal, values
-    within rtol 1e-5 / atol 1e-6 (rtol 1e-4 / atol 1e-5 where the op
-    sums), samplers by shape, dtype and finiteness; the counts of ops and
-    stubs; ``nd.mp_sgd_mom_update`` (with ``out=``) and
+    name per function; not the control-flow graph nodes) on the card and
+    on the CPU on the same fp32 inputs (TF32 off): every output on the
+    card, shapes and dtypes equal, values within rtol 1e-5 / atol 1e-6
+    (rtol 1e-4 / atol 1e-5 where the op sums), samplers by shape, dtype
+    and finiteness; the counts of ops and stubs;
+    ``nd.mp_sgd_mom_update`` (with ``out=``) and
     ``nd.multi_mp_sgd_mom_update`` on BERT-base's 150 fp16 tensors: 150
     and 1 B1 launches, bit-equal to B1's plain version;
     ``nd._fused_attention`` at (8, 12, 512, 512, 64) in fp16 and fp32: the
@@ -125,11 +126,50 @@ end, failing on the first phase that fails:
     ``metric.Accuracy().update`` for one warm step and eight more; one B1
     launch a step, every output an NDArray on the card, the loss finite
     and falling, the metric's count equal to a torch recount; its median
-    step and images/s beside ``[train_resnet50]``'s.
+    step and images/s beside ``[train_resnet50]``'s;
+15. the symbolic encoder (``[module_encoder]``) — a 12-layer encoder at
+    BERT-base's widths built with ``sym`` as bench.py's ``lm_block``
+    (q/k/v ``FullyConnected(flatten=False)``, reshaped to (B, H, T, D),
+    one ``_fused_attention`` node a layer, GELU FFN, LayerNorm, an
+    ``Embedding`` in and a ``SoftmaxOutput`` over the 30522-token
+    vocabulary out), N(0, 0.02) weights through ``set_params``, trained
+    by ``Module.fit`` on the card in fp32 (TF32 off) for one warm step
+    and four more: 12/12/12 launches a step on the fp32 tensor-core
+    route after 24 splits, the loss finite and falling, no aux state,
+    every array on the card; two steps of the same graph with
+    attention's dense spelling from the same start within [train32]'s
+    limits; the step time, tokens/s, peak memory and a profiled step's
+    top ten kernels beside [train32]'s step; then one ``_fused_attention``
+    node bound in fp16 (``simple_bind(type_dict=...)``) at (8, 12, 512,
+    64): ``forward(is_train=True)`` and ``backward`` launch B2/B3/B4 once
+    each on the 16-bit tensor-core route, within ``FWD_TOL`` /
+    ``BWD_TOL``;
+16. ResNet-50 through Module (``[module_resnet50]``) — the zoo's
+    ``resnet50_v1`` (Xavier as [train_resnet50] seeds it) exported, its
+    JSON loaded by ``sym.load`` with a ``SoftmaxOutput`` appended and its
+    ``.params`` through ``set_params``, bound at (256, 3, 224, 224) in
+    fp32: one step by hand whose stem BatchNorm is held to its closed
+    form (one update), then ``Module.fit`` over an ``NDArrayIter`` on the
+    card for one warm batch and five more (loss finite and falling,
+    every array on the card), three fp32 steps of the same net through
+    the Gluon Trainer for the Module's cost, and two SGD steps at batch 4
+    through ``Module`` and through the Gluon Trainer from
+    [resnet_check]'s weights, batch and rate: in fp32 within
+    ``MODULE_GLUON_RATIO`` times [resnet_check]'s fp32 error (losses,
+    statistics), in fp64 within ``RESNET64_TOL`` (losses, update, worst
+    parameter, statistics), a limit that a skipped or momentum-less
+    second update, planted from the Module's own weights, must fail;
+17. ``train_mnist.py``'s loop (``[module_lenet]``, BASELINE config 1) —
+    its LeNet and synthetic digits copied here, ``Module.fit`` on the
+    card with ``Speedometer`` and ``do_checkpoint`` for 10 epochs, then
+    ``Module.load`` of the last checkpoint scores the same accuracy,
+    which beats chance by 0.2.
 
 The script prints its own wall time. The last three lines are the card
-(``nvidia-smi``), ``{"kernels": [...]}`` and ``{"ok": true, "device":
-{...}}``.
+(``nvidia-smi``), ``{"kernels": [...]}`` (B2/B3/B4's
+``launches_by_path`` with ``module_encoder_fp32`` and
+``symbol_fused_attention_fp16``, the split's with ``module_encoder_fp32``)
+and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -299,6 +339,43 @@ ADAMW_REPLAY_TOL = 1e-3
 # (attention qkv and proj, two LayerNorms, two FFN layers, each weight and
 # bias), the two embeddings, the last LayerNorm and the head's two
 TRAIN_FP16_PARAMS = 150
+# [module_encoder]: a symbolic encoder at BERT-base's widths (Devlin et al.
+# 2018: 12 layers, 768 units, 12 heads of 64, FFN 3072, WordPiece vocab
+# 30522), 8 x 512 tokens, trained through Module.fit in fp32 with
+# [train32]'s SGD (the loss a mean over tokens: rescale_grad 1 / 4096),
+# one warm step and ENC_TIMED_STEPS more; held to the dense spelling of
+# attention after REF_STEPS steps by [train32]'s limits
+ENC_LAYERS, ENC_UNITS, ENC_HEADS = 12, 768, 12
+ENC_FFN, ENC_VOCAB = 3072, 30522
+ENC_B, ENC_T, ENC_TIMED_STEPS = 8, 512, 4
+# [module_resnet50]: the exported zoo net through Module.fit at batch 256,
+# fp32, one warm step and MODULE_RESNET_TIMED_STEPS more, after one step by
+# hand whose stem BatchNorm is held to its closed form: new = momentum *
+# old + (1 - momentum) * the batch's statistic (biased variance), computed
+# here from the stem convolution's output. Max abs 1e-5: both sides sum
+# ~3.2e6 fp32 values per channel in different orders (~1e-7 relative of
+# statistics of order 1); a second update would leave the moving variance
+# 0.09 * |1 - var| (~3e-2) off.
+MODULE_RESNET_TIMED_STEPS, BN_ONCE_TOL = 5, 1e-5
+# Module against the Gluon Trainer, two SGD steps at batch 4 from
+# [resnet_check]'s weights, batch and rate. In fp32, each path's error
+# against fp64 is at most RESNET32_ERR_RATIO times [resnet_check]'s card
+# fp32 error e (the same ops on the same card; only the loss layer's
+# rounding differs), so the two differ by at most (1 + ratio) * e in the
+# losses and the running statistics. The update is not held in fp32:
+# there e is ~31% of it, over the parameters with a gradient as over the
+# whole model (fp32 does not determine this two-step update better), so
+# no limit derived from e can reject a faulty second update. It is held
+# in fp64, as [resnet_check] holds the card to the CPU: losses, update,
+# worst parameter (noise biases left out) and statistics within
+# RESNET64_TOL, and two faults planted in the Module's second update
+# (skipped; without momentum) must fail that limit.
+MODULE_GLUON_RATIO = 1.0 + RESNET32_ERR_RATIO
+# [module_lenet]: train_mnist.py's synthetic digits and recipe (batch 64,
+# lr 0.05, momentum 0.9) for 10 epochs (the example's default is 5, where
+# this LeNet has only begun to learn: the JAX package and the port both
+# score ~0.37 on the CPU); the score must beat chance (0.1) by 0.2
+LENET_EXAMPLES, LENET_BATCH, LENET_EPOCHS, LENET_MARGIN = 2000, 64, 10, 0.2
 LADDER = "batch:1,2,4,8;seq:128,256,512"
 N_REQUESTS, CONCURRENCY = 24, 4
 HEADS, HEAD_DIM = 12, 64
@@ -2088,7 +2165,7 @@ def phase_train_fp32(card):
         "update_rel_l2_diff_vs_ref": upd_err,
         "worst_parameter_rel_diff": list(worst)}
     log("[train32] " + json.dumps(summary))
-    return totals
+    return totals, summary
 
 
 def _seeded_gpt(attention=None):
@@ -2327,18 +2404,20 @@ def phase_resnet_check(card):
 
     def errors(got, ref):
         """Against ``ref``: the losses' max abs difference, the update's
-        rel. L2 over the model and the worst parameter's (noise biases
-        left out), the running statistics' after each step and the
-        predict-mode logits' rel. L2."""
+        rel. L2 over the model and over the parameters with a gradient
+        (noise biases left out: ``update_kept``) and the worst of those,
+        the running statistics' after each step and the predict-mode
+        logits' rel. L2."""
         upd, _ = _update_diff([got["weights"][n] for n in trained],
                               [ref["weights"][n] for n in trained],
                               [init[n] for n in trained], trained)
-        _, worst = _update_diff([got["weights"][n] for n in kept],
-                                [ref["weights"][n] for n in kept],
-                                [init[n] for n in kept], kept)
+        upd_kept, worst = _update_diff([got["weights"][n] for n in kept],
+                                       [ref["weights"][n] for n in kept],
+                                       [init[n] for n in kept], kept)
         return {"loss": max(abs(a - b).item() for a, b in
                             zip(got["losses"], ref["losses"])),
-                "update": upd, "worst_parameter": list(worst),
+                "update": upd, "update_kept": upd_kept,
+                "worst_parameter": list(worst),
                 "stats": max(_rel_l2(a, b) for a, b in
                              zip(got["stats"], ref["stats"])),
                 "stats_by_step": [_rel_l2(a, b) for a, b in
@@ -2375,6 +2454,7 @@ def phase_resnet_check(card):
         raise SystemExit("chip_smoke: ResNet-50 on the card disagrees with "
                          "the CPU")
     del runs, state, model
+    return card32
 
 
 def _resnet_macs(net, dtype):
@@ -2752,15 +2832,18 @@ def _nd_inputs(name, info, rs):
 
 
 def _nd_sweep():
-    """Every registered dense op (one name per function) on the card and
-    on the CPU, on the same inputs; returns the rows and the stub
-    count."""
+    """Every registered dense op (one name per function; not the
+    control-flow graph nodes) on the card and on the CPU, on the same
+    inputs; returns the rows and the stub count."""
     import mxnet_tpu_torch as mx
     from mxnet_tpu_torch import nd
+    from mxnet_tpu_torch.ops.control_flow import GRAPH_NODES
     from mxnet_tpu_torch.ops.registry import _OPS
     seen = {}
     for info in _OPS.values():
-        if not info.stub:
+        # the control-flow nodes take sub-Symbols, not arrays
+        # (tests/test_torch_control_flow.py drives them)
+        if not info.stub and info.name not in GRAPH_NODES:
             seen.setdefault(id(info.fn), info)
     stubs = sorted(n for n, i in _OPS.items() if i.stub)
     rows, bad = [], []
@@ -3145,6 +3228,643 @@ def phase_train_gluon_nd(card, resnet_summary):
     return row
 
 
+# -- the symbolic stack (Symbol, Executor, Module) ---------------------------
+
+def _encoder_symbol(fused=True):
+    """BERT-base's encoder in ``sym``, as bench.py's ``lm_block`` builds
+    one: q/k/v by ``FullyConnected(flatten=False)``, reshaped and
+    transposed to (B, H, T, D); attention as one ``_fused_attention`` node
+    (``fused``) or in its dense spelling (batch_dot, softmax, batch_dot);
+    the projection and a residual add, LayerNorm, a GELU FFN, a residual
+    add and LayerNorm; token and position embeddings in, a
+    ``SoftmaxOutput`` over the vocabulary out (one row per token)."""
+    from mxnet_tpu_torch import sym
+    B, T, C, H = ENC_B, ENC_T, ENC_UNITS, ENC_HEADS
+    D = C // H
+    x = sym.Embedding(sym.var("data"), input_dim=ENC_VOCAB, output_dim=C,
+                      name="word_embed")
+    x = sym.broadcast_add(x, sym.var("pos_embed_weight", shape=(1, T, C)),
+                          name="pos_add")
+    for i in range(ENC_LAYERS):
+        p = f"l{i}_"
+        proj = {}
+        for nm in ("q", "k", "v"):
+            t = sym.FullyConnected(x, num_hidden=C, flatten=False,
+                                   no_bias=True, name=p + nm)
+            t = sym.reshape(t, shape=(B, T, H, D))
+            proj[nm] = sym.transpose(t, axes=(0, 2, 1, 3))
+        if fused:
+            att = sym._fused_attention(proj["q"], proj["k"], proj["v"],
+                                       scale=1.0 / D ** 0.5, name=p + "att")
+        else:
+            scores = sym.batch_dot(proj["q"], proj["k"],
+                                   transpose_b=True) * (1.0 / D ** 0.5)
+            att = sym.batch_dot(sym.softmax(scores, axis=-1), proj["v"],
+                                name=p + "att")
+        att = sym.reshape(sym.transpose(att, axes=(0, 2, 1, 3)),
+                          shape=(B, T, C))
+        h = sym.LayerNorm(sym.broadcast_add(x, sym.FullyConnected(
+            att, num_hidden=C, flatten=False, name=p + "o")), name=p + "ln1")
+        f = sym.FullyConnected(h, num_hidden=ENC_FFN, flatten=False,
+                               name=p + "ff1")
+        f = sym.LeakyReLU(f, act_type="gelu", name=p + "gelu")
+        f = sym.FullyConnected(f, num_hidden=C, flatten=False,
+                               name=p + "ff2")
+        x = sym.LayerNorm(sym.broadcast_add(h, f), name=p + "ln2")
+    logits = sym.FullyConnected(x, num_hidden=ENC_VOCAB, flatten=False,
+                                name="head")
+    return sym.SoftmaxOutput(sym.reshape(logits, shape=(-1, ENC_VOCAB)),
+                             sym.reshape(sym.var("softmax_label"),
+                                         shape=(-1,)), name="softmax")
+
+
+def _encoder_params(net):
+    """N(0, 0.02) matrices and embeddings, zero biases, LayerNorm gamma 1
+    and beta 0, from SEED with numpy, as NDArrays on the card."""
+    import mxnet_tpu_torch as mx
+    shapes = dict(zip(net.list_arguments(), net.infer_shape(
+        data=(ENC_B, ENC_T), softmax_label=(ENC_B, ENC_T))[0]))
+    rng = np.random.default_rng(SEED)
+    out = {}
+    for name, shape in shapes.items():
+        if name in ("data", "softmax_label"):
+            continue
+        if name.endswith("gamma"):
+            v = np.ones(shape, np.float32)
+        elif name.endswith(("bias", "beta")):
+            v = np.zeros(shape, np.float32)
+        else:
+            v = rng.standard_normal(shape, dtype=np.float32) * 0.02
+        out[name] = mx.nd.array(v, ctx=mx.gpu(0))
+    return out
+
+
+def _fit_steps(mod, it, steps, tag, counters=None, want=None, on_step=None):
+    """``mod.fit`` over ``it`` (one epoch of ``steps`` batches) with a
+    batch-end callback that times each step (the device waited for), reads
+    its loss off the cross-entropy metric and its launches off
+    ``counters`` (which must equal ``want``), then calls ``on_step(i)``.
+    Returns the losses, the walls and the launches summed over the run."""
+    losses, walls, last = [], [], [time.perf_counter(), 0.0, 0]
+    totals = dict.fromkeys(counters or {}, 0)
+    if counters:
+        for c in counters.values():
+            c.reset()
+
+    def batch_end(param):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        walls.append((now - last[0]) * 1e3)
+        m = param.eval_metric
+        losses.append((m.sum_metric - last[1]) / (m.num_inst - last[2]))
+        last[1:] = [m.sum_metric, m.num_inst]
+        if counters:
+            counts = {n: c.count for n, c in counters.items()}
+            log(f"[{tag}] step {param.nbatch}: loss {losses[-1]:.6f}, wall "
+                f"{walls[-1]:.2f} ms, launches {counts}")
+            if counts != want:
+                raise SystemExit(f"chip_smoke: {tag}: launches per step "
+                                 f"{counts}, expected {want}")
+            for n in counts:
+                totals[n] += counts[n]
+            for c in counters.values():
+                c.reset()
+        else:
+            log(f"[{tag}] step {param.nbatch}: loss {losses[-1]:.6f}, wall "
+                f"{walls[-1]:.2f} ms")
+        if on_step:
+            on_step(param.nbatch)
+        torch.cuda.synchronize()
+        last[0] = time.perf_counter()
+
+    torch.cuda.synchronize()
+    last[0] = time.perf_counter()
+    # bound, initialised and with an optimizer: fit runs the loop (the
+    # iterator makes each batch in the current context: the module's)
+    with mod._context[0]:
+        mod.fit(it, num_epoch=1, eval_metric="ce",
+                batch_end_callback=batch_end)
+    if len(losses) != steps or not np.all(np.isfinite(losses)) \
+            or not losses[-1] < losses[0]:
+        raise SystemExit(f"chip_smoke: {tag}: loss not finite and falling "
+                         f"over {steps} steps: {losses}")
+    return losses, walls, totals
+
+
+def _arrays_on_card(mod):
+    ex = mod._exec_group.execs[0]
+    arrays = list(ex.arg_dict.values()) + list(ex.grad_dict.values()) \
+        + list(ex.aux_dict.values()) + ex.outputs
+    args, auxs = mod.get_params()
+    arrays += list(args.values()) + list(auxs.values())
+    return all(a._data.is_cuda for a in arrays)
+
+
+def phase_module_encoder(card, train32):
+    """A 12-layer symbolic encoder at BERT-base's widths trained through
+    ``Module.fit`` on the card (fp32, TF32 off): every ``_fused_attention``
+    node's forward on B2 and backward on B3/B4, all on the fp32
+    tensor-core route; then two steps of the same graph with attention's
+    dense spelling from the same start, within [train32]'s limits; then
+    one ``_fused_attention`` node bound in fp16 through ``simple_bind(
+    type_dict=...)``."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import nd, sym
+    from mxnet_tpu_torch.ops.flash_attention import (
+        flash_attention_ref_bwd, flash_attention_ref_fwd)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ctx = mx.gpu(0)
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED)
+    tokens = rng.integers(0, ENC_VOCAB, (ENC_B, ENC_T)).astype(np.float32)
+    labels = rng.integers(0, ENC_VOCAB, (ENC_B, ENC_T)).astype(np.float32)
+    steps = 1 + ENC_TIMED_STEPS
+    opt = {"learning_rate": TRAIN_LR, "momentum": TRAIN_MOMENTUM,
+           "rescale_grad": 1.0 / (ENC_B * ENC_T)}
+
+    def build(fused):
+        net = _encoder_symbol(fused)
+        mod = mx.mod.Module(net, context=ctx)
+        with ctx:
+            # one batch repeated: the loss of the same tokens falls
+            it = mx.io.NDArrayIter(np.tile(tokens, (steps, 1)),
+                                   np.tile(labels, (steps, 1)),
+                                   batch_size=ENC_B)
+        mod.bind(data_shapes=it.provide_data, label_shapes=it.provide_label)
+        mod.set_params(_encoder_params(net), {})
+        mod.init_optimizer(kvstore=None, optimizer="sgd",
+                           optimizer_params=dict(opt))
+        return net, mod, it
+
+    net, mod, it = build(True)
+    n_params = len(mod._param_names)
+    n_values = sum(a.size for a in mod.get_params()[0].values())
+    init = {n: a._data.clone() for n, a in mod.get_params()[0].items()}
+    log(f"[module_encoder] {ENC_LAYERS} layers x {ENC_UNITS} units, "
+        f"{ENC_HEADS} heads of {ENC_UNITS // ENC_HEADS}, FFN {ENC_FFN}, "
+        f"vocab {ENC_VOCAB}; {len(net.list_arguments())} arguments "
+        f"({n_params} parameters, {n_values} values), fp32 (TF32 off); "
+        f"batch {ENC_B} x {ENC_T}; Module.fit, SGD lr {TRAIN_LR} momentum "
+        f"{TRAIN_MOMENTUM}; built in {time.perf_counter() - t0:.2f} s")
+    counters = _train_counters()
+    want = dict.fromkeys(counters, 0)
+    want.update({"flash_fwd": ENC_LAYERS, "flash_fwd_tc32": ENC_LAYERS,
+                 "flash_bwd_dq": ENC_LAYERS, "flash_bwd_dkv": ENC_LAYERS,
+                 "flash_bwd_dq_tc32": ENC_LAYERS,
+                 "flash_bwd_dkv_tc32": ENC_LAYERS,
+                 "split_bf16x3": 2 * ENC_LAYERS})
+    after2 = {}
+
+    def on_step(i):
+        if i == REF_STEPS - 1:
+            after2.update({n: a._data.clone()
+                           for n, a in mod.get_params()[0].items()})
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters.values():
+        c.reset()
+    losses, walls, launches = _fit_steps(mod, it, steps, "module_encoder",
+                                         counters, want, on_step)
+    peak = torch.cuda.max_memory_allocated()
+    on_card = _arrays_on_card(mod)
+    aux_untouched = not mod._exec_group.execs[0].aux_dict
+    with ctx:
+        batch = mx.io.DataBatch([nd.array(tokens)], [nd.array(labels)])
+
+    def one_step():
+        mod.forward_backward(batch)
+        mod.update()
+
+    # one more step, profiled (its launches are not the run's)
+    kernel_ms, ours, top = profiled_step(one_step)
+    wall_ms = float(np.median(walls[1:]))
+    del mod, it, net
+    torch.cuda.empty_cache()
+
+    # the dense spelling, two steps from the same start
+    ref_net, ref_mod, ref_it = build(False)
+    ref_losses = _fit_steps(ref_mod, mx.io.ResizeIter(ref_it, REF_STEPS),
+                            REF_STEPS, "module_encoder_dense")[0]
+    ref_after = {n: a._data for n, a in ref_mod.get_params()[0].items()}
+    names = sorted(init)
+    loss_err = max(abs(a - b) for a, b in zip(losses, ref_losses))
+    upd_err, worst = _update_diff([after2[n] for n in names],
+                                  [ref_after[n] for n in names],
+                                  [init[n] for n in names], names)
+    del ref_mod, ref_it, ref_net, ref_after, after2, init
+    torch.cuda.empty_cache()
+    log(f"[module_encoder] dense spelling of attention, the same start: "
+        f"losses {ref_losses}; max loss diff {loss_err:.3e} (limit "
+        f"{TRAIN32_LOSS_TOL}); update rel. L2 diff {upd_err:.3e} (limit "
+        f"{TRAIN32_UPD_TOL}), worst parameter {worst[1]} {worst[0]:.3e} "
+        f"(limit {TRAIN32_UPD_TOL_EACH})")
+
+    # one _fused_attention node bound in fp16 (type_dict)
+    shape = ND_ATTN[:3] + ND_ATTN[4:]
+    node = sym._fused_attention(sym.var("q"), sym.var("k"), sym.var("v"),
+                                scale=1.0 / ND_ATTN[4] ** 0.5, name="att")
+    ex = node.simple_bind(ctx, type_dict=dict.fromkeys("qkv", "float16"),
+                          q=shape, k=shape, v=shape)
+    g = torch.Generator().manual_seed(SEED)
+    q, k, v, dout = (torch.randn(shape, generator=g).cuda().half()
+                     for _ in range(4))
+    for c in counters.values():
+        c.reset()
+    out = ex.forward(is_train=True, q=nd.array(q, ctx=ctx),
+                     k=nd.array(k, ctx=ctx), v=nd.array(v, ctx=ctx))[0]
+    ex.backward(nd.array(dout, ctx=ctx))
+    torch.cuda.synchronize()
+    fp16_counts = {n: c.count for n, c in counters.items()}
+    f32 = [t.float() for t in (q, k, v)]
+    scale = 1.0 / ND_ATTN[4] ** 0.5
+    ref, lse = flash_attention_ref_fwd(*f32, False, scale)
+    fwd_err = (out._data.float() - ref).abs().max().item()
+    atol, rtol = BWD_TOL["float16"]
+    bwd_excess = max(((ex.grad_dict[n]._data.float() - r).abs()
+                      - (atol + rtol * r.abs())).max().item()
+                     for n, r in zip("qkv", flash_attention_ref_bwd(
+                         *f32, ref, lse, dout.float(), False, scale)))
+    fp16_want = {n: (1 if n in ("flash_fwd", "flash_fwd_tc", "flash_bwd_dq",
+                                "flash_bwd_dq_tc", "flash_bwd_dkv",
+                                "flash_bwd_dkv_tc") else 0)
+                 for n in counters}
+    del ex, out, q, k, v, dout, ref, lse, f32
+    torch.cuda.empty_cache()
+
+    summary = {
+        "card": card, "batch": [ENC_B, ENC_T], "steps": steps,
+        "dtype": "float32", "losses": losses, "dense_losses": ref_losses,
+        "step_wall_ms_median": wall_ms, "step_wall_ms": walls,
+        "tokens_per_s": ENC_B * ENC_T / (wall_ms / 1e3),
+        "train32_step_wall_ms_median": train32["step_wall_ms_median"],
+        "train32_tokens_per_s": train32["tokens_per_s"],
+        "module_over_gluon_ms": wall_ms - train32["step_wall_ms_median"],
+        "profiled_kernel_ms": kernel_ms,
+        "device_busy_share": kernel_ms / wall_ms,
+        "kernel_ms_in_step": ours, "top10_kernels_ms": top,
+        "peak_memory_bytes": peak, "launches": launches,
+        "loss_max_abs_diff_vs_dense": loss_err,
+        "update_rel_l2_diff_vs_dense": upd_err,
+        "worst_parameter_rel_diff": list(worst),
+        "arrays_on_card": on_card, "aux_states": 0 if aux_untouched else -1,
+        "fp16_node": {"shape": list(ND_ATTN), "launches": fp16_counts,
+                      "fwd_max_abs_err": fwd_err,
+                      "fwd_limit": FWD_TOL["float16"],
+                      "bwd_max_excess_over_limit": bwd_excess,
+                      "bwd_limit": list(BWD_TOL["float16"])}}
+    log("[module_encoder] " + json.dumps(summary))
+    if (loss_err > TRAIN32_LOSS_TOL or upd_err > TRAIN32_UPD_TOL
+            or worst[0] > TRAIN32_UPD_TOL_EACH):
+        raise SystemExit("chip_smoke: module_encoder disagrees with the "
+                         "dense spelling")
+    if not (on_card and aux_untouched):
+        raise SystemExit("chip_smoke: module_encoder: an array off the card "
+                         "or an aux state in a graph that has none")
+    if fp16_counts != fp16_want or fwd_err > FWD_TOL["float16"] \
+            or bwd_excess > 0:
+        raise SystemExit(f"chip_smoke: module_encoder: the fp16 node: "
+                         f"{summary['fp16_node']}")
+    return {"launches": launches, "fp16": fp16_counts, "summary": summary}
+
+
+def phase_module_resnet50(card, check32):
+    """ResNet-50 v1 exported from the zoo and trained through ``Module.fit``
+    at batch 256 in fp32 (TF32 off); one BatchNorm's moving statistics
+    held to their closed form for one step (moved once); then two SGD
+    steps at batch 4 through ``Module`` and through the Gluon ``Trainer``
+    from the same weights and batch: in fp32 within ``MODULE_GLUON_RATIO``
+    times [resnet_check]'s fp32 error (losses, statistics), in fp64
+    within ``RESNET64_TOL`` (losses, update, worst parameter,
+    statistics), a limit that two faults planted in the second update
+    must fail."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, nd, sym
+    from mxnet_tpu_torch.gluon import Trainer
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ctx = mx.gpu(0)
+    t0 = time.perf_counter()
+    net = _seeded_resnet50("cuda")
+    tmp = tempfile.mkdtemp(prefix="module_resnet50_")
+    try:
+        prefix = os.path.join(tmp, "resnet50_v1")
+        net.export(prefix)
+        head = sym.SoftmaxOutput(sym.load(prefix + "-symbol.json"),
+                                 name="softmax")
+        args, auxs = mx.model.load_params(prefix, 0)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    stem_conv, stem_bn = net.features[0], net.features[1]
+    bn_mean = stem_bn.param_name("running_mean")
+    bn_var = stem_bn.param_name("running_var")
+    conv_w = stem_conv.param_name("weight")
+    steps = 1 + MODULE_RESNET_TIMED_STEPS
+    x, y = _resnet_batch(RESNET_B, torch.float32, "cpu")
+    x, y = x.numpy(), y.numpy()
+
+    def module(batch):
+        mod = mx.mod.Module(head, context=ctx)
+        mod.bind(data_shapes=[("data", (batch, 3, RESNET_SIZE,
+                                        RESNET_SIZE))],
+                 label_shapes=[("softmax_label", (batch,))])
+        mod.set_params(args, auxs)
+        return mod
+
+    mod = module(RESNET_B)
+    mod.init_optimizer(kvstore=None, optimizer="sgd", optimizer_params={
+        "learning_rate": RESNET_LR, "momentum": RESNET_MOMENTUM,
+        "wd": RESNET_WD, "rescale_grad": 1.0 / RESNET_B})
+    log(f"[module_resnet50] resnet50_v1 exported ({len(args)} arguments, "
+        f"{len(auxs)} aux states) -> sym.load + SoftmaxOutput -> Module on "
+        f"{ctx}, fp32 (TF32 off), batch {RESNET_B}; SGD lr {RESNET_LR} "
+        f"momentum {RESNET_MOMENTUM} wd {RESNET_WD} rescale 1/{RESNET_B}; "
+        f"built in {time.perf_counter() - t0:.2f} s")
+
+    # one step by hand: the stem BatchNorm moves once, by its closed form
+    ex = mod._exec_group.execs[0]
+    with ctx:
+        batch = mx.io.DataBatch([nd.array(x)], [nd.array(y)])
+    m0, v0 = ex.aux_dict[bn_mean]._data.clone(), ex.aux_dict[bn_var]._data \
+        .clone()
+    conv = torch.nn.functional.conv2d(batch.data[0]._data,
+                                      ex.arg_dict[conv_w]._data, stride=2,
+                                      padding=3)
+    mu = conv.mean((0, 2, 3))
+    var = conv.var((0, 2, 3), unbiased=False)
+    del conv
+    mod.forward_backward(batch)
+    mod.update()
+    m1, v1 = ex.aux_dict[bn_mean]._data, ex.aux_dict[bn_var]._data
+    mom = RESNET_MOMENTUM
+    once = [(m1 - (mom * m0 + (1 - mom) * mu)).abs().max().item(),
+            (v1 - (mom * v0 + (1 - mom) * var)).abs().max().item()]
+    twice = [(m1 - (mom * (mom * m0 + (1 - mom) * mu) + (1 - mom) * mu))
+             .abs().max().item(),
+             (v1 - (mom * (mom * v0 + (1 - mom) * var) + (1 - mom) * var))
+             .abs().max().item()]
+    once_ok = max(once) <= BN_ONCE_TOL < min(twice)
+    log(f"[module_resnet50] stem BatchNorm after one step: max |moving - "
+        f"closed form| once {once}, twice {twice} (limit {BN_ONCE_TOL})")
+
+    with ctx:
+        it = mx.io.NDArrayIter(np.tile(x, (steps, 1, 1, 1)),
+                               np.tile(y, steps), batch_size=RESNET_B)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, walls, _ = _fit_steps(mod, it, steps, "module_resnet50")
+    peak = torch.cuda.max_memory_allocated()
+    on_card = _arrays_on_card(mod)
+    wall_ms = float(np.median(walls[1:]))
+    del mod, ex, it, batch
+    torch.cuda.empty_cache()
+
+    # the same step through the Gluon Trainer on the torch-direct layers,
+    # for the Module layer's cost (the iterator, the executor, the metric)
+    gx, gy = (t.cuda() for t in _resnet_batch(RESNET_B, torch.float32,
+                                              "cpu"))
+    gl_net = _seeded_resnet50("cuda")
+    gl_params = gl_net.collect_params()
+    gl_big = Trainer(gl_params, "sgd", {"learning_rate": RESNET_LR,
+                                        "momentum": RESNET_MOMENTUM,
+                                        "wd": RESNET_WD})
+    gl_walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        tg = time.perf_counter()
+        _train_step(gl_net, SoftmaxCrossEntropyLoss(), gx, gy,
+                    lambda: gl_big.step(RESNET_B), scale=1.0)
+        torch.cuda.synchronize()
+        gl_walls.append((time.perf_counter() - tg) * 1e3)
+    del gl_net, gl_params, gl_big, gx, gy
+    torch.cuda.empty_cache()
+
+    # Module against the Gluon Trainer: two steps at batch 4 from the same
+    # weights, in fp32 and in fp64 (the JAX package's Module binds fp32
+    # only, so the fp64 run casts the bound arrays, exactly, in place)
+    xb, yb = _resnet_batch(RESNET_CHECK_B, torch.float32, "cuda")
+    sgd = {"learning_rate": RESNET_CHECK_LR, "momentum": RESNET_MOMENTUM,
+           "wd": RESNET_WD}
+    state0 = {k: v.detach().clone() for k, v in net.state_dict().items()}
+    jax_params = net.named_jax_params()
+    names = list(jax_params)   # the Module's; each new net counts its own
+    trained = [n for n, p in jax_params.items() if p.requires_grad]
+    stats = [n for n in jax_params if n not in trained]
+    noise = {id(net.collect_params()[n]) for n in _noise_biases(net)}
+    kept = [n for n in trained if id(jax_params[n]) not in noise]
+    del net, jax_params
+    rows = torch.arange(RESNET_CHECK_B)
+
+    def against_gluon(dtype):
+        small = module(RESNET_CHECK_B)
+        ex = small._exec_group.execs[0]
+        for arrays in (ex.arg_dict, ex.grad_dict, ex.aux_dict):
+            for arr in arrays.values():
+                arr._data = arr._data.to(dtype)
+        small.init_optimizer(kvstore=None, optimizer="sgd", optimizer_params={
+            **sgd, "rescale_grad": 1.0 / RESNET_CHECK_B})
+        batch = mx.io.DataBatch([nd.array(xb, ctx=ctx)],
+                                [nd.array(yb, ctx=ctx)])
+        gnet = _seeded_resnet50("cuda")
+        gnet.load_state_dict(state0)
+        gnet.cast(dtype)
+        gp = dict(zip(names, gnet.named_jax_params().values()))
+        init = {n: p.detach().clone() for n, p in gp.items()}
+        m_losses, m_stats, m_w = [], [], []
+        for _ in range(RESNET_CHECK_STEPS):
+            small.forward_backward(batch)
+            prob = small.get_outputs()[0]._data
+            m_losses.append(-torch.log(prob[rows, yb.long()]).mean().item())
+            small.update()
+            m_stats.append([ex.aux_dict[n]._data.clone() for n in stats])
+            m_w.append({n: ex.arg_dict[n]._data.clone() for n in trained})
+        trainer = Trainer(gnet.collect_params(), "sgd", dict(sgd))
+        loss_fn = SoftmaxCrossEntropyLoss()
+        g_losses, g_stats = [], []
+        for _ in range(RESNET_CHECK_STEPS):
+            with autograd.record():
+                loss = loss_fn(gnet(xb.to(dtype)), yb)
+            autograd.backward(loss)
+            trainer.step(RESNET_CHECK_B)
+            g_losses.append(loss.detach().mean().item())
+            g_stats.append([gp[n].detach().clone() for n in stats])
+
+        def update_diff(got, over=trained):
+            return _update_diff([got[n] for n in over],
+                                [gp[n].detach() for n in over],
+                                [init[n] for n in over], over)
+
+        diff = {"loss": max(abs(a - b) for a, b in zip(m_losses, g_losses)),
+                "update": update_diff(m_w[-1])[0],
+                "worst_parameter": list(update_diff(m_w[-1], kept)[1]),
+                "stats": max(_rel_l2(a, b) for a, b in zip(m_stats,
+                                                           g_stats))}
+        # faults planted in the Module's second update, from its own
+        # weights after each step (w1, w2; init w0): SGD's momentum state
+        # after step 1 is w1 - w0, so w2 - momentum * (w1 - w0) is the
+        # second step taken without it
+        planted = {
+            "second_update_skipped": update_diff(m_w[0])[0],
+            "second_update_without_momentum": update_diff(
+                {n: m_w[1][n] - RESNET_MOMENTUM * (m_w[0][n] - init[n])
+                 for n in trained})[0]}
+        moved = all(not torch.equal(a, init[n])
+                    for a, n in zip(m_stats[0], stats))
+        return {"module_losses": m_losses, "gluon_losses": g_losses,
+                "diff": diff, "planted_faults_update": planted,
+                "running_stats_moved": moved}
+
+    vs32 = against_gluon(torch.float32)
+    vs64 = against_gluon(torch.float64)
+    torch.cuda.empty_cache()
+    lim32 = {k: MODULE_GLUON_RATIO * check32[k] for k in ("loss", "stats")}
+    d32, d64 = vs32["diff"], vs64["diff"]
+    ok32 = all(d32[k] <= lim32[k] for k in lim32)
+    ok64 = all(d64[k] <= RESNET64_TOL for k in ("loss", "update", "stats")) \
+        and d64["worst_parameter"][0] <= RESNET64_TOL
+    planted_fail = all(v > RESNET64_TOL for v in
+                       vs64["planted_faults_update"].values())
+    moved = vs32["running_stats_moved"] and vs64["running_stats_moved"]
+
+    summary = {
+        "card": card, "batch": [RESNET_B, 3, RESNET_SIZE, RESNET_SIZE],
+        "steps": steps, "dtype": "float32", "losses": losses,
+        "step_wall_ms_median": wall_ms, "step_wall_ms": walls,
+        "images_per_s": RESNET_B / (wall_ms / 1e3),
+        "gluon_fp32_step_wall_ms": gl_walls,
+        "gluon_fp32_step_wall_ms_median": float(np.median(gl_walls[1:])),
+        "peak_memory_bytes": peak, "arrays_on_card": on_card,
+        "stem_bn_once_max_abs": once, "stem_bn_twice_max_abs": twice,
+        "running_stats_moved": moved,
+        "module_vs_gluon": {"batch": RESNET_CHECK_B, "lr": RESNET_CHECK_LR,
+                            "float32": vs32, "float64": vs64,
+                            "limits_float32": lim32,
+                            "limit_float64": RESNET64_TOL,
+                            "planted_faults_fail_float64": planted_fail,
+                            "resnet_check_fp32_vs_fp64": check32}}
+    log("[module_resnet50] " + json.dumps(summary))
+    if not (on_card and once_ok and moved):
+        raise SystemExit(f"chip_smoke: module_resnet50: arrays on the card "
+                         f"{on_card}, BatchNorm moved once {once_ok}, every "
+                         f"running statistic moved {moved}")
+    if not (ok32 and ok64):
+        raise SystemExit(f"chip_smoke: module_resnet50: Module and Gluon "
+                         f"disagree: fp32 {d32} (limits {lim32}), fp64 "
+                         f"{d64} (limit {RESNET64_TOL})")
+    if not planted_fail:
+        raise SystemExit(f"chip_smoke: module_resnet50: the fp64 limit "
+                         f"{RESNET64_TOL} passes a planted fault: "
+                         f"{vs64['planted_faults_update']}")
+    return summary
+
+
+def lenet_symbol(num_classes=10):
+    """``examples/image_classification/train_mnist.py``'s LeNet in the
+    port's ``sym``."""
+    from mxnet_tpu_torch import sym
+    data = sym.var("data")
+    c1 = sym.Convolution(data, kernel=(5, 5), num_filter=20)
+    a1 = sym.Activation(c1, act_type="tanh")
+    p1 = sym.Pooling(a1, pool_type="max", kernel=(2, 2), stride=(2, 2))
+    c2 = sym.Convolution(p1, kernel=(5, 5), num_filter=50)
+    a2 = sym.Activation(c2, act_type="tanh")
+    p2 = sym.Pooling(a2, pool_type="max", kernel=(2, 2), stride=(2, 2))
+    f = sym.flatten(p2)
+    h = sym.Activation(sym.FullyConnected(f, num_hidden=500),
+                       act_type="tanh")
+    h = sym.FullyConnected(h, num_hidden=num_classes)
+    return sym.SoftmaxOutput(h, name="softmax")
+
+
+def synthetic_mnist(n, seed=0):
+    """``train_mnist.py``'s learnable synthetic digits: a bright 8 x 8
+    blob whose quadrant and intensity band encode the class."""
+    rs = np.random.RandomState(seed)
+    x = rs.rand(n, 1, 28, 28).astype("float32") * 0.2
+    y = rs.randint(0, 10, n)
+    for i, cls in enumerate(y):
+        qy, qx = divmod(cls % 4, 2)
+        r, c = 4 + qy * 12, 4 + qx * 12
+        x[i, 0, r:r + 8, c:c + 8] += 0.4 + 0.15 * (cls // 4)
+    return x, y.astype("float32")
+
+
+def phase_module_lenet(card):
+    """``train_mnist.py``'s loop (BASELINE config 1) on the port's public
+    API on the card: LeNet, synthetic digits, ``Module.fit`` with
+    ``Speedometer`` and ``do_checkpoint``; then ``Module.load`` of the last
+    checkpoint scores the same accuracy, which beats chance by
+    ``LENET_MARGIN``."""
+    import logging
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import nd
+    ctx = mx.gpu(0)
+    t0 = time.perf_counter()
+    # train_mnist.py leaves the shuffle and the initial weights unseeded;
+    # here both come from SEED (numpy's global state shuffles each epoch)
+    np.random.seed(SEED)
+    mx.random.seed(SEED)
+    xs, ys = synthetic_mnist(LENET_EXAMPLES)
+    vx, vy = synthetic_mnist(max(LENET_EXAMPLES // 5, LENET_BATCH), seed=99)
+    tmp = tempfile.mkdtemp(prefix="module_lenet_")
+    logger = logging.getLogger()
+    level = logger.level
+    logger.setLevel(logging.INFO)
+    speeds = []
+
+    class Grab(logging.Handler):
+        def emit(self, record):
+            msg = record.getMessage()
+            if "samples/sec" in msg:
+                speeds.append(float(msg.split("Speed: ")[1].split()[0]))
+
+    grab = Grab()
+    logger.addHandler(grab)
+    try:
+        with ctx:
+            train = mx.io.NDArrayIter(data=nd.array(xs), label=nd.array(ys),
+                                      batch_size=LENET_BATCH, shuffle=True,
+                                      shuffle_seed=SEED + 1)
+            val = mx.io.NDArrayIter(data=nd.array(vx), label=nd.array(vy),
+                                    batch_size=LENET_BATCH)
+            mod = mx.mod.Module(lenet_symbol(), data_names=("data",),
+                                label_names=("softmax_label",), context=ctx)
+            prefix = os.path.join(tmp, "lenet")
+            mod.fit(train, eval_data=val, num_epoch=LENET_EPOCHS,
+                    optimizer="sgd", optimizer_params={
+                        "learning_rate": 0.05, "momentum": 0.9},
+                    eval_metric="acc",
+                    epoch_end_callback=mx.callback.do_checkpoint(prefix),
+                    # every 10 batches: the example's 50 never comes in
+                    # an epoch of 32
+                    batch_end_callback=mx.callback.Speedometer(LENET_BATCH,
+                                                               10))
+            acc = mod.score(val, mx.metric.Accuracy())[0][1]
+            loaded = mx.mod.Module.load(prefix, LENET_EPOCHS, context=ctx)
+            loaded.bind(data_shapes=val.provide_data,
+                        label_shapes=val.provide_label, for_training=False)
+            acc_loaded = loaded.score(val, mx.metric.Accuracy())[0][1]
+            files = sorted(os.listdir(tmp))
+            on_card = _arrays_on_card(loaded)
+    finally:
+        logger.removeHandler(grab)
+        logger.setLevel(level)
+        shutil.rmtree(tmp, ignore_errors=True)
+    row = {"card": card, "examples": LENET_EXAMPLES, "batch": LENET_BATCH,
+           "epochs": LENET_EPOCHS, "accuracy": acc,
+           "accuracy_after_load": acc_loaded, "chance": 0.1,
+           "margin": LENET_MARGIN, "checkpoint_files": files,
+           "speedometer_samples_per_s": speeds, "loaded_on_card": on_card,
+           "seconds": time.perf_counter() - t0}
+    log("[module_lenet] " + json.dumps(row))
+    if not (acc == acc_loaded and acc >= 0.1 + LENET_MARGIN and on_card
+            and speeds and f"lenet-{LENET_EPOCHS:04d}.params" in files):
+        raise SystemExit(f"chip_smoke: module_lenet: {row}")
+    return row
+
+
 # each port kernel's symbols in the profiler (substrings): every design of
 # the forward and of the backward passes counts under one name
 KERNEL_NAMES = {"flash_fwd": ("flash_fwd_kernel", "flash_fwd_tc_kernel",
@@ -3165,7 +3885,7 @@ KERNEL_NAMES = {"flash_fwd": ("flash_fwd_kernel", "flash_fwd_tc_kernel",
 def profiled_step(step):
     """Device time of the kernels of one more step, from ``torch.profiler``
     (``key_averages``, device-side kernel events only): the total, each of
-    the port's kernels summed over its launches, and the eight kernels
+    the port's kernels summed over its launches, and the ten kernels
     that take most of it as [name, ms, calls]."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -3186,7 +3906,7 @@ def profiled_step(step):
     ours = {name: sum(r[1] for r in rows if any(s in r[0] for s in syms))
             for name, syms in KERNEL_NAMES.items()}
     return (sum(r[1] for r in rows), ours,
-            [[r[0][:80], r[1], r[2]] for r in rows[:8]])
+            [[r[0][:80], r[1], r[2]] for r in rows[:10]])
 
 
 def top_rung_breakdown(engine, ladder, top_seq):
@@ -3230,13 +3950,17 @@ def main():
     adamw_run = phase_train_adamw(card)
     phase_checkpoint(card, adamw_run)
     adamw = phase_adamw_profile(adamw_run)
-    train32 = phase_train_fp32(card)
+    train32, train32_summary = phase_train_fp32(card)
     gpt = phase_train_gpt32(card)
-    phase_resnet_check(card)
+    check32 = phase_resnet_check(card)
     resnet, resnet_summary = phase_train_resnet50(card, peaks)
     nd_run = phase_nd_ops()
     phase_index_fault()
     gluon_nd = phase_train_gluon_nd(card, resnet_summary)
+    enc = phase_module_encoder(card, train32_summary)
+    phase_module_resnet50(card, check32)
+    phase_module_lenet(card)
+    enc32, enc16 = enc["launches"], enc["fp16"]
     nd_attn = {r["dtype"]: r["launches"] for r in nd_run["attention"]}
     nd_b1 = nd_run["b1"]
 
@@ -3270,7 +3994,9 @@ def main():
 
     def launches(name):
         return {"train_fp16": train[name], "train_fp32": train32[name],
-                "train_gpt_fp32": gpt[name]}
+                "train_gpt_fp32": gpt[name],
+                "module_encoder_fp32": enc32[name],
+                "symbol_fused_attention_fp16": enc16[name]}
     common = {"card": card}
 
     def fwd_err(key, wide, **want):
@@ -3289,7 +4015,8 @@ def main():
         "replaces": "mxnet_tpu/ops/pallas_kernels.py:126",
         "launches": serve_launches + train["flash_fwd"]
         + train32["flash_fwd"] + gpt["flash_fwd"]
-        + sum(r["flash_fwd"] for r in nd_attn.values()),
+        + sum(r["flash_fwd"] for r in nd_attn.values())
+        + enc32["flash_fwd"] + enc16["flash_fwd"],
         "launches_by_path": {"serve": serve_launches,
                              **launches("flash_fwd"),
                              "nd_fused_attention": {
@@ -3306,8 +4033,10 @@ def main():
         "float32": {
             "source": "mxnet_tpu_torch/csrc/flash_fwd_tc32.cu",
             "route": "cuda",
-            "launches": serve_launches + train32["flash_fwd"],
-            "launches_tc32": serve_launches + train32["flash_fwd_tc32"],
+            "launches": serve_launches + train32["flash_fwd"]
+            + enc32["flash_fwd"],
+            "launches_tc32": serve_launches + train32["flash_fwd_tc32"]
+            + enc32["flash_fwd_tc32"],
             "max_abs_err": fwd_err("max_abs_err", False, route="tc32"),
             "cuda_core_max_abs_err": fwd_err("cc_max_abs_err", False),
             "err_over_cc": fwd_err("err_over_cc", False),
@@ -3356,7 +4085,8 @@ def main():
             "replaces": f"mxnet_tpu/ops/{line}",
             "launches": train[f"flash_bwd_{which}"]
             + train32[f"flash_bwd_{which}"] + gpt[f"flash_bwd_{which}"]
-            + sum(r[f"flash_bwd_{which}"] for r in nd_attn.values()),
+            + sum(r[f"flash_bwd_{which}"] for r in nd_attn.values())
+            + enc32[f"flash_bwd_{which}"] + enc16[f"flash_bwd_{which}"],
             "launches_by_path": {
                 **launches(f"flash_bwd_{which}"),
                 "nd_fused_attention_under_record": {
@@ -3375,7 +4105,8 @@ def main():
             "float32": {
                 "source": "mxnet_tpu_torch/csrc/flash_bwd_tc32.cu",
                 "route": "cuda",
-                "launches": train32[f"flash_bwd_{which}_tc32"],
+                "launches": train32[f"flash_bwd_{which}_tc32"]
+                + enc32[f"flash_bwd_{which}_tc32"],
                 "max_abs_err": bwd_err(which, route="tc32"),
                 "cuda_core_max_abs_err": bwd_err(which, "cc_max_abs_err",
                                                  route="tc32"),
@@ -3418,10 +4149,12 @@ def main():
         "part_of": "flash_fwd, flash_bwd_dq and flash_bwd_dkv in float32",
         "launches": serve_launches + train32["split_bf16x3"]
         + gpt["split_bf16x3"]
-        + sum(r["split_bf16x3"] for r in nd_attn.values()),
+        + sum(r["split_bf16x3"] for r in nd_attn.values())
+        + enc32["split_bf16x3"],
         "launches_by_path": {"serve": serve_launches,
                              "train_fp32": train32["split_bf16x3"],
                              "train_gpt_fp32": gpt["split_bf16x3"],
+                             "module_encoder_fp32": enc32["split_bf16x3"],
                              "nd_fused_attention": {
                                  d: r["split_bf16x3"]
                                  for d, r in nd_attn.items()}},

@@ -11,7 +11,11 @@ Shapes are given up front: each layer is told its input channels, and the
 stem its image channels (``in_channels=3``, a keyword of the port's). Every
 constructor takes ``device=`` (default ``"cuda"``) and ``dtype=``. No
 pretrained weights: models start from their initializers or from weights
-carried in. VGG, AlexNet, SqueezeNet, DenseNet, MobileNet and Inception
+carried in. Blocks are made in the JAX package's name scopes and take its
+``prefix=``, so that a parameter's name (:meth:`Block.param_name`,
+``resnetv10_stage1_conv0_weight``) and an exported graph are the JAX
+package's; each block's ``_trace`` writes its ``hybrid_forward``. VGG,
+AlexNet, SqueezeNet, DenseNet, MobileNet and Inception
 are not ported yet (:func:`get_model` says so).
 """
 from __future__ import annotations
@@ -40,10 +44,10 @@ class BasicBlockV1(HybridBlock):
     add."""
 
     def __init__(self, channels, stride, downsample=False, in_channels=0,
-                 device="cuda", dtype=torch.float32):
-        super().__init__()
+                 device="cuda", dtype=torch.float32, prefix=None):
+        super().__init__(prefix=prefix)
         dd = dict(device=resolve_device(device), dtype=dtype)
-        self.body = nn.HybridSequential()
+        self.body = nn.HybridSequential(prefix="")
         self.body.add(_conv3x3(channels, stride, in_channels, **dd),
                       nn.BatchNorm(in_channels=channels, **dd),
                       nn.Activation("relu"),
@@ -51,7 +55,7 @@ class BasicBlockV1(HybridBlock):
                       nn.BatchNorm(in_channels=channels, **dd))
         self.downsample = None
         if downsample:
-            self.downsample = nn.HybridSequential()
+            self.downsample = nn.HybridSequential(prefix="")
             self.downsample.add(
                 nn.Conv2D(channels, kernel_size=1, strides=stride,
                           use_bias=False, in_channels=in_channels, **dd),
@@ -61,17 +65,24 @@ class BasicBlockV1(HybridBlock):
         residual = x if self.downsample is None else self.downsample(x)
         return torch.relu(residual + self.body(x))
 
+    def _trace(self, F, x):
+        residual = x
+        x = self.body(x)
+        if self.downsample is not None:
+            residual = self.downsample(residual)
+        return F.Activation(residual + x, act_type="relu")
+
 
 class BottleneckV1(HybridBlock):
     """1x1 (stride ``stride``) -> 3x3 -> 1x1 with BatchNorm, the 1x1s with
     biases; ReLU after the residual add."""
 
     def __init__(self, channels, stride, downsample=False, in_channels=0,
-                 device="cuda", dtype=torch.float32):
-        super().__init__()
+                 device="cuda", dtype=torch.float32, prefix=None):
+        super().__init__(prefix=prefix)
         dd = dict(device=resolve_device(device), dtype=dtype)
         mid = channels // 4
-        self.body = nn.HybridSequential()
+        self.body = nn.HybridSequential(prefix="")
         self.body.add(nn.Conv2D(mid, kernel_size=1, strides=stride,
                                 in_channels=in_channels, **dd),
                       nn.BatchNorm(in_channels=mid, **dd),
@@ -84,7 +95,7 @@ class BottleneckV1(HybridBlock):
                       nn.BatchNorm(in_channels=channels, **dd))
         self.downsample = None
         if downsample:
-            self.downsample = nn.HybridSequential()
+            self.downsample = nn.HybridSequential(prefix="")
             self.downsample.add(
                 nn.Conv2D(channels, kernel_size=1, strides=stride,
                           use_bias=False, in_channels=in_channels, **dd),
@@ -94,14 +105,21 @@ class BottleneckV1(HybridBlock):
         residual = x if self.downsample is None else self.downsample(x)
         return torch.relu(self.body(x) + residual)
 
+    def _trace(self, F, x):
+        residual = x
+        x = self.body(x)
+        if self.downsample is not None:
+            residual = self.downsample(residual)
+        return F.Activation(x + residual, act_type="relu")
+
 
 class BasicBlockV2(HybridBlock):
     """Pre-activation: BN -> ReLU -> 3x3 -> BN -> ReLU -> 3x3, plus the
     residual (downsampled from the first activation)."""
 
     def __init__(self, channels, stride, downsample=False, in_channels=0,
-                 device="cuda", dtype=torch.float32):
-        super().__init__()
+                 device="cuda", dtype=torch.float32, prefix=None):
+        super().__init__(prefix=prefix)
         dd = dict(device=resolve_device(device), dtype=dtype)
         self.bn1 = nn.BatchNorm(in_channels=in_channels, **dd)
         self.conv1 = _conv3x3(channels, stride, in_channels, **dd)
@@ -120,14 +138,22 @@ class BasicBlockV2(HybridBlock):
         x = self.conv2(torch.relu(self.bn2(x)))
         return x + residual
 
+    def _trace(self, F, x):
+        residual = x
+        x = F.Activation(self.bn1(x), act_type="relu")
+        if self.downsample is not None:
+            residual = self.downsample(x)
+        x = F.Activation(self.bn2(self.conv1(x)), act_type="relu")
+        return self.conv2(x) + residual
+
 
 class BottleneckV2(HybridBlock):
     """Pre-activation bottleneck: BN -> ReLU -> 1x1 -> BN -> ReLU -> 3x3
     (stride ``stride``) -> BN -> ReLU -> 1x1, no biases."""
 
     def __init__(self, channels, stride, downsample=False, in_channels=0,
-                 device="cuda", dtype=torch.float32):
-        super().__init__()
+                 device="cuda", dtype=torch.float32, prefix=None):
+        super().__init__(prefix=prefix)
         dd = dict(device=resolve_device(device), dtype=dtype)
         mid = channels // 4
         self.bn1 = nn.BatchNorm(in_channels=in_channels, **dd)
@@ -152,17 +178,37 @@ class BottleneckV2(HybridBlock):
         x = self.conv3(torch.relu(self.bn3(x)))
         return x + residual
 
+    def _trace(self, F, x):
+        residual = x
+        x = F.Activation(self.bn1(x), act_type="relu")
+        if self.downsample is not None:
+            residual = self.downsample(x)
+        x = F.Activation(self.bn2(self.conv1(x)), act_type="relu")
+        x = F.Activation(self.bn3(self.conv2(x)), act_type="relu")
+        return self.conv3(x) + residual
 
-def _make_layer(block, layers, channels, stride, in_channels, dd):
-    layer = nn.HybridSequential()
-    layer.add(block(channels, stride, channels != in_channels,
-                    in_channels=in_channels, **dd))
-    for _ in range(layers - 1):
-        layer.add(block(channels, 1, False, in_channels=channels, **dd))
+
+def _make_layer(block, layers, channels, stride, stage_index, in_channels,
+                dd):
+    layer = nn.HybridSequential(prefix=f"stage{stage_index}_")
+    with layer.name_scope():
+        layer.add(block(channels, stride, channels != in_channels,
+                        in_channels=in_channels, prefix="", **dd))
+        for _ in range(layers - 1):
+            layer.add(block(channels, 1, False, in_channels=channels,
+                            prefix="", **dd))
     return layer
 
 
-class ResNetV1(HybridBlock):
+class _ResNet(HybridBlock):
+    def forward(self, x):
+        return self.output(self.features(x))
+
+    def _trace(self, F, x):
+        return self.output(self.features(x))
+
+
+class ResNetV1(_ResNet):
     """``features`` (stem, four stages of ``block``, global average pool)
     then ``output``, a Dense over the flattened features; ``thumbnail``
     swaps the 7x7 stem and max pool for one 3x3 convolution (small
@@ -170,68 +216,67 @@ class ResNetV1(HybridBlock):
 
     def __init__(self, block, layers, channels, classes=1000,
                  thumbnail=False, in_channels=3, device="cuda",
-                 dtype=torch.float32):
-        super().__init__()
+                 dtype=torch.float32, prefix=None):
+        super().__init__(prefix=prefix)
         if len(layers) != len(channels) - 1:
             raise MXNetError(f"{len(layers)} stages need {len(layers) + 1} "
                              f"channel counts, got {len(channels)}")
         dd = dict(device=resolve_device(device), dtype=dtype)
-        self.features = nn.HybridSequential()
-        if thumbnail:
-            self.features.add(_conv3x3(channels[0], 1, in_channels, **dd))
-        else:
-            self.features.add(
-                nn.Conv2D(channels[0], 7, 2, 3, use_bias=False,
-                          in_channels=in_channels, **dd),
-                nn.BatchNorm(in_channels=channels[0], **dd),
-                nn.Activation("relu"), nn.MaxPool2D(3, 2, 1))
-        for i, num_layer in enumerate(layers):
-            self.features.add(_make_layer(block, num_layer, channels[i + 1],
-                                          1 if i == 0 else 2, channels[i],
-                                          dd))
-        self.features.add(nn.GlobalAvgPool2D())
-        self.output = nn.Dense(classes, in_units=channels[-1], **dd)
+        with self.name_scope():
+            self.features = nn.HybridSequential(prefix="")
+            if thumbnail:
+                self.features.add(_conv3x3(channels[0], 1, in_channels,
+                                           **dd))
+            else:
+                self.features.add(
+                    nn.Conv2D(channels[0], 7, 2, 3, use_bias=False,
+                              in_channels=in_channels, **dd),
+                    nn.BatchNorm(in_channels=channels[0], **dd),
+                    nn.Activation("relu"), nn.MaxPool2D(3, 2, 1))
+            for i, num_layer in enumerate(layers):
+                self.features.add(_make_layer(
+                    block, num_layer, channels[i + 1], 1 if i == 0 else 2,
+                    i + 1, channels[i], dd))
+            self.features.add(nn.GlobalAvgPool2D())
+            self.output = nn.Dense(classes, in_units=channels[-1], **dd)
 
-    def forward(self, x):
-        return self.output(self.features(x))
 
-
-class ResNetV2(HybridBlock):
+class ResNetV2(_ResNet):
     """Pre-activation ResNet: a BatchNorm without scale and shift on the
     input, the stem, four stages of ``block``, BN -> ReLU -> global average
     pool -> flatten, then ``output``."""
 
     def __init__(self, block, layers, channels, classes=1000,
                  thumbnail=False, in_channels=3, device="cuda",
-                 dtype=torch.float32):
-        super().__init__()
+                 dtype=torch.float32, prefix=None):
+        super().__init__(prefix=prefix)
         if len(layers) != len(channels) - 1:
             raise MXNetError(f"{len(layers)} stages need {len(layers) + 1} "
                              f"channel counts, got {len(channels)}")
         dd = dict(device=resolve_device(device), dtype=dtype)
-        self.features = nn.HybridSequential()
-        self.features.add(nn.BatchNorm(scale=False, center=False,
-                                       in_channels=in_channels, **dd))
-        if thumbnail:
-            self.features.add(_conv3x3(channels[0], 1, in_channels, **dd))
-        else:
-            self.features.add(
-                nn.Conv2D(channels[0], 7, 2, 3, use_bias=False,
-                          in_channels=in_channels, **dd),
-                nn.BatchNorm(in_channels=channels[0], **dd),
-                nn.Activation("relu"), nn.MaxPool2D(3, 2, 1))
-        c = channels[0]
-        for i, num_layer in enumerate(layers):
-            self.features.add(_make_layer(block, num_layer, channels[i + 1],
-                                          1 if i == 0 else 2, c, dd))
-            c = channels[i + 1]
-        self.features.add(nn.BatchNorm(in_channels=c, **dd),
-                          nn.Activation("relu"), nn.GlobalAvgPool2D(),
-                          nn.Flatten())
-        self.output = nn.Dense(classes, in_units=c, **dd)
-
-    def forward(self, x):
-        return self.output(self.features(x))
+        with self.name_scope():
+            self.features = nn.HybridSequential(prefix="")
+            self.features.add(nn.BatchNorm(scale=False, center=False,
+                                           in_channels=in_channels, **dd))
+            if thumbnail:
+                self.features.add(_conv3x3(channels[0], 1, in_channels,
+                                           **dd))
+            else:
+                self.features.add(
+                    nn.Conv2D(channels[0], 7, 2, 3, use_bias=False,
+                              in_channels=in_channels, **dd),
+                    nn.BatchNorm(in_channels=channels[0], **dd),
+                    nn.Activation("relu"), nn.MaxPool2D(3, 2, 1))
+            c = channels[0]
+            for i, num_layer in enumerate(layers):
+                self.features.add(_make_layer(
+                    block, num_layer, channels[i + 1], 1 if i == 0 else 2,
+                    i + 1, c, dd))
+                c = channels[i + 1]
+            self.features.add(nn.BatchNorm(in_channels=c, **dd),
+                              nn.Activation("relu"), nn.GlobalAvgPool2D(),
+                              nn.Flatten())
+            self.output = nn.Dense(classes, in_units=c, **dd)
 
 
 resnet_spec = {18: ("basic_block", [2, 2, 2, 2], [64, 64, 128, 256, 512]),
@@ -251,7 +296,7 @@ resnet_block_versions = [{"basic_block": BasicBlockV1,
 def get_resnet(version, num_layers, pretrained=False, **kwargs):
     """ResNet v``version`` (1 or 2) of ``num_layers`` (18, 34, 50, 101,
     152); ``kwargs`` go to the network (``classes``, ``thumbnail``,
-    ``in_channels``, ``device``, ``dtype``)."""
+    ``in_channels``, ``device``, ``dtype``, ``prefix``)."""
     if num_layers not in resnet_spec:
         raise MXNetError(f"no ResNet of {num_layers} layers (known: "
                          f"{sorted(resnet_spec)})")

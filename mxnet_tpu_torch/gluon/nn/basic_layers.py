@@ -38,28 +38,42 @@ class GELU(HybridBlock):
     def forward(self, x):
         return gelu(x)
 
+    def _trace(self, F, x):
+        return F.LeakyReLU(x, act_type="gelu")
+
 
 class HybridSequential(HybridBlock, nn.Sequential):
     """Children run in order; named ``0, 1, ...`` as in the JAX package."""
 
-    def __init__(self, *blocks: nn.Module):
-        super().__init__(*blocks)
+    def __init__(self, *blocks: nn.Module, prefix=None):
+        super().__init__(*blocks, prefix=prefix)
 
     def add(self, *blocks: nn.Module) -> None:
         for block in blocks:
             self.append(block)
+
+    def _trace(self, F, x):
+        for block in self:
+            x = block(x)
+        return x
 
 
 class Activation(HybridBlock):
     """``Activation(act_type)``: relu, sigmoid, tanh, softrelu, softsign."""
 
     def __init__(self, activation: str):
-        super().__init__()
         nn_ops.check_act_type(activation)
-        self._act_type = activation
+        self._act_type = activation  # the naming hint (_alias) reads it
+        super().__init__()
+
+    def _alias(self):
+        return self._act_type
 
     def forward(self, x):
         return nn_ops.activation(x, self._act_type)
+
+    def _trace(self, F, x):
+        return F.Activation(x, act_type=self._act_type)
 
     def extra_repr(self):
         return self._act_type
@@ -94,6 +108,17 @@ class Dense(HybridBlock):
                                      flatten=self._flatten)
         return out if self.act is None else self.act(out)
 
+    def _trace(self, F, x):
+        v = self._param_vars()
+        units = self.weight.shape[0]
+        if self.bias is None:
+            out = F.FullyConnected(x, v["weight"], num_hidden=units,
+                                   no_bias=True, flatten=self._flatten)
+        else:
+            out = F.FullyConnected(x, v["weight"], v["bias"],
+                                   num_hidden=units, flatten=self._flatten)
+        return out if self.act is None else self.act(out)
+
     def extra_repr(self):
         return (f"{self.weight.shape[1]} -> {self.weight.shape[0]}, "
                 f"flatten={self._flatten}")
@@ -104,6 +129,9 @@ class Flatten(HybridBlock):
 
     def forward(self, x):
         return nn_ops.flatten(x)
+
+    def _trace(self, F, x):
+        return F.Flatten(x)
 
 
 class Dropout(HybridBlock):
@@ -137,6 +165,11 @@ class Dropout(HybridBlock):
         keep = torch.rand(x.shape, generator=self._gen, device=x.device) \
             >= self.rate
         return x * keep.to(x.dtype) * (1.0 / (1.0 - self.rate))
+
+    def _trace(self, F, x):
+        if self.rate > 0:
+            return F.Dropout(x, p=self.rate, axes=())
+        return F.identity(x)
 
     def extra_repr(self):
         return f"rate={self.rate}"
@@ -199,6 +232,12 @@ class BatchNorm(HybridBlock):
                 self.running_var.copy_(new_var)
         return out
 
+    def _trace(self, F, x):
+        v = self._param_vars()
+        return F.BatchNorm(x, v["weight"], v["bias"], v["running_mean"],
+                           v["running_var"], axis=self._axis,
+                           **self._kwargs)
+
     def extra_repr(self):
         return f"axis={self._axis}, in_channels={self.weight.shape[0]}"
 
@@ -220,6 +259,10 @@ class LayerNorm(HybridBlock):
         return F.layer_norm(x, self.weight.shape, self.weight, self.bias,
                             self.eps)
 
+    def _trace(self, F, x):
+        v = self._param_vars()
+        return F.LayerNorm(x, v["weight"], v["bias"], axis=-1, eps=self.eps)
+
 
 class Embedding(HybridBlock):
     """Row lookup into an ``(input_dim, output_dim)`` table; an index in
@@ -234,6 +277,12 @@ class Embedding(HybridBlock):
 
     def forward(self, x):
         return nn_ops.embedding(x, self.weight)
+
+    def _trace(self, F, x):
+        return F.Embedding(x, self._param_vars()["weight"],
+                           input_dim=self.weight.shape[0],
+                           output_dim=self.weight.shape[1],
+                           sparse_grad=False)
 
     def extra_repr(self):
         return f"{self.weight.shape[0]} -> {self.weight.shape[1]}"

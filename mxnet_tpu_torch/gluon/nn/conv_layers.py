@@ -66,6 +66,17 @@ class _Conv(HybridBlock):
         out = nn_ops.convolution(x, self.weight, self.bias, **self._kwargs)
         return out if self.act is None else self.act(out)
 
+    def _trace(self, F, x):
+        v = self._param_vars()
+        k = self._kwargs
+        params = dict(kernel=k["kernel"], stride=k["stride"],
+                      dilate=k["dilate"], pad=k["pad"],
+                      num_filter=self.weight.shape[0],
+                      num_group=k["num_group"], no_bias=self.bias is None)
+        ins = [x, v["weight"]] + ([] if self.bias is None else [v["bias"]])
+        out = F.Convolution(*ins, **params)
+        return out if self.act is None else self.act(out)
+
     def extra_repr(self):
         w = self.weight.shape
         return (f"{w[1] * self._kwargs['num_group']} -> {w[0]}, "
@@ -126,8 +137,17 @@ class _Pooling(HybridBlock):
             pooling_convention="full" if ceil_mode else "valid",
             count_include_pad=count_include_pad)
 
+    def _alias(self):
+        return "pool"
+
     def forward(self, x):
         return nn_ops.pooling(x, **self._kwargs)
+
+    def _trace(self, F, x):
+        k = dict(self._kwargs)
+        if k["pool_type"] == "max" or k["global_pool"]:
+            k.pop("count_include_pad")  # the JAX layers leave it out
+        return F.Pooling(x, **k)
 
     def extra_repr(self):
         if self._kwargs["global_pool"]:

@@ -3,8 +3,11 @@
 Counterpart of ``mxnet_tpu/initializer.py``: ``Initializer`` with its
 dispatch on the parameter's name (``...weight``, ``...bias``, ``...gamma``,
 ``...beta``, ``...running_mean``, ``...running_var``), ``Zero``, ``One``,
-``Constant``, ``Uniform``, ``Normal``, ``Xavier``, ``MSRAPrelu`` and the
-registry by name (:func:`create`). An initializer fills a tensor in place,
+``Constant``, ``Uniform``, ``Normal``, ``Xavier``, ``MSRAPrelu``, the
+registry by name (:func:`create`, which also reads :meth:`Initializer.dumps`'
+JSON) and :class:`InitDesc`, the name with the attributes a Module passes:
+an ``__init__`` attribute (a variable's own initializer) wins over the
+suffix. An initializer fills a tensor (or an NDArray's) in place,
 drawing from :func:`mxnet_tpu_torch.random.generator` of the tensor's
 device: values are drawn in fp32 and cast to the tensor's dtype, as the
 JAX package draws and casts. Orthogonal, Bilinear, LSTMBias, Mixed and
@@ -12,6 +15,7 @@ Load are not ported yet.
 """
 from __future__ import annotations
 
+import json
 import math
 from typing import Dict
 
@@ -20,8 +24,8 @@ import torch
 from . import random as _random
 from .base import MXNetError
 
-__all__ = ["Initializer", "Zero", "One", "Constant", "Uniform", "Normal",
-           "Xavier", "MSRAPrelu", "register", "create"]
+__all__ = ["InitDesc", "Initializer", "Zero", "One", "Constant", "Uniform",
+           "Normal", "Xavier", "MSRAPrelu", "register", "create"]
 
 _REGISTRY: Dict[str, type] = {}
 
@@ -51,15 +55,33 @@ def _normal(arr: torch.Tensor, sigma: float) -> torch.Tensor:
                                generator=_random.generator(arr.device))
 
 
+class InitDesc(str):
+    """A parameter's name with its attributes (``attrs``), as a Module
+    describes the arrays it initializes."""
+
+    def __new__(cls, name, attrs=None, global_init=None):
+        obj = super().__new__(cls, name)
+        obj.attrs = attrs or {}
+        obj.global_init = global_init
+        return obj
+
+
 class Initializer:
     """Fills a tensor by the suffix of its parameter's name; subclasses
     give ``_init_weight`` (the rule for weights, and for any name no
-    suffix matches)."""
+    suffix matches). An :class:`InitDesc` with an ``__init__`` attribute
+    is filled by that initializer's ``_init_weight`` instead."""
 
     def __init__(self, **kwargs):
         self._kwargs = kwargs
 
-    def __call__(self, name: str, arr: torch.Tensor) -> None:
+    def __call__(self, name: str, arr) -> None:
+        arr = getattr(arr, "_data", arr)  # an NDArray's tensor
+        init_attr = name.attrs.get("__init__", "") \
+            if isinstance(name, InitDesc) else ""
+        if init_attr:
+            create(init_attr)._init_weight(str(name), arr)
+            return
         name = str(name).lower()
         if name.endswith("weight"):
             self._init_weight(name, arr)
@@ -93,6 +115,11 @@ class Initializer:
 
     def _init_one(self, name, arr):
         _fill(arr, 1.0)
+
+    def dumps(self) -> str:
+        """``'["<name>", {kwargs}]'``, the form a variable's ``__init__``
+        attribute holds."""
+        return json.dumps([type(self).__name__.lower(), self._kwargs])
 
 
 @register("zeros")
@@ -194,6 +221,9 @@ def create(name, **kwargs) -> Initializer:
     is)."""
     if isinstance(name, Initializer):
         return name
+    if str(name).startswith("["):
+        loaded = json.loads(name)
+        return create(loaded[0], **(loaded[1] if len(loaded) > 1 else {}))
     try:
         klass = _REGISTRY[str(name).lower()]
     except KeyError:

@@ -254,10 +254,12 @@ class NDArray:
     wait_to_write = wait_to_read
 
     def asnumpy(self) -> onp.ndarray:
+        """A copy of the values on the host (never a view of a CPU
+        array's storage, which a later in-place write would change)."""
         t = self._data.detach()
         if t.dtype is torch.bfloat16:
             t = t.float()
-        return t.cpu().numpy()
+        return t.to("cpu", copy=True).numpy()
 
     def asscalar(self):
         if self.size != 1:

@@ -70,10 +70,9 @@ WAITING = {
         "linalg_syevd", "linalg_syrk", "linalg_trmm", "linalg_trsm",),
     ("CTC waits with the other Gluon losses (ROADMAP Queue A item 2)"): (
         "CTCLoss", "_contrib_CTCLoss", "_contrib_ctc_loss", "ctc_loss",),
-    ("the graph ops wait with the symbolic stack (ROADMAP Queue A item "
-     "5)"): (
-        "_cond", "_foreach", "_fused_group", "_nhwc_conv", "_nhwc_pool",
-        "_subgraph_xla", "_while_loop",),
+    ("the graph optimizer's ops wait with the graph optimizer (ROADMAP "
+     "Queue A item 5)"): (
+        "_fused_group", "_nhwc_conv", "_nhwc_pool", "_subgraph_xla",),
     ("the MoE ops wait with distribution (ROADMAP Queue A item 6)"): (
         "_moe_ffn", "_moe_load_balance_loss",),
     ("numpy/, rnn/ and their ops wait with the edges (ROADMAP Queue A "

@@ -195,6 +195,21 @@ def call_op(fn, recorded: bool, *args, **kwargs):
         _set_grad(True)
 
 
+def add_call_params(info: OpInfo, params: dict, training: bool,
+                    device) -> dict:
+    """``params`` with what an op takes besides its own parameters: the
+    training flag where it ``needs_train`` (unless given) and ``device``'s
+    generator where it ``needs_rng`` (none on the meta device, where only
+    shapes are computed). Shared by ``nd`` and the graph executor."""
+    if info.needs_train and "_training" not in params:
+        params["_training"] = training
+    if info.needs_rng:
+        from ..random import generator
+        params["_generator"] = None if device.type == "meta" \
+            else generator(device)
+    return params
+
+
 def make_nd_function(name: str) -> Callable:
     """The user-facing ``nd.<name>``: NDArrays in and out (see the module
     docstring)."""
@@ -205,7 +220,6 @@ def make_nd_function(name: str) -> Callable:
         from .. import autograd
         from ..context import as_device
         from ..ndarray.ndarray import NDArray, _unwrap, _wrap_out
-        from ..random import generator
 
         inputs = []
         params = {}
@@ -237,12 +251,11 @@ def make_nd_function(name: str) -> Callable:
         _sparse_hook(info.name, inputs)
         tensors = [_unwrap(a) for a in inputs]
         fn = _amp_hook(info.name, info.fn)
-        if info.needs_train and "_training" not in params:
-            params["_training"] = autograd.is_training()
+        dev = None
         if info.needs_rng:
             dev = tensors[0].device if tensors \
                 else as_device(params.get("ctx"))
-            params["_generator"] = generator(dev)
+        add_call_params(info, params, autograd.is_training(), dev)
         recorded = info.differentiable and autograd.is_recording()
         res = call_op(fn, recorded, *tensors, **params)
         vis = info.visible_outputs

@@ -985,3 +985,71 @@ def test_attention_kernels_launch_as_a_thread_s_first_cuda_work(dtype):
     for g, r in zip(grads, flash_attention_ref_bwd(*f32, ref, lse,
                                                    dout.float())):
         assert (g.float() - r).abs().max().item() <= 2e-2
+
+
+@pytest.mark.parametrize("dtype,tol", [("float16", 5e-3), ("float32", 1e-4)])
+def test_bound_fused_attention_launches_the_kernels(dtype, tol):
+    """A ``_fused_attention`` node bound by ``simple_bind`` (q, k, v in
+    ``dtype`` through ``type_dict``): ``forward(is_train=True)`` launches
+    B2 and ``backward`` B3/B4 once each on the tensor-core route of the
+    dtype, within the plain versions' limits."""
+    _need_cuda()
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import nd, sym
+    from mxnet_tpu_torch.ops.flash_attention import (
+        LAUNCHES_DKV_TC, LAUNCHES_DKV_TC32, LAUNCHES_DQ_TC,
+        LAUNCHES_DQ_TC32, LAUNCHES_TC, LAUNCHES_TC32,
+        flash_attention_ref_bwd, flash_attention_ref_fwd)
+    tc = (LAUNCHES_TC, LAUNCHES_DQ_TC, LAUNCHES_DKV_TC) \
+        if dtype == "float16" else (LAUNCHES_TC32, LAUNCHES_DQ_TC32,
+                                    LAUNCHES_DKV_TC32)
+    shape = (2, 3, 128, 64)
+    node = sym._fused_attention(sym.var("q"), sym.var("k"), sym.var("v"),
+                                scale=0.125, name="att")
+    ex = node.simple_bind(mx.gpu(0), type_dict=dict.fromkeys("qkv", dtype),
+                          q=shape, k=shape, v=shape)
+    tdt = getattr(torch, dtype)
+    q, k, v = _qkv(9, 2, 3, 128, 128, 64, tdt)
+    dout = _qkv(10, 2, 3, 128, 128, 64, tdt)[0]
+    before = [c.count for c in tc]
+    out = ex.forward(is_train=True, q=nd.array(q), k=nd.array(k),
+                     v=nd.array(v))[0]
+    ex.backward(nd.array(dout))
+    torch.cuda.synchronize()
+    assert [c.count - b for c, b in zip(tc, before)] == [1, 1, 1]
+    f32 = [t.float() for t in (q, k, v)]
+    ref, lse = flash_attention_ref_fwd(*f32, False, 0.125)
+    assert (out._data.float() - ref).abs().max().item() <= tol
+    grads = flash_attention_ref_bwd(*f32, ref, lse, dout.float(), False,
+                                    0.125)
+    atol = 1e-4 if dtype == "float32" else 8e-3
+    rtol = 0.0 if dtype == "float32" else 2e-3
+    for name, r in zip("qkv", grads):
+        err = (ex.grad_dict[name]._data.float() - r).abs()
+        assert bool((err <= atol + rtol * r.abs()).all())
+
+
+def test_module_on_the_card_keeps_its_arrays_there():
+    """``Module(context=mx.gpu(0))`` with a BatchNorm: after ``fit`` every
+    argument, gradient, aux state and output of its executor, and the
+    parameters ``get_params`` gives, are CUDA tensors."""
+    _need_cuda()
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import sym
+    net = sym.SoftmaxOutput(sym.FullyConnected(
+        sym.BatchNorm(sym.var("data"), name="bn"), num_hidden=3, name="fc"),
+        name="softmax")
+    rs = np.random.RandomState(0)
+    x = rs.randn(16, 4).astype("float32")
+    y = rs.randint(0, 3, 16).astype("float32")
+    with mx.gpu(0):
+        it = mx.io.NDArrayIter(x, y, batch_size=8)
+        mod = mx.mod.Module(net, context=mx.gpu(0))
+        mod.fit(it, num_epoch=1, optimizer_params={"learning_rate": 0.1})
+    ex = mod._exec_group.execs[0]
+    arrays = list(ex.arg_dict.values()) + list(ex.grad_dict.values()) + \
+        list(ex.aux_dict.values()) + ex.outputs
+    args, auxs = mod.get_params()
+    arrays += list(args.values()) + list(auxs.values())
+    assert all(a._data.is_cuda for a in arrays)
+    assert float(ex.aux_dict["bn_moving_mean"].asnumpy().std()) > 0

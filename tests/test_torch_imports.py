@@ -6,6 +6,7 @@ import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -34,7 +35,18 @@ SLICE_MODULES = [
     "mxnet_tpu_torch.ndarray.ndarray", "mxnet_tpu_torch.ops.tensor",
     "mxnet_tpu_torch.ops.random_ops", "mxnet_tpu_torch.ops.extra_ops",
     "mxnet_tpu_torch.ops.fused", "mxnet_tpu_torch.ops.aliases",
-    "mxnet_tpu_torch.ops.deferred", "mxnet_tpu_torch.metric"]
+    "mxnet_tpu_torch.ops.deferred", "mxnet_tpu_torch.metric",
+    # slice 12: the symbolic stack
+    "mxnet_tpu_torch.name", "mxnet_tpu_torch.attribute",
+    "mxnet_tpu_torch.symbol", "mxnet_tpu_torch.symbol.symbol",
+    "mxnet_tpu_torch.symbol.control_flow", "mxnet_tpu_torch.ops.control_flow",
+    "mxnet_tpu_torch.executor", "mxnet_tpu_torch.executor_manager",
+    "mxnet_tpu_torch.io", "mxnet_tpu_torch.io.io", "mxnet_tpu_torch.model",
+    "mxnet_tpu_torch.callback", "mxnet_tpu_torch.module",
+    "mxnet_tpu_torch.module.base_module", "mxnet_tpu_torch.module.module",
+    "mxnet_tpu_torch.module.executor_group",
+    "mxnet_tpu_torch.module.bucketing_module",
+    "mxnet_tpu_torch.module.sequential_module"]
 
 _PROBE = r"""
 import importlib, pkgutil, sys
@@ -115,7 +127,10 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
                  lambda: resolve_device(None),
                  lambda: mx.gpu(0), lambda: mx.current_context(),
                  lambda: nd.array([1.0]), lambda: nd.zeros((2,)),
-                 lambda: nd.random.uniform(shape=(2,))):
+                 lambda: nd.random.uniform(shape=(2,)),
+                 lambda: mx.mod.Module(mx.sym.var("x")),
+                 lambda: mx.sym.var("x").simple_bind(x=(2,)),
+                 lambda: mx.io.NDArrayIter(np.zeros((2, 2)))):
         with pytest.raises(MXNetError, match="CUDA is not available"):
             make()
     assert resolve_device("cpu") == torch.device("cpu")

@@ -4,7 +4,9 @@ package's, on the CPU.
 The narrow ResNetV1 of ``test_torch_resnet_train.py`` (its helpers, with
 their weights, batch and schedule) cast to fp16 with BatchNorm in fp32,
 two ``Trainer.step``s of multi-precision SGD with a static loss scale of
-8, in both packages from the same weights; the JAX side eager, as there.
+8, in both packages from the same weights; the JAX side as there (each
+forward and backward one program, which rounds each fp16 op as the
+eager run does: the distances below came out equal to six digits).
 
 Elementwise agreement of the updates is not a property of fp16 here: the
 gradient that reaches each convolution through the BatchNorm after it is

@@ -35,12 +35,14 @@ from mxnet_tpu import gluon as jax_gluon
 from mxnet_tpu.models import transformer as jax_tf
 from mxnet_tpu_torch import MXNetError, autograd
 from mxnet_tpu_torch import telemetry
-from mxnet_tpu_torch.convert import (params_from_mxnet_tpu,
+from mxnet_tpu_torch.convert import (mxnet_tpu_shapes, params_from_mxnet_tpu,
                                      params_to_mxnet_tpu)
 from mxnet_tpu_torch.gluon import Trainer, collect_params
 from mxnet_tpu_torch.gluon import loss as torch_loss
 from mxnet_tpu_torch.gluon.nn import Dropout
 from mxnet_tpu_torch.models import BERTModel, TransformerLM
+
+from test_torch_resnet_train import keep_zeros
 
 V, C, L, H, FFN, T, B = 100, 64, 2, 4, 128, 32, 2
 LR, MOMENTUM, LOSS_SCALE, STEPS = 0.1, 0.9, 8.0, 2
@@ -74,9 +76,21 @@ def _jax_train(dtype, gpt=False):
     net = jax_tf.TransformerLM(**GPT_CFG) if gpt else jax_tf.BERTModel(
         vocab_size=V, units=C, num_layers=L, num_heads=H, hidden_size=FFN,
         max_len=64, dropout=0.0)
-    net.initialize()
-    net(mx.nd.array(tokens, dtype="int32"))  # resolves deferred shapes
+    net.initialize(keep_zeros)   # every value is set below
+    # the deferred dims (input widths) from the port's model of the same
+    # configuration: a first eager forward here compiles every op of the
+    # net once more. The names must be JAX's own, and the shape setter
+    # holds every dim that JAX declares; test_torch_transformer.py holds
+    # BERTModel's whole shapes to JAX's after a JAX forward
+    port = TransformerLM(**GPT_CFG, device="cpu") if gpt else BERTModel(
+        vocab_size=V, units=C, num_layers=L, num_heads=H, hidden_size=FFN,
+        max_len=64, dropout=0.0, device="cpu")
+    shapes = mxnet_tpu_shapes(port)
     params = net._collect_params_with_prefix()
+    assert set(params) == set(shapes)
+    for n, p in params.items():
+        p.shape = shapes[n]   # asserts the dims JAX knows (not 0) agree
+        p._finish_deferred_init()
     named = _weights({n: tuple(p.shape) for n, p in params.items()})
     for n, p in params.items():
         p.set_data(mx.nd.array(named[n]))

@@ -1,9 +1,10 @@
 """The port's ResNet model zoo against the JAX package's, on the CPU.
 
 - the parameter names of all ten ``resnet{18,34,50,101,152}_v{1,2}``;
-- ``resnet50_v1``'s 299 names and shapes (the JAX side after one forward
-  at 1 x 3 x 32 x 32, which resolves its deferred shapes), carried by
-  ``convert.py`` both ways;
+- ``resnet50_v1``'s 299 names and shapes (the JAX side's from its own
+  symbolic shape inference at 1 x 3 x 32 x 32, the shapes a first forward
+  would resolve, without compiling every op), carried by ``convert.py``
+  both ways;
 - narrow ResNets (v1: BottleneckV1, v2: BottleneckV2; one block per stage,
   16-256 channels) built in both packages from the same numpy-seeded
   weights: logits in train mode (batch statistics), the running
@@ -17,17 +18,20 @@
 - ``Dense``'s default flatten of a 4-D input, ``cast("float16")`` keeping
   BatchNorm in fp32, and ``get_model``.
 
-The JAX side runs eagerly, each model once per module: hybridized, its
-BatchNorm layers did not write their running statistics in a recorded
-forward (ROADMAP Queue C), and those statistics are compared here.
+The JAX side runs each model once per module, each mode's forward as one
+program through ``functional_call`` (its hybridize machinery), which
+hands back the running statistics a training forward writes: the JAX
+package's own hybridized call drops them (ROADMAP Queue C), and they are
+compared here.
 """
+import jax
 import numpy as np
 import pytest
 import torch
 
 import mxnet_tpu as mx
-from mxnet_tpu import autograd as jax_autograd
 from mxnet_tpu.gluon import nn as jax_gnn
+from mxnet_tpu.gluon.block import functional_call
 from mxnet_tpu.gluon.model_zoo import vision as jax_vision
 from mxnet_tpu_torch import MXNetError, autograd
 from mxnet_tpu_torch.convert import (mxnet_tpu_shapes, params_from_mxnet_tpu,
@@ -35,6 +39,8 @@ from mxnet_tpu_torch.convert import (mxnet_tpu_shapes, params_from_mxnet_tpu,
 from mxnet_tpu_torch.gluon import collect_params
 from mxnet_tpu_torch.gluon import nn as torch_gnn
 from mxnet_tpu_torch.gluon.model_zoo import vision as torch_vision
+
+from test_torch_resnet_train import jax_resolve_shapes, keep_zeros
 
 RTOL, ATOL = 1e-4, 1e-4
 NARROW = ([1, 1, 1, 1], [16, 32, 64, 128, 256])
@@ -64,15 +70,15 @@ def resnet_weights(shapes, seed):
 
 
 def jax_narrow(version, seed=0, batch=BATCH):
-    """A narrow JAX ResNet, shapes resolved by a forward at the test's
-    input shape (whose eager programs later calls reuse), seeded weights
-    set; returns (net, weights)."""
+    """A narrow JAX ResNet, shapes resolved by the JAX package's symbolic
+    shape inference at the test's input shape, seeded weights set;
+    returns (net, weights)."""
     cls = jax_vision.ResNetV1 if version == 1 else jax_vision.ResNetV2
     block = jax_vision.BottleneckV1 if version == 1 else \
         jax_vision.BottleneckV2
     net = cls(block, *NARROW, classes=CLASSES)
-    net.initialize()
-    net(mx.nd.zeros((batch, 3, SIZE, SIZE)))
+    net.initialize(keep_zeros)
+    jax_resolve_shapes(net, (batch, 3, SIZE, SIZE))
     params = net._collect_params_with_prefix()
     named = resnet_weights({n: tuple(p.shape) for n, p in params.items()},
                            seed)
@@ -105,8 +111,8 @@ def test_resnet_parameter_names_match_jax(name):
 @pytest.fixture(scope="module")
 def jax_resnet50_shapes():
     net = jax_vision.resnet50_v1()
-    net.initialize()
-    net(mx.nd.zeros((1, 3, 32, 32)))
+    net.initialize(keep_zeros)
+    jax_resolve_shapes(net, (1, 3, 32, 32))
     return {n: tuple(p.shape)
             for n, p in net._collect_params_with_prefix().items()}
 
@@ -138,16 +144,22 @@ def test_resnet50_v1_names_and_shapes_carry_both_ways(jax_resnet50_shapes):
 def jax_narrow_runs():
     """Per version: the weights, train-mode logits and running stats after
     that forward, then predict-mode logits."""
-    x = images()
+    x = mx.nd.array(images())._data
     runs = {}
+    forward = jax.jit(functional_call, static_argnums=(0,),
+                      static_argnames=("training",))
     for version in (1, 2):
         net, named = jax_narrow(version)
-        with jax_autograd.record():
-            train = net(mx.nd.array(x)).asnumpy()
-        stats = {n: p.data().asnumpy()
-                 for n, p in net._collect_params_with_prefix().items()
+        params = net._collect_params_with_prefix()
+        pvals = {n: p.data()._data for n, p in params.items()}
+        outs, aux = forward(net, pvals, [x], training=True)
+        train = np.asarray(outs[0])
+        for n, v in aux.items():
+            params[n].data()._rebind(v)
+        stats = {n: p.data().asnumpy() for n, p in params.items()
                  if n.endswith(("running_mean", "running_var"))}
-        predict = net(mx.nd.array(x)).asnumpy()
+        pvals = {n: p.data()._data for n, p in params.items()}
+        predict = np.asarray(forward(net, pvals, [x], training=False)[0][0])
         runs[version] = dict(named=named, train=train, stats=stats,
                              predict=predict)
     return runs
@@ -218,8 +230,8 @@ def test_dense_flatten_matches_jax(flatten):
 def test_cast_float16_keeps_batchnorm_fp32_as_jax():
     jnet = jax_vision.ResNetV1(jax_vision.BottleneckV1, *NARROW,
                                classes=CLASSES)
-    jnet.initialize()
-    jnet(mx.nd.zeros((1, 3, SIZE, SIZE)))
+    jnet.initialize(keep_zeros)
+    jax_resolve_shapes(jnet, (1, 3, SIZE, SIZE))
     jnet.cast("float16")
     want = {n: str(p.data().dtype)
             for n, p in jnet._collect_params_with_prefix().items()}
