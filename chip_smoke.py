@@ -163,7 +163,27 @@ end, failing on the first phase that fails:
     its LeNet and synthetic digits copied here, ``Module.fit`` on the
     card with ``Speedometer`` and ``do_checkpoint`` for 10 epochs, then
     ``Module.load`` of the last checkpoint scores the same accuracy,
-    which beats chance by 0.2.
+    which beats chance by 0.2;
+18. the sparse slice — ``[sparse_linear]``: ``linear_classification.py``'s
+    loop at LIBSVM Avazu's width (a csr batch of 8192 rows over 1,000,001
+    features, 15 Zipf-drawn features a row, built from its payload on the
+    card), ``w.attach_grad(stype="row_sparse")``, ``nd.dot(csr, w)`` and
+    AdaGrad's lazy update, 1 + 8 steps run twice (bit-equal), the first
+    two also on the CPU; each step's gradient held to an fp64
+    recomputation, the rows no batch touched to their initial bits, no
+    batch densified, no storage-fallback warning, peak memory under 2 GB;
+    step time, samples/s, host syncs per step and a profiled step;
+    ``[sparse_embedding]``: a sparse-gradient ``nd.Embedding`` of the One
+    Billion Word vocabulary (793,471 x 512 fp32) trained by lazy Adam and
+    lazy SGD with momentum, each step's gradient held to the per-id sums
+    and its touched rows to the dense optimizer's, the untouched rows of
+    the table and states to their bits, the lazy update timed beside the
+    dense one; ``[sparse_params]``: those arrays (row_sparse weight rows,
+    gradient, a csr slice) saved and loaded on the card, bit-equal, the
+    file's bytes those of a CPU save but for the device type.
+    This slice runs no TPU kernel (the JAX package computes sparse work
+    with gathers and segment sums outside Pallas), so it adds no entry to
+    the kernels line.
 
 The script prints its own wall time. The last three lines are the card
 (``nvidia-smi``), ``{"kernels": [...]}`` (B2/B3/B4's
@@ -174,6 +194,7 @@ and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import ctypes
+import gc
 import json
 import os
 import re
@@ -182,6 +203,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -377,6 +399,25 @@ MODULE_GLUON_RATIO = 1.0 + RESNET32_ERR_RATIO
 # score ~0.37 on the CPU); the score must beat chance (0.1) by 0.2
 LENET_EXAMPLES, LENET_BATCH, LENET_EPOCHS, LENET_MARGIN = 2000, 64, 10, 0.2
 LADDER = "batch:1,2,4,8;seq:128,256,512"
+# [sparse_linear]: example/sparse/linear_classification's widths (LIBSVM's
+# Avazu: 1,000,001 features, batches of 8192), synthetic: each row holds one
+# active feature (value 1) in each of 15 equal fields, drawn from a Zipf law
+# of exponent 1.1 over the field's ids. AdaGrad (the example's default, lr
+# 0.5), 1 + 8 steps. The gradient within 1e-5 (max abs over max abs) of an
+# fp64 recomputation, the first two steps within 1e-5 of the CPU run of
+# the same code; peak memory of the phase under 2 GB (one dense batch
+# alone would be 8192 x 1,000,001 x 4 B = 32.8 GB)
+AVAZU_FEATURES, AVAZU_FIELDS, AVAZU_BATCH = 1_000_001, 15, 8192
+AVAZU_ZIPF, SPARSE_LINEAR_STEPS, SPARSE_LINEAR_LR = 1.1, 9, 0.5
+SPARSE_LINEAR_TOL, SPARSE_LINEAR_PEAK = 1e-5, 2e9
+# [sparse_embedding]: the One Billion Word LM's vocabulary at width 512
+# (Jozefowicz et al. 2016; BASELINE config 5), 128 x 20 ids a step drawn
+# from a Zipf law of exponent 1.0 over the frequency-ordered vocabulary,
+# 1 + 6 steps each of lazy Adam and lazy SGD with momentum 0.9; the
+# gradient within 1e-6 (max abs over max abs) of the per-id sums in fp64,
+# each step's touched rows within 1e-6 of the dense optimizer's on them
+EMB_VOCAB, EMB_DIM, EMB_BATCH, EMB_BPTT = 793_471, 512, 128, 20
+EMB_ZIPF, EMB_STEPS, EMB_TOL = 1.0, 7, 1e-6
 N_REQUESTS, CONCURRENCY = 24, 4
 HEADS, HEAD_DIM = 12, 64
 
@@ -3865,6 +3906,467 @@ def phase_module_lenet(card):
     return row
 
 
+# -- the sparse slice: [sparse_linear], [sparse_embedding], [sparse_params] --
+
+def _zipf_cdf(n, s):
+    """The CDF of a Zipf law of exponent ``s`` over ranks 0..n-1."""
+    cdf = np.cumsum(np.arange(1, n + 1, dtype=np.float64) ** -s)
+    return cdf / cdf[-1]
+
+
+def _zipf_draws(rs, cdf, size):
+    return np.minimum(np.searchsorted(cdf, rs.random_sample(size)),
+                      cdf.size - 1)
+
+
+def avazu_data(steps, batch=AVAZU_BATCH, features=AVAZU_FEATURES,
+               fields=AVAZU_FIELDS, seed=SEED):
+    """Synthetic batches at LIBSVM Avazu's width: each row one active
+    feature (value 1) in each of ``fields`` equal fields, as Avazu's rows
+    hold one one-hot value per categorical field, drawn from a Zipf law
+    (``AVAZU_ZIPF``) over the field's ids in a fixed shuffled order, so
+    that ids repeat within a batch and many never come; labels are the
+    sign of a random true weight's sum over the row. ``(column ids
+    (batch * fields,) sorted within each row, labels (batch, 1))`` per
+    step, and the initial weight (features, 1) ~ N(0, 0.01^2)."""
+    rs = np.random.RandomState(seed)
+    bounds = np.linspace(0, features, fields + 1).astype(np.int64)
+    sizes = [int(n) for n in np.diff(bounds)]
+    perms = [rs.permutation(n) for n in sizes]
+    cdfs = [_zipf_cdf(n, AVAZU_ZIPF) for n in sizes]
+    true_w = rs.randn(features).astype(np.float32)
+    w_init = (rs.randn(features, 1) * 0.01).astype(np.float32)
+    data = []
+    for _ in range(steps):
+        cols = np.stack([bounds[f] + perms[f][_zipf_draws(rs, cdfs[f], batch)]
+                         for f in range(fields)], 1)
+        y = (true_w[cols].sum(1, keepdims=True) > 0).astype(np.float32)
+        data.append((cols.reshape(-1), y))
+    return data, w_init
+
+
+def _counted(fn, cuda):
+    """``fn()`` under torch's sync debug mode ("warn") on CUDA: its result,
+    the number of synchronizing CUDA calls it made (each warns), and the
+    other warnings' messages."""
+    with warnings.catch_warnings(record=True) as ws:
+        warnings.simplefilter("always")
+        if cuda:
+            torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            if cuda:
+                torch.cuda.set_sync_debug_mode("default")
+    syncs = sum("synchroniz" in str(w.message) for w in ws)
+    return out, syncs, [str(w.message) for w in ws
+                        if "synchroniz" not in str(w.message)]
+
+
+def linear_grad_fp64(x, y, w, b):
+    """The gradient of the mean logistic loss with respect to every
+    feature's weight, in fp64 from the batch's payload: the check of
+    ``w.grad``'s values."""
+    a = x._aux
+    cols, rows = a["indices"], x._row_ids()
+    vals = a["values"].double()
+    w64 = w._data.detach()[:, 0].double()
+    logit = torch.zeros(x.shape[0], dtype=torch.float64,
+                        device=vals.device).index_add_(
+        0, rows, vals * w64[cols]) + b._data.detach().double()
+    sign = 2 * y._data[:, 0].double() - 1
+    dlogit = -sign * torch.sigmoid(-sign * logit) / x.shape[0]
+    return torch.zeros(x.shape[1], dtype=torch.float64,
+                       device=vals.device).index_add_(0, cols,
+                                                      vals * dlogit[rows])
+
+
+def sparse_linear_run(data, w_init, device, steps, check=None,
+                      measure=False):
+    """``examples/sparse/linear_classification.py``'s loop through the
+    port's public API on ``device``: the csr batches built from their
+    payload on the device, ``w.attach_grad(stype="row_sparse")``,
+    ``nd.dot(csr, w) + b``, the example's logistic loss, AdaGrad through
+    the ``Updater``. Each step's syncs are counted (forward and backward,
+    then the update, each under the sync debug mode) and ``check(i, x, y,
+    w, b)`` runs between them; or, with ``measure``, each step is timed
+    whole (ending in a synchronize, after a garbage collection before
+    the loop) and one more step is profiled after the loop."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, nd, optimizer
+    from mxnet_tpu_torch.ndarray import sparse
+    cuda = device == "cuda"
+    ctx = mx.gpu(0) if cuda else mx.cpu()
+    with ctx:
+        batches = []
+        for cols, y in data[:steps]:
+            nnz = cols.size
+            x = sparse.csr_matrix(
+                (torch.ones(nnz), torch.from_numpy(cols),
+                 torch.arange(0, nnz + 1, AVAZU_FIELDS)),
+                shape=(y.shape[0], w_init.shape[0]), ctx=ctx)
+            batches.append((x, nd.array(y)))
+        w, b = nd.array(w_init), nd.zeros((1,))
+        w.attach_grad(stype="row_sparse")
+        b.attach_grad()
+        upd = optimizer.get_updater(optimizer.create(
+            "adagrad", learning_rate=SPARSE_LINEAR_LR,
+            rescale_grad=1.0 / AVAZU_BATCH))
+
+        def forward_backward(x, y):
+            with autograd.record():
+                loss = nd.mean(nd.log(1 + nd.exp(
+                    -(2 * y - 1) * (nd.dot(x, w) + b))))
+            loss.backward()
+            return loss
+
+        def update():
+            upd(0, w.grad, w)
+            upd(1, b.grad, b)
+
+        def step(x, y):
+            loss = forward_backward(x, y)
+            update()
+            return loss
+
+        out = {"losses": [], "walls": [], "syncs": [], "warnings": []}
+        if measure:
+            gc.collect()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            for i, (x, y) in enumerate(batches):
+                if measure:
+                    if cuda:
+                        torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    loss = step(x, y)
+                    if cuda:
+                        torch.cuda.synchronize()
+                    out["walls"].append((time.perf_counter() - t0) * 1e3)
+                else:
+                    loss, n, msgs = _counted(
+                        lambda: forward_backward(x, y), cuda)
+                    if check:
+                        check(i, x, y, w, b)
+                    _, n2, msgs2 = _counted(update, cuda)
+                    out["syncs"].append(n + n2)
+                    out["warnings"] += msgs + msgs2
+                out["losses"].append(loss)
+                if i == 1:
+                    out["w_after2"] = w._data.detach().clone()
+        out["warnings"] += [str(m.message) for m in caught]
+        out["losses"] = [float(v.asscalar()) for v in out["losses"]]
+        out.update(w=w._data.detach().clone(), b=b._data.detach().clone(),
+                   history=upd.states[0].clone(), batches=batches,
+                   last_grad=w.grad, w_nd=w)
+        if measure and cuda:
+            out["profile"] = profiled_step(lambda: step(*batches[0]))
+    return out
+
+
+def phase_sparse_linear(card):
+    """[sparse_linear]: ``linear_classification.py``'s loop at Avazu width
+    (1,000,001 features, batches of 8192) on the card, 1 + 8 steps, run
+    twice; then its first two steps on the CPU. Fails unless: no batch was
+    densified and no storage-fallback warning came; every step's ``w.grad``
+    is row_sparse on the sorted union of its batch's columns, with values
+    within ``SPARSE_LINEAR_TOL`` of ``linear_grad_fp64``; the rows no batch
+    touched keep their bits in the weight and AdaGrad's history; the CPU's
+    first two losses and touched rows are within ``SPARSE_LINEAR_TOL``; the
+    second card run is bit-equal to the first; the loss is finite and
+    falls; the phase's peak memory is under ``SPARSE_LINEAR_PEAK``."""
+    from mxnet_tpu_torch.ndarray import sparse
+    t0 = time.perf_counter()
+    data, w_init = avazu_data(SPARSE_LINEAR_STEPS)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    sparse._fallback_warned.clear()
+    grad_err, grad_rows = [], []
+
+    def check(i, x, y, w, b):
+        g = w.grad
+        rows = g._aux["indices"]
+        grad_rows.append(g.stype == "row_sparse" and torch.equal(
+            rows, torch.unique(x._aux["indices"])))
+        ref = linear_grad_fp64(x, y, w, b)[rows]
+        grad_err.append(float((g._aux["values"][:, 0].double() - ref)
+                              .abs().max() / ref.abs().max()))
+    first = sparse_linear_run(data, w_init, "cuda", SPARSE_LINEAR_STEPS,
+                              check=check)
+    second = sparse_linear_run(data, w_init, "cuda", SPARSE_LINEAR_STEPS,
+                               measure=True)
+    peak = torch.cuda.max_memory_allocated() - base
+    cpu = sparse_linear_run(data, w_init, "cpu", 2)
+    touched = torch.zeros(AVAZU_FEATURES, dtype=torch.bool)
+    touched2 = touched.clone()
+    for i, (cols, _) in enumerate(data):
+        touched[torch.from_numpy(cols)] = True
+        if i == 1:
+            touched2 = touched.clone()
+    w_card, hist = first["w"].cpu(), first["history"].cpu()
+    untouched = ~touched
+    unchanged = bool(torch.equal(w_card[untouched],
+                                 torch.from_numpy(w_init)[untouched])
+                     and not hist[untouched].any())
+    w2 = first["w_after2"].cpu()[touched2]
+    cpu_rows_err = float((w2 - cpu["w"][touched2]).abs().max()
+                         / cpu["w"][touched2].abs().max())
+    cpu_loss_err = max(abs(a - c) / abs(c) for a, c in
+                       zip(first["losses"][:2], cpu["losses"]))
+    bit_equal = (first["losses"] == second["losses"]
+                 and torch.equal(first["w"], second["w"])
+                 and torch.equal(first["b"], second["b"])
+                 and torch.equal(first["history"], second["history"]))
+    densified = any(x.densified() for run in (first, second)
+                    for x, _ in run["batches"])
+    fallbacks = [m for run in (first, second) for m in run["warnings"]
+                 if "dense implementation" in m]
+    losses = first["losses"]
+    steady = second["walls"][1:]
+    step_ms = float(np.median(steady))
+    kernel_ms, _, top = second["profile"]
+    x0 = first["batches"][0][0]
+    row = {
+        "card": card, "features": AVAZU_FEATURES, "batch": AVAZU_BATCH,
+        "fields": AVAZU_FIELDS, "zipf_exponent": AVAZU_ZIPF,
+        "steps": SPARSE_LINEAR_STEPS, "optimizer": "adagrad",
+        "lr": SPARSE_LINEAR_LR,
+        "nnz_per_batch": int(x0._aux["values"].numel()),
+        "unique_columns_per_batch": [int(np.unique(c).size)
+                                     for c, _ in data],
+        "untouched_rows": int(untouched.sum()),
+        "losses": losses, "grad_rows_are_batch_union": grad_rows,
+        "grad_max_rel_err": max(grad_err), "tol": SPARSE_LINEAR_TOL,
+        "untouched_rows_bit_unchanged": unchanged,
+        "cpu_loss_rel_err": cpu_loss_err,
+        "cpu_touched_rows_rel_err": cpu_rows_err,
+        "second_run_bit_equal": bit_equal, "densified": densified,
+        "fallback_warnings": fallbacks,
+        "step_ms": steady, "step_ms_median": step_ms,
+        "samples_per_s": AVAZU_BATCH / (step_ms / 1e3),
+        "host_syncs_per_step": first["syncs"],
+        "profiled_kernel_ms": kernel_ms,
+        "device_busy_share": kernel_ms / step_ms, "top_kernels_ms": top,
+        "peak_memory_bytes": peak, "peak_limit_bytes": SPARSE_LINEAR_PEAK,
+        "seconds": time.perf_counter() - t0}
+    log("[sparse_linear] " + json.dumps(row))
+    if not (all(grad_rows) and max(grad_err) <= SPARSE_LINEAR_TOL
+            and unchanged and cpu_loss_err <= SPARSE_LINEAR_TOL
+            and cpu_rows_err <= SPARSE_LINEAR_TOL and bit_equal
+            and not densified and not fallbacks
+            and all(np.isfinite(losses)) and losses[-1] < losses[0]
+            and peak < SPARSE_LINEAR_PEAK):
+        raise SystemExit(f"chip_smoke: sparse_linear: {row}")
+    # what [sparse_params] saves: the weight's rows the last gradient
+    # names (row_sparse), that gradient and a slice of the first batch
+    w_rs = sparse.cast_storage(first["w_nd"], "row_sparse").retain(
+        first["last_grad"].indices)
+    row["params_arrays"] = {"weight": w_rs, "grad": first["last_grad"],
+                            "batch": x0.slice(0, 256)}
+    return row
+
+
+def sparse_embedding_run(name, kwargs, steps=EMB_STEPS, vocab=EMB_VOCAB,
+                         device="cuda"):
+    """A sparse-gradient embedding of ``vocab`` x ``EMB_DIM`` (fp32, random
+    from the seed) trained toward a fixed random target table by the
+    summed squared error of each step's ``EMB_BATCH`` x ``EMB_BPTT`` ids
+    (Zipf, exponent ``EMB_ZIPF``, over the frequency-ordered vocabulary),
+    through ``nd.Embedding(..., sparse_grad=True)``, ``w.attach_grad(
+    stype="row_sparse")`` and the lazy update of optimizer ``name``.
+    Before each update it checks the gradient against the per-id sums in
+    fp64 and runs the dense optimizer on the touched rows' copies, after
+    it compares; then the untouched rows, and the dense update of the
+    whole table timed against the lazy one."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, nd, optimizer
+    cuda = device == "cuda"
+    rs = np.random.RandomState(SEED + 3)
+    cdf = _zipf_cdf(vocab, EMB_ZIPF)
+    ids_np = [_zipf_draws(rs, cdf, (EMB_BATCH, EMB_BPTT)).astype(np.int32)
+              for _ in range(steps)]
+    gen = torch.Generator(device=device).manual_seed(SEED + 4)
+    w0 = torch.randn(vocab, EMB_DIM, device=device, generator=gen) * 0.1
+    target = torch.randn(vocab, EMB_DIM, device=device, generator=gen)
+    tokens = EMB_BATCH * EMB_BPTT
+    kw = dict(kwargs, rescale_grad=1.0 / tokens, wd=0.0)
+    out = {"losses": [], "grad_rows_are_unique_ids": [], "grad_rel_err": [],
+           "rows_vs_dense_max_abs": [], "syncs": [], "lazy_update_ms": [],
+           "warnings": [], "unique_ids": []}
+    with (mx.gpu(0) if cuda else mx.cpu()):
+        w, tgt = nd.array(w0), nd.from_dlpack(target)
+        w.attach_grad(stype="row_sparse")
+        upd = optimizer.get_updater(optimizer.create(name, **kw))
+        dense_ref = optimizer.create(name, **kw)
+        ids_list = [nd.array(i, dtype="int32") for i in ids_np]
+        touched = torch.zeros(vocab, dtype=torch.bool, device=device)
+        for ids in ids_list:
+            def forward_backward():
+                with autograd.record():
+                    emb = nd.Embedding(ids, w, input_dim=vocab,
+                                       output_dim=EMB_DIM, sparse_grad=True)
+                    diff = emb - nd.Embedding(ids, tgt, input_dim=vocab,
+                                              output_dim=EMB_DIM)
+                    loss = nd.sum(nd.square(diff))
+                loss.backward()
+                return loss, diff
+            (loss, diff), n, msgs = _counted(forward_backward, cuda)
+            g = w.grad
+            rows = g._aux["indices"]
+            uniq, inv = torch.unique(ids._data.long(), return_inverse=True)
+            touched[uniq] = True
+            out["unique_ids"].append(int(uniq.numel()))
+            out["grad_rows_are_unique_ids"].append(
+                g.stype == "row_sparse" and torch.equal(rows, uniq))
+            ref = torch.zeros(uniq.numel(), EMB_DIM, dtype=torch.float64,
+                              device=device).index_add_(
+                0, inv.reshape(-1),
+                2 * diff._data.detach().double().reshape(-1, EMB_DIM))
+            out["grad_rel_err"].append(float(
+                (g._aux["values"].double() - ref).abs().max()
+                / ref.abs().max()))
+            # the dense optimizer on copies of the touched rows and of
+            # their state, from the state before the step
+            state = upd.states.get(0)
+            parts = [] if state is None else \
+                list(state) if isinstance(state, tuple) else [state]
+            w_rows = w._data.detach()[rows].clone()
+            st_rows = [p[rows].clone() for p in parts] or [
+                torch.zeros_like(w_rows) for _ in range(
+                    2 if name == "adam" else 1)]
+            dense_ref.update(0, w_rows, g._aux["values"].clone(),
+                             tuple(st_rows) if name == "adam"
+                             else st_rows[0])
+            if cuda:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, n2, msgs2 = _counted(lambda: upd(0, w.grad, w), cuda)
+            if cuda:
+                torch.cuda.synchronize()
+            out["lazy_update_ms"].append((time.perf_counter() - t0) * 1e3)
+            state = upd.states[0]
+            parts = list(state) if isinstance(state, tuple) else [state]
+            out["rows_vs_dense_max_abs"].append(max(
+                float((a[rows] - b).abs().max())
+                for a, b in zip([w._data.detach()] + parts,
+                                [w_rows] + st_rows)))
+            out["syncs"].append(n + n2)
+            out["warnings"] += msgs + msgs2
+            out["losses"].append(float(loss.asscalar()) / tokens)
+        wt = w._data.detach()
+        out["untouched_rows"] = int((~touched).sum())
+        out["untouched_rows_bit_unchanged"] = not bool(
+            ((wt != w0).any(1) & ~touched).any()) and not any(
+            bool(((p != 0).any(1) & ~touched).any()) for p in parts)
+        del w0, target, tgt
+        # the dense update of the whole table from the densified gradient,
+        # timed in this call beside the lazy one (it moves every row)
+        if cuda:
+            gd = w.grad._data
+            dense = optimizer.create(name, **kw)
+            st = tuple(parts) if name == "adam" else parts[0]
+            out["dense_update_ms"] = cuda_ms(
+                lambda: dense.update(0, wt, gd, st), iters=3, warm=1)
+            del gd
+    out["lazy_update_ms_median"] = float(np.median(out["lazy_update_ms"][1:]))
+    return out
+
+
+def phase_sparse_embedding(card):
+    """[sparse_embedding]: the One Billion Word LM's vocabulary (793,471 x
+    512 fp32, 1.62 GB; Adam's states 3.25 GB more) with a sparse-gradient
+    ``nd.Embedding``, trained by lazy Adam and by lazy SGD with momentum
+    0.9 for ``EMB_STEPS`` steps each. Fails unless every step's gradient
+    rows are the sorted unique ids and its values the per-id sums within
+    ``EMB_TOL``, the touched rows are within ``EMB_TOL`` of the dense
+    optimizer's on them from the same state, the untouched rows of the
+    weight and every state keep their bits, no storage-fallback warning
+    came, and the loss falls. The lazy update's time beside the dense
+    update of the same table is reported, not held."""
+    from mxnet_tpu_torch.ndarray import sparse
+    t0 = time.perf_counter()
+    sparse._fallback_warned.clear()
+    runs = {}
+    for name, kwargs in (("adam", {"learning_rate": 0.05}),
+                         ("sgd", {"learning_rate": 1.0, "momentum": 0.9})):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        run = sparse_embedding_run(name, kwargs)
+        run["peak_memory_bytes"] = torch.cuda.max_memory_allocated() - base
+        runs[name] = run
+        torch.cuda.empty_cache()
+    row = {"card": card, "vocab": EMB_VOCAB, "dim": EMB_DIM,
+           "ids_per_step": [EMB_BATCH, EMB_BPTT], "zipf_exponent": EMB_ZIPF,
+           "steps": EMB_STEPS, "tol": EMB_TOL,
+           **{name: {k: v for k, v in run.items()} for name, run in
+              runs.items()},
+           "seconds": time.perf_counter() - t0}
+    log("[sparse_embedding] " + json.dumps(row))
+    for name, run in runs.items():
+        if not (all(run["grad_rows_are_unique_ids"])
+                and max(run["grad_rel_err"]) <= EMB_TOL
+                and max(run["rows_vs_dense_max_abs"]) <= EMB_TOL
+                and run["untouched_rows_bit_unchanged"]
+                and not any("dense implementation" in m
+                            for m in run["warnings"])
+                and all(np.isfinite(run["losses"]))
+                and run["losses"][-1] < run["losses"][0]):
+            raise SystemExit(f"chip_smoke: sparse_embedding: {name}: "
+                             f"{row}")
+    return row
+
+
+def phase_sparse_params(card, linear):
+    """[sparse_params]: ``nd.save`` on the card of [sparse_linear]'s
+    row_sparse weight rows, its last row_sparse gradient and a 256-row csr
+    slice of its first batch, and ``nd.load`` back onto the card. Fails
+    unless every loaded payload (values, indices, indptr) is bit-equal to
+    what was saved and the file's bytes equal those of a save of the same
+    arrays moved to the CPU everywhere except each entry's device type
+    (2, the GPU, against the CPU's 1: MXNet's format records the
+    context)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import nd
+    from mxnet_tpu_torch.ndarray import serialization
+    arrays = linear.pop("params_arrays")
+    tmp = tempfile.mkdtemp(prefix="sparse_params_")
+    try:
+        path = os.path.join(tmp, "sparse.params")
+        nd.save(path, arrays)
+        loaded = nd.load(path, ctx=mx.gpu(0))
+        with open(path, "rb") as f:
+            card_bytes = f.read()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    cpu_bytes = serialization.save_bytes(
+        [a.as_in_context(mx.cpu()) for a in arrays.values()], list(arrays))
+
+    def bits(t):
+        return t.view(torch.int32) if t.dtype == torch.float32 else t
+    same = {k: (loaded[k].stype == a.stype and loaded[k].shape == a.shape
+                and loaded[k].device.type == "cuda"
+                and all(torch.equal(bits(loaded[k]._aux[n]), bits(v))
+                        for n, v in a._aux.items() if not n.startswith("_")))
+            for k, a in arrays.items()}
+    cb, pb = (np.frombuffer(b, np.uint8) for b in (card_bytes, cpu_bytes))
+    diff = np.nonzero(cb != pb)[0] if cb.size == pb.size else None
+    bytes_ok = diff is not None and diff.size == len(arrays) and bool(
+        (cb[diff] == 2).all() and (pb[diff] == 1).all())
+    row = {"card": card, "entries": {k: [a.stype, list(a.shape),
+                                         int(a._aux["values"].shape[0])]
+                                     for k, a in arrays.items()},
+           "file_bytes": len(card_bytes), "loaded_bit_equal": same,
+           "bytes_equal_cpu_save_but_device_type": bytes_ok,
+           "differing_bytes": None if diff is None else int(diff.size)}
+    log("[sparse_params] " + json.dumps(row))
+    if not (all(same.values()) and bytes_ok):
+        raise SystemExit(f"chip_smoke: sparse_params: {row}")
+    return row
+
+
 # each port kernel's symbols in the profiler (substrings): every design of
 # the forward and of the backward passes counts under one name
 KERNEL_NAMES = {"flash_fwd": ("flash_fwd_kernel", "flash_fwd_tc_kernel",
@@ -3960,6 +4462,9 @@ def main():
     enc = phase_module_encoder(card, train32_summary)
     phase_module_resnet50(card, check32)
     phase_module_lenet(card)
+    linear = phase_sparse_linear(card)
+    phase_sparse_embedding(card)
+    phase_sparse_params(card, linear)
     enc32, enc16 = enc["launches"], enc["fp16"]
     nd_attn = {r["dtype"]: r["launches"] for r in nd_run["attention"]}
     nd_b1 = nd_run["b1"]

@@ -148,7 +148,11 @@ def backward(heads, head_grads=None, retain_graph: bool = False,
     gradient buffer of an NDArray variable
     (``attach_grad``, :func:`mark_variables`) keeps its identity: it is
     zeroed and written in place, so a reference to ``x.grad`` taken before
-    the backward sees the new gradient, as in MXNet."""
+    the backward sees the new gradient, as in MXNet.
+
+    A sparse slot (``attach_grad(stype="row_sparse")``) and a sparse leaf
+    (an attached ``RowSparseNDArray``) take the JAX package's deposit
+    rules (``mxnet_tpu/autograd.py:315-373``), in :func:`_deposit_sparse`."""
     heads = _tensors(heads)
     head_grads = [None] * len(heads) if head_grads is None \
         else _tensors(head_grads)
@@ -163,14 +167,64 @@ def backward(heads, head_grads=None, retain_graph: bool = False,
     if not keep:
         return
     heads, grads = [heads[i] for i in keep], [grads[i] for i in keep]
-    for leaf in _reached_leaves(heads):
-        if leaf.grad is not None and \
+    leaves = _reached_leaves(heads)
+    sparse = []
+    for leaf in leaves:
+        if getattr(leaf, "_mx_grad_stype", None) is not None:
+            # torch leaves a sparse COO gradient here (the sparse ops') or
+            # a dense one; the deposit below reads it
+            leaf.grad = None
+            sparse.append(leaf)
+        elif leaf.grad is not None and \
                 getattr(leaf, "grad_req", "write") != "add":
             if getattr(leaf, "_mx_keep_grad", False):
                 leaf.grad.zero_()
             else:
                 leaf.grad = None
     torch.autograd.backward(list(heads), grads, retain_graph=retain_graph)
+    for leaf in sparse:
+        _deposit_sparse(leaf)
+
+
+def _deposit_sparse(leaf: torch.Tensor) -> None:
+    """Deposit the gradient torch left on a sparse slot or leaf:
+
+    - a sparse cotangent into a sparse slot stays ``row_sparse`` (sorted
+      unique rows), replacing the slot under ``write`` and merged with it
+      under ``add``;
+    - a dense cotangent into a sparse slot makes the gradient dense (plus
+      the old sparse one under ``add``), and the slot dense from then on;
+    - a leaf stored sparse gets a values-shaped gradient, paired with its
+      own indices.
+
+    (A sparse cotangent into a dense slot was densified by torch, which
+    adds it into the dense ``.grad``.)"""
+    from .ndarray.sparse import RowSparseNDArray
+    from .ndarray.sparse_ops import SparseCotangent
+    g, leaf.grad = leaf.grad, None
+    if g is None:
+        return
+    add = getattr(leaf, "grad_req", "write") == "add"
+    prev = leaf._mx_sparse_grad
+    if leaf._mx_grad_stype == "payload":
+        owner = leaf._mx_owner()
+        cot = SparseCotangent(g, owner._aux["indices"], owner.shape)
+    elif g.is_sparse:
+        cot = SparseCotangent.from_coo(g)
+    else:
+        if add:
+            g = g + prev._data.to(g.dtype)
+        leaf.grad = g
+        leaf._mx_grad_stype = leaf._mx_sparse_grad = None
+        leaf._mx_keep_grad = True
+        return
+    if add and prev._aux["values"].shape[0]:
+        cot = SparseCotangent(prev._aux["values"],
+                              prev._aux["indices"], prev.shape) + cot
+    elif leaf._mx_grad_stype == "payload":
+        leaf._mx_sparse_grad = RowSparseNDArray(g, cot.indices, cot.shape)
+        return
+    leaf._mx_sparse_grad = cot.to_rowsparse()
 
 
 def grad(heads, variables, head_grads=None, retain_graph=None,
@@ -194,7 +248,10 @@ def grad(heads, variables, head_grads=None, retain_graph=None,
     res = torch.autograd.grad(heads, variables, outs,
                               retain_graph=bool(retain_graph) or create_graph,
                               create_graph=create_graph, allow_unused=True)
-    return [_wrap(torch.zeros_like(v) if g is None else g)
+    # a sparse gradient is densified, as the JAX package's dense scratch
+    # slots do
+    return [_wrap(torch.zeros_like(v) if g is None else
+                  g.to_dense() if g.is_sparse else g)
             for v, g in zip(variables, res)]
 
 

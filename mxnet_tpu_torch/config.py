@@ -2,8 +2,9 @@
 
 Counterpart of ``mxnet_tpu/config.py``, holding the ``MXSERVE_*`` flags
 the serving engine and batcher read, the optimizer's
-``MXNET_OPTIMIZER_AGGREGATION_SIZE`` and the nd ops'
-``MXNET_SAFE_ACCUMULATION``. Resolution order: :func:`set_flag`
+``MXNET_OPTIMIZER_AGGREGATION_SIZE``, the nd ops'
+``MXNET_SAFE_ACCUMULATION`` and the sparse storage's
+``MXNET_STORAGE_FALLBACK_LOG_VERBOSE``. Resolution order: :func:`set_flag`
 runtime override > environment > declared default.
 """
 from __future__ import annotations
@@ -45,6 +46,9 @@ _FLAGS: Dict[str, Flag] = {f.name: f for f in (
     Flag("MXNET_SAFE_ACCUMULATION", int, 0,
          "1: the nd reductions and softmax of 16-bit floats accumulate "
          "in fp32 and round the result back."),
+    Flag("MXNET_STORAGE_FALLBACK_LOG_VERBOSE", bool, True,
+         "Warn (once per op) when a sparse input runs through an op's "
+         "dense implementation (ref: env_var.md:30)."),
 )}
 _OVERRIDES: Dict[str, Any] = {}
 _LOCK = threading.Lock()
@@ -56,7 +60,11 @@ def get(name: str) -> Any:
     if name in _OVERRIDES:
         return _OVERRIDES[name]
     raw = os.environ.get(name)
-    return f.default if raw is None else f.type(raw)
+    if raw is None:
+        return f.default
+    if f.type is bool:
+        return raw.strip().lower() not in ("0", "false", "no", "off", "")
+    return f.type(raw)
 
 
 def set_flag(name: str, value: Any) -> None:

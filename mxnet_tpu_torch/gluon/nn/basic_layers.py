@@ -267,11 +267,15 @@ class LayerNorm(HybridBlock):
 class Embedding(HybridBlock):
     """Row lookup into an ``(input_dim, output_dim)`` table; an index in
     ``[-n, -1]`` wraps and any other out-of-range index gives a NaN row,
-    as in the JAX package (:func:`~mxnet_tpu_torch.ops.nn.embedding`)."""
+    as in the JAX package (:func:`~mxnet_tpu_torch.ops.nn.embedding`).
+    ``sparse_grad`` is passed on to the traced ``Embedding`` node; the
+    weight's gradient is dense, as the JAX package's Gluon gives it (its
+    parameters hold dense gradient buffers)."""
 
     def __init__(self, input_dim: int, output_dim: int, device="cuda",
-                 dtype=torch.float32):
+                 dtype=torch.float32, sparse_grad=False):
         super().__init__()
+        self._sparse_grad = sparse_grad
         self.weight = make_param("weight", (input_dim, output_dim),
                                  resolve_device(device), dtype)
 
@@ -282,7 +286,7 @@ class Embedding(HybridBlock):
         return F.Embedding(x, self._param_vars()["weight"],
                            input_dim=self.weight.shape[0],
                            output_dim=self.weight.shape[1],
-                           sparse_grad=False)
+                           sparse_grad=self._sparse_grad)
 
     def extra_repr(self):
         return f"{self.weight.shape[0]} -> {self.weight.shape[1]}"

@@ -7,7 +7,9 @@ where ``scale``/``center`` is off), and shapes are known when a layer is
 built (no deferred initialization). A parameter may carry the attributes
 the JAX package's ``Parameter`` has: ``_mx_init`` (its own initializer,
 which ``Block.initialize`` prefers to the one it is given),
-``lr_mult`` and ``wd_mult``. :func:`collect_params` names them as the JAX
+``lr_mult`` and ``wd_mult``, and ``stype``/``grad_stype`` (stored, as the
+JAX package's ``Parameter`` stores them: its gradient buffer is dense
+whatever they say, ``mxnet_tpu/gluon/parameter.py:101-103``). :func:`collect_params` names them as the JAX
 package's ``_collect_params_with_prefix()`` does, so that a Trainer, a
 checkpoint or a test addresses them in one naming on both sides.
 """
@@ -34,8 +36,8 @@ JAX_NAMES = {"weight": "gamma", "bias": "beta"}
 _INIT_SCALE = 0.07
 
 
-def make_param(name, shape, device, dtype, init=None, requires_grad=True
-               ) -> nn.Parameter:
+def make_param(name, shape, device, dtype, init=None, requires_grad=True,
+               stype="default", grad_stype="default") -> nn.Parameter:
     """A parameter of ``shape`` that remembers its own initializer ``init``
     (a registered name, an ``Initializer``, or None for the one
     ``Block.initialize`` is given) and holds its construction-time values:
@@ -44,6 +46,7 @@ def make_param(name, shape, device, dtype, init=None, requires_grad=True
     p = nn.Parameter(torch.empty(shape, device=device, dtype=dtype),
                      requires_grad=requires_grad)
     p._mx_init = init
+    p.stype, p.grad_stype = stype, grad_stype
     with torch.no_grad():
         if init is None:
             nn.init.uniform_(p, -_INIT_SCALE, _INIT_SCALE)

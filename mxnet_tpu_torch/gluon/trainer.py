@@ -17,6 +17,13 @@ momentum), else one call per parameter. ``save_states``/``load_states``
 keep the optimizer and its states in a file (the path without a
 kvstore).
 
+A sparse gradient (a torch sparse tensor on a parameter) stays out of
+the aggregated path: the list-form ``Updater`` updates it on its own,
+densified with the storage-fallback warning, as the JAX package's
+``_bucketable`` keeps row_sparse gradients out of its coalesced exchange
+(``mxnet_tpu/gluon/trainer.py:211-217``). A Gluon parameter's gradient
+is dense, ``Embedding(sparse_grad=True)``'s too, as in the JAX package.
+
 A gradient is consumed by the step that applies it (``.grad`` is set to
 None afterwards), so a parameter that the last backward did not reach is
 found: its ``.grad`` is None, which raises unless ``ignore_stale_grad`` is

@@ -7,8 +7,10 @@ Counterpart of ``mxnet_tpu/ndarray/__init__.py``. An op registered after
 this module is imported appears on first access (``__getattr__``).
 ``nd.random`` is :mod:`mxnet_tpu_torch.random`; ``nd.contrib`` names the
 ``_contrib_*`` ops without their prefix. ``save``/``load`` read and write
-MXNet's ``.params`` format (:mod:`.serialization`). The sparse storage
-types are the deferred half of the slice (ROADMAP Queue A item 1).
+MXNet's ``.params`` format (:mod:`.serialization`). ``nd.sparse`` holds
+the sparse storage types (:mod:`.sparse`: ``row_sparse_array``,
+``csr_matrix``, ``cast_storage``, ``zeros``), whose ops are in
+:mod:`.sparse_ops`.
 """
 import sys as _sys
 
@@ -20,6 +22,7 @@ from .ndarray import (  # noqa: F401
 )
 from .. import ops as _ops  # noqa: F401  (registers the op corpus)
 from .. import random  # noqa: F401
+from . import sparse, sparse_ops  # noqa: F401
 from ..ops.registry import (has_op as _has_op, list_ops as _list_ops,
                             make_nd_function as _make)
 

@@ -12,7 +12,10 @@ each part maps to:
 - gradients live on the tensor: ``attach_grad`` makes it a leaf that
   requires a gradient with a zero ``.grad`` and a ``grad_req`` attribute
   (``"write"`` or ``"add"``), which :func:`mxnet_tpu_torch.autograd.backward`
-  honours; ``.grad`` is that tensor as an NDArray;
+  honours; ``.grad`` is that tensor as an NDArray. With
+  ``stype="row_sparse"`` the slot is sparse instead: ``.grad`` is a
+  ``RowSparseNDArray`` (:mod:`.sparse`), empty until a backward deposits
+  into it;
 - an operation outside ``autograd.record()`` runs under ``torch.no_grad()``
   (the reference records nothing there), so ``w[:] = w - lr * w.grad`` or
   ``nd.sgd_update(w, g, out=w)`` may update a parameter in place;
@@ -45,7 +48,7 @@ import torch
 from .. import autograd
 from ..base import MXNetError
 from ..context import Context, as_device
-from ..ops.registry import SPARSE_WAITS, call_op
+from ..ops.registry import call_op
 from ..ops.tensor import _div, expand_reshape_spec
 
 __all__ = [
@@ -228,7 +231,11 @@ class NDArray:
 
     @property
     def grad(self) -> Optional["NDArray"]:
-        g = self._data.grad
+        t = self._data
+        sparse = getattr(t, "_mx_sparse_grad", None)
+        if sparse is not None:
+            return sparse
+        g = t.grad
         return None if g is None else _wrap(g)
 
     @property
@@ -325,18 +332,22 @@ class NDArray:
     def tostype(self, stype: str):
         if stype == "default":
             return self
-        raise NotImplementedError(f"tostype({stype!r}): {SPARSE_WAITS}")
+        from .sparse import cast_storage
+        return cast_storage(self, stype)
 
     # -- autograd ----------------------------------------------------------
     def attach_grad(self, grad_req: str = "write", stype=None):
         """Make this array a variable: a leaf that requires a gradient,
-        with a zero ``.grad`` deposited into by ``grad_req``."""
-        if stype not in (None, "default"):
-            raise NotImplementedError(f"attach_grad(stype={stype!r}): "
-                                      f"{SPARSE_WAITS}")
+        with a zero ``.grad`` deposited into by ``grad_req``;
+        ``stype="row_sparse"`` (or ``"csr"``) makes the slot sparse, an
+        empty ``row_sparse`` gradient (see
+        :func:`mxnet_tpu_torch.autograd.backward` for the deposit)."""
+        if stype not in (None, "default", "row_sparse", "csr"):
+            raise MXNetError(f"attach_grad: unknown stype {stype!r}")
         if self._data.grad_fn is not None:
             self._data = self._data.detach()
         t = self._data
+        t._mx_grad_stype = t._mx_sparse_grad = None
         if grad_req == "null":
             t.requires_grad_(False)
             t.grad = None
@@ -344,8 +355,16 @@ class NDArray:
         if grad_req not in ("write", "add"):
             raise MXNetError(f"grad_req {grad_req!r} (write, add or null)")
         t.requires_grad_(True)
-        t.grad = torch.zeros_like(t)
         t.grad_req = grad_req
+        if stype in ("row_sparse", "csr"):
+            from .sparse import zeros as sparse_zeros
+            t.grad = None
+            t._mx_keep_grad = False
+            t._mx_grad_stype = "row_sparse"
+            t._mx_sparse_grad = sparse_zeros("row_sparse", self.shape,
+                                             ctx=t.device, dtype=t.dtype)
+            return
+        t.grad = torch.zeros_like(t)
         t._mx_keep_grad = True
 
     def detach(self) -> "NDArray":
@@ -671,9 +690,8 @@ class NDArray:
         return _op(lambda x: torch.log_softmax(x, axis), [self._data])
 
     def dot(self, other, transpose_a=False, transpose_b=False):
-        from ..ops import tensor as t
-        return _op(t.dot, [self._data, _unwrap(other)],
-                   transpose_a=transpose_a, transpose_b=transpose_b)
+        return dot(self, other, transpose_a=transpose_a,
+                   transpose_b=transpose_b)
 
     def batch_dot(self, other, transpose_a=False, transpose_b=False):
         from ..ops import tensor as t
@@ -724,7 +742,8 @@ def array(source, ctx=None, dtype=None) -> NDArray:
     t = torch.from_numpy(host)
     if as_torch_dtype(dtype) is torch.bfloat16:
         t = t.to(torch.bfloat16)
-    return _wrap(t.to(dev))
+    # a copy on the CPU too: the array must not share the source's memory
+    return _wrap(t.to(dev, copy=True))
 
 
 def from_numpy(a, zero_copy=False) -> NDArray:
@@ -793,7 +812,14 @@ def split(ary, indices_or_sections, axis=0):
 
 
 def dot(lhs, rhs, transpose_a=False, transpose_b=False) -> NDArray:
+    """The matrix product; a ``csr`` ``lhs`` takes the sparse product
+    (:mod:`.sparse_ops`), another sparse operand its dense view."""
+    from ..ops.registry import _sparse_hook
     from ..ops.tensor import dot as _dot
+    res = _sparse_hook("dot", [lhs, rhs], {"transpose_a": transpose_a,
+                                           "transpose_b": transpose_b})
+    if res is not NotImplemented:
+        return res
     return _op(_dot, [_unwrap(lhs), _unwrap(rhs)], transpose_a=transpose_a,
                transpose_b=transpose_b)
 
@@ -813,25 +839,33 @@ def waitall() -> None:
 
 def save(fname: str, data) -> None:
     """Write an NDArray (or tensor), a list of them or a ``{name: array}``
-    dict to ``fname`` in MXNet's format (``mx.nd.save``)."""
+    dict to ``fname`` in MXNet's format (``mx.nd.save``); a sparse array
+    is written as its payload."""
     from . import serialization
     if isinstance(data, (NDArray, torch.Tensor)):
         data = [data]
+
+    def entry(v):
+        return v if getattr(v, "stype", "default") != "default" \
+            else _unwrap(v)
     if isinstance(data, dict):
-        data = {k: _unwrap(v) for k, v in data.items()}
+        data = {k: entry(v) for k, v in data.items()}
     else:
-        data = [_unwrap(v) for v in data]
+        data = [entry(v) for v in data]
     serialization.save(fname, data)
 
 
 def load_frombuffer(buf: bytes, ctx=None):
     """The arrays of a file's bytes as NDArrays on ``ctx`` (default
-    :func:`current_context`): a ``{name: array}`` dict where the file names
-    them, else a list."""
+    :func:`current_context`; a sparse entry as a ``RowSparseNDArray`` or
+    a ``CSRNDArray``): a ``{name: array}`` dict where the file names them,
+    else a list."""
     from . import serialization
     dev = as_device(ctx)
     arrays, names = serialization.load_buffer(buf)
-    arrays = [None if a is None else _wrap(a.to(dev)) for a in arrays]
+    arrays = [None if a is None else
+              a.as_in_context(dev) if getattr(a, "stype", "default")
+              != "default" else _wrap(a.to(dev)) for a in arrays]
     if names:
         return dict(zip(names, arrays))
     return arrays

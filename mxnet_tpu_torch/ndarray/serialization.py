@@ -23,9 +23,11 @@ shape     := int32 ndim | ndim * int64      (Tuple<dim_t>::Save,
 Legacy loads: V1 magic 0xF993fac8 (shape/ctx/type/data, no stype), the
 ancient header where the leading uint32 is ndim with uint32 dims
 (ndarray.cc LegacyTShapeLoad), and the JAX package's round-1 interim
-layout. Dense arrays only: a ``row_sparse`` or ``csr`` entry raises until
-the sparse types come with the deferred half of the ``mx.nd`` slice
-(ROADMAP Queue A item 1).
+layout. A ``row_sparse`` entry holds its values and int64 indices, a
+``csr`` entry its data, int64 indptr and int64 indices, as the JAX
+package writes them (``mxnet_tpu/ndarray/serialization.py:62-80``); they
+load as :class:`~mxnet_tpu_torch.ndarray.sparse.RowSparseNDArray` and
+:class:`~mxnet_tpu_torch.ndarray.sparse.CSRNDArray` on the CPU.
 bfloat16, which numpy lacks, travels as its 16-bit pattern.
 """
 from __future__ import annotations
@@ -63,9 +65,6 @@ _NUM_AUX = {0: 0, 1: 1, 2: 2}
 
 _DEV_TYPE = {"cpu": 1, "cuda": 2}  # Context: kCPU 1, kGPU 2
 
-_SPARSE_WAITS = ("sparse (row_sparse, csr) arrays come with the mx.nd "
-                 "slice's deferred half (ROADMAP Queue A item 1)")
-
 
 def _write_shape(out: List[bytes], shape: Sequence[int]):
     out.append(struct.pack("<i", len(shape)))
@@ -80,19 +79,38 @@ def _host_bytes(t: torch.Tensor) -> bytes:
     return t.numpy().tobytes()
 
 
-def _save_one(out: List[bytes], arr: torch.Tensor) -> None:
-    if not isinstance(arr, torch.Tensor) or arr.layout != torch.strided:
-        raise NotImplementedError(f"save: {_SPARSE_WAITS}")
-    if arr.dtype not in _TYPE_FLAG:
-        raise MXNetError(f"dtype {arr.dtype} has no reference type flag")
+def _save_one(out: List[bytes], arr) -> None:
+    """One entry: a dense tensor, or a sparse NDArray's payload."""
+    stype = getattr(arr, "stype", "default")
+    if stype == "default":
+        if not isinstance(arr, torch.Tensor) or arr.layout != torch.strided:
+            raise MXNetError(f"save: a {type(arr).__name__} is neither a "
+                             "dense tensor nor a sparse NDArray")
+        data, aux, shape, device = arr, [], tuple(arr.shape), arr.device
+    else:
+        payload = arr._aux
+        data = payload["values"]
+        aux = [payload[k].to(torch.int64) for k in (
+            ("indices",) if stype == "row_sparse" else ("indptr", "indices"))]
+        shape, device = tuple(arr.shape), data.device
+    if data.dtype not in _TYPE_FLAG:
+        raise MXNetError(f"dtype {data.dtype} has no reference type flag")
     # 0-dim arrays only exist under np-shape semantics: V2's ndim==0
     # means "none" (ndarray.cc:1770), so scalars get the V3 magic
-    out.append(struct.pack("<I", V3_MAGIC if arr.dim() == 0 else V2_MAGIC))
-    out.append(struct.pack("<i", _STYPE_ID["default"]))
-    _write_shape(out, tuple(arr.shape))
-    out.append(struct.pack("<ii", _DEV_TYPE.get(arr.device.type, 1), 0))
-    out.append(struct.pack("<i", _TYPE_FLAG[arr.dtype]))
-    out.append(_host_bytes(arr))
+    out.append(struct.pack("<I", V3_MAGIC if len(shape) == 0
+                           and stype == "default" else V2_MAGIC))
+    out.append(struct.pack("<i", _STYPE_ID[stype]))
+    if aux:
+        _write_shape(out, tuple(data.shape))
+    _write_shape(out, shape)
+    out.append(struct.pack("<ii", _DEV_TYPE.get(device.type, 1), 0))
+    out.append(struct.pack("<i", _TYPE_FLAG[data.dtype]))
+    for a in aux:
+        out.append(struct.pack("<i", _TYPE_FLAG[a.dtype]))
+        _write_shape(out, tuple(a.shape))
+    out.append(_host_bytes(data))
+    for a in aux:
+        out.append(_host_bytes(a))
 
 
 class _Reader:
@@ -146,15 +164,15 @@ def _tensor(r: _Reader, dtype: torch.dtype, shape) -> torch.Tensor:
 
 
 def _load_one(r: _Reader):
-    """The next entry: a CPU tensor, or None for a ``none`` placeholder."""
+    """The next entry: a CPU tensor, a sparse NDArray on the CPU, or None
+    for a ``none`` placeholder."""
     magic = r.u32()
     if magic in (V2_MAGIC, V3_MAGIC):
         sid = r.i32()
-        if sid not in _NUM_AUX:
+        nad = _NUM_AUX.get(sid)
+        if nad is None:
             raise MXNetError(f"unknown storage type id {sid}")
-        if sid != 0:
-            raise NotImplementedError(
-                f"load: a {_ID_STYPE[sid]} entry: {_SPARSE_WAITS}")
+        storage_shape = r.shape() if nad else None
         shape, ndim = r.shape_ndim()
         # V2: ndim==0 is the is_none() placeholder (ndarray.cc:1770);
         # V3 (np semantics): ndim==0 is a real scalar, ndim==-1 is none
@@ -162,7 +180,16 @@ def _load_one(r: _Reader):
                 or (magic == V3_MAGIC and ndim < 0):
             return None
         r.i32(); r.i32()  # context (dev_type, dev_id): data is host-side
-        return _tensor(r, _dtype_of_flag(r.i32()), shape)
+        dtype = _dtype_of_flag(r.i32())
+        aux_meta = [(_dtype_of_flag(r.i32()), r.shape()) for _ in range(nad)]
+        if not nad:
+            return _tensor(r, dtype, shape)
+        data = _tensor(r, dtype, storage_shape)
+        aux = [_tensor(r, adt, ashape) for adt, ashape in aux_meta]
+        from .sparse import CSRNDArray, RowSparseNDArray
+        if _ID_STYPE[sid] == "row_sparse":
+            return RowSparseNDArray(data, aux[0], shape)
+        return CSRNDArray(data, aux[1], aux[0], shape)
     # legacy paths (ndarray.cc LegacyLoad)
     if magic == V1_MAGIC:
         shape = r.shape()
@@ -190,7 +217,8 @@ def save_bytes(arrays: Sequence[torch.Tensor], names: Sequence[str]) -> bytes:
 
 
 def load_buffer(buf: bytes):
-    """``(list of CPU tensors or None, names)`` of a file's bytes."""
+    """``(list of CPU tensors, sparse NDArrays or None, names)`` of a
+    file's bytes."""
     r = _Reader(buf)
     header = r.u64()
     if header != LIST_MAGIC:
@@ -244,7 +272,9 @@ def load_frombuffer(buf: bytes, device="cuda"):
     """What :func:`load` gives, from the file's bytes."""
     dev = resolve_device(device)
     arrays, names = load_buffer(buf)
-    arrays = [None if a is None else a.to(dev) for a in arrays]
+    arrays = [None if a is None else a.as_in_context(dev)
+              if getattr(a, "stype", "default") != "default" else a.to(dev)
+              for a in arrays]
     if names:
         return dict(zip(names, arrays))
     return arrays

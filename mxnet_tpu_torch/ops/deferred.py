@@ -63,7 +63,7 @@ WAITING = {
         "_linalg_makediag", "_linalg_maketrian", "_linalg_potrf",
         "_linalg_potri", "_linalg_slogdet", "_linalg_sumlogdiag",
         "_linalg_syevd", "_linalg_syrk", "_linalg_trmm", "_linalg_trsm",
-        "_sparse_retain", "linalg_det", "linalg_extractdiag",
+        "linalg_det", "linalg_extractdiag",
         "linalg_extracttrian", "linalg_gelqf", "linalg_gemm", "linalg_gemm2",
         "linalg_inverse", "linalg_makediag", "linalg_maketrian",
         "linalg_potrf", "linalg_potri", "linalg_slogdet", "linalg_sumlogdiag",

@@ -1,6 +1,7 @@
 """The dense part of the op-corpus completion: init ops, slice and
-scatter assignment, ``cumsum``, ``_histogram``, ``amp_multicast``, the
-boolean mask, and the multi-tensor optimizer updates.
+scatter assignment, ``cumsum``, ``_histogram``, ``_sparse_retain``,
+``amp_multicast``, the boolean mask, and the multi-tensor optimizer
+updates.
 
 Counterpart of the dense ops of ``mxnet_tpu/ops/extra_ops.py``. The
 init ops take ``ctx`` (default: the current context) and ``dtype``.
@@ -154,6 +155,17 @@ def cumsum(a, axis=None, dtype=None):
             and a.dtype is not torch.int64:
         out = out.to(torch.int32)
     return out
+
+
+@register_op("_sparse_retain")
+def _sparse_retain(data, indices):
+    """The listed rows of a dense input, every other row zero (a
+    ``row_sparse`` input keeps its stored rows instead, in
+    ``ndarray/sparse_ops.py``)."""
+    keep = torch.zeros(data.shape[0], dtype=torch.bool, device=data.device)
+    keep[indices.to(torch.int64)] = True
+    return torch.where(keep.reshape((-1,) + (1,) * (data.dim() - 1)), data,
+                       torch.zeros((), dtype=data.dtype, device=data.device))
 
 
 @register_op("_histogram", n_out=2, differentiable=False,

@@ -688,11 +688,11 @@ def dropout(data, p=0.5, mode="training", axes=None, cudnn_off=False,
              input_names=("data", "weight"))
 def _embedding_op(data, weight, input_dim=0, output_dim=0, dtype="float32",
                   sparse_grad=False):
-    """Rows of the table at integer indices (:func:`embedding`)."""
-    if sparse_grad:
-        from .registry import SPARSE_WAITS
-        raise NotImplementedError(f"Embedding(sparse_grad=True): "
-                                  f"{SPARSE_WAITS}")
+    """Rows of the table at integer indices (:func:`embedding`). On
+    tensors (a graph, a block) the gradient is dense whatever
+    ``sparse_grad`` says, as the JAX package's dense op gives it;
+    ``nd.Embedding(..., sparse_grad=True)`` takes the sparse
+    implementation in ``ndarray/sparse_ops.py``."""
     return embedding(data, weight)
 
 

@@ -27,11 +27,14 @@ shape inference of its own.
    changes nothing, as the JAX package does.
 
 Two hooks sit in front of the call. A sparse input (an array whose
-``stype`` is not ``"default"``) raises ``NotImplementedError``: the sparse
-storage types are the deferred half of ROADMAP Queue A item 1. The amp
-cast hook asks :mod:`mxnet_tpu_torch.amp` for a cast plan; until
-``amp.init`` exists (the same deferred half) there is none and the hook
-does nothing.
+``stype`` is not ``"default"``), or ``sparse_grad=True``, first asks
+:func:`mxnet_tpu_torch.ndarray.sparse_ops.maybe_sparse_dispatch` for the
+op's sparse implementation (the reference's FComputeEx choice); where it
+has none, the op runs densely on the inputs' dense views and
+:func:`~mxnet_tpu_torch.ndarray.sparse.log_storage_fallback` warns once
+for the op. The amp cast hook asks :mod:`mxnet_tpu_torch.amp` for a cast
+plan; until ``amp.init`` exists (the deferred half of ROADMAP Queue A
+item 1) there is none and the hook does nothing.
 """
 from __future__ import annotations
 
@@ -43,11 +46,7 @@ import torch
 from ..base import MXNetError
 
 __all__ = ["register_op", "get_op", "has_op", "list_ops", "OpInfo",
-           "make_nd_function", "parse_bool_param", "stub_op",
-           "SPARSE_WAITS"]
-
-SPARSE_WAITS = ("the sparse storage types (row_sparse, csr) are the "
-                "deferred half of the mx.nd slice (ROADMAP Queue A item 1)")
+           "make_nd_function", "parse_bool_param", "stub_op"]
 
 
 def parse_bool_param(v) -> bool:
@@ -159,11 +158,24 @@ def list_ops() -> List[str]:
     return sorted(_OPS)
 
 
-def _sparse_hook(name, inputs) -> None:
-    for a in inputs:
-        if getattr(a, "stype", "default") != "default":
-            raise NotImplementedError(
-                f"{name}: a {a.stype} input; {SPARSE_WAITS}")
+def _sparse_hook(name, inputs, params):
+    """The sparse implementation's result for a sparse input (or
+    ``sparse_grad=True``), recorded inside ``autograd.record()`` only; else
+    ``NotImplemented``, with the storage-fallback warning where an input
+    is sparse."""
+    sparse_in = any(getattr(a, "stype", "default") != "default"
+                    for a in inputs)
+    if not sparse_in and not parse_bool_param(params.get("sparse_grad",
+                                                         False)):
+        return NotImplemented
+    from .. import autograd
+    from ..ndarray.sparse import log_storage_fallback
+    from ..ndarray.sparse_ops import maybe_sparse_dispatch
+    res = call_op(maybe_sparse_dispatch, autograd.is_recording(), name,
+                  inputs, params)
+    if res is NotImplemented and sparse_in:
+        log_storage_fallback(name)
+    return res
 
 
 def _amp_hook(name, fn):
@@ -248,7 +260,12 @@ def make_nd_function(name: str) -> Callable:
         if named:
             named.sort(key=lambda kv: kv[0])
             inputs.extend(v for _, v in named)
-        _sparse_hook(info.name, inputs)
+        res = _sparse_hook(info.name, inputs, params)
+        if res is not NotImplemented:
+            if out is not None:
+                out._assign(res._data, autograd.is_recording())
+                return out
+            return res
         tensors = [_unwrap(a) for a in inputs]
         fn = _amp_hook(info.name, info.fn)
         dev = None

@@ -905,11 +905,9 @@ def square_sum(data, axis=None, keepdims=False):
 
 @register_op("cast_storage")
 def cast_storage(data, stype="default"):
-    """Storage-type cast: dense to dense is the identity."""
-    if stype != "default":
-        from .registry import SPARSE_WAITS
-        raise NotImplementedError(f"cast_storage to {stype!r}: "
-                                  f"{SPARSE_WAITS}")
+    """Storage-type cast of a dense input: the identity, as in the JAX
+    package (a sparse input takes ``ndarray/sparse_ops.py``'s cast, and
+    ``nd.sparse.cast_storage`` converts a dense one)."""
     return data
 
 

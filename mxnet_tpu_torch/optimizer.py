@@ -26,9 +26,18 @@ updates every fp16 SGD-with-momentum parameter of the list in **one**
 launch; that is the one place the port departs from the JAX package's
 per-parameter loop, and its results are bit-equal to that loop's.
 
-Sparse (``row_sparse``) gradients and ``lazy_update`` wait for the
-``mx.nd`` slice's deferred half (ROADMAP Queue A item 1): a sparse
-gradient raises.
+A ``row_sparse`` gradient takes the JAX package's lazy row-wise paths
+(``mxnet_tpu/optimizer.py:291-338``): ``SGD`` (weight and momentum rows
+only), ``Adam`` with ``lazy_update`` and ``AdaGrad``
+(``_sparse_adagrad_update``) read and write only the gradient's rows of
+the weight and of each state, in place, so a row the gradient does not
+name keeps its bits. A ``row_sparse`` weight is updated through its
+payload, never its dense view; a gradient row it does not store raises
+``MXNetError``. Every other optimizer, and ``lazy_update=False``, takes
+the dense update on the densified gradient with the storage-fallback
+warning, as the JAX package does. The ``Updater`` takes NDArrays or
+tensors, and a list with a sparse gradient in it is updated per
+parameter.
 """
 from __future__ import annotations
 
@@ -41,6 +50,9 @@ import torch
 from . import config
 from . import random as _random
 from .base import MXNetError
+from .ndarray.ndarray import NDArray
+from .ndarray.sparse import (BaseSparseNDArray, RowSparseNDArray,
+                             log_storage_fallback)
 from .ops import optimizer_ops as oops
 
 __all__ = ["Optimizer", "SGD", "NAG", "Adam", "AdamW", "AdaGrad", "RMSProp",
@@ -69,14 +81,69 @@ def create(name, **kwargs):
     return klass(**kwargs)
 
 
-def _dense(grad):
-    """Refuse a sparse gradient: the row-wise (lazy) updates are the
-    deferred half of the ``mx.nd`` slice."""
-    if grad.layout != torch.strided:
-        raise NotImplementedError(
-            "sparse (row_sparse) gradients and lazy updates are not ported "
-            "yet: they are the deferred half of the mx.nd slice (ROADMAP "
-            "Queue A item 1)")
+def _is_sparse(x) -> bool:
+    """A sparse NDArray, or a torch tensor that is not strided."""
+    return isinstance(x, BaseSparseNDArray) or (
+        isinstance(x, torch.Tensor) and x.layout != torch.strided)
+
+
+def _dense(weight, grad, op: str):
+    """The dense update's operands: a sparse gradient densified and a
+    sparse weight's dense view (written in place, its payload read from
+    it again afterwards), with the storage-fallback warning of ``op``."""
+    if not (_is_sparse(weight) or _is_sparse(grad)):
+        return weight, grad
+    log_storage_fallback(op)
+    if isinstance(grad, BaseSparseNDArray):
+        grad = grad._data
+    elif _is_sparse(grad):
+        grad = grad.to_dense()
+    if isinstance(weight, BaseSparseNDArray):
+        weight = weight._dense_for_write()
+    return weight, grad
+
+
+def _rowsparse_parts(grad):
+    """``(row indices, values)`` of a ``row_sparse`` gradient, else None:
+    a sparse update touches only these rows."""
+    if isinstance(grad, RowSparseNDArray):
+        return grad._aux["indices"], grad._aux["values"]
+    return None
+
+
+def _clip_scale(g, rescale, clip):
+    """The JAX package's order: rescale, then clip."""
+    g = g * rescale
+    if clip is not None and clip >= 0:
+        g = torch.clamp(g, -clip, clip)
+    return g
+
+
+def _rows_get(arr, idx):
+    """``(buffer, slots)`` for row reads of a dense or ``row_sparse``
+    array: a ``row_sparse`` one is read through its payload (stored rows
+    may be in any order). A gradient row with no stored slot raises, as
+    updating another row would corrupt training; the check is one host
+    sync."""
+    if isinstance(arr, RowSparseNDArray):
+        own = arr._aux["indices"]
+        order = torch.argsort(own, stable=True)
+        sorted_idx = own[order]
+        pos = torch.searchsorted(sorted_idx, idx).clamp_(
+            max=max(own.numel() - 1, 0))
+        if own.numel() == 0 or not bool((sorted_idx[pos] == idx).all()):
+            raise MXNetError("sparse update: gradient rows missing from the "
+                             "row_sparse weight/state payload")
+        return arr._aux["values"], order[pos]
+    return arr, idx
+
+
+def _rows_set(arr, buf, slots, new_rows):
+    """Write ``new_rows`` into ``buf`` (the buffer of :func:`_rows_get`) at
+    ``slots``, in place."""
+    buf.index_copy_(0, slots, new_rows.to(buf.dtype))
+    if isinstance(arr, RowSparseNDArray):
+        arr._dense_cache = None
 
 
 def _write(targets, values):
@@ -86,6 +153,11 @@ def _write(targets, values):
 
 
 def _zeros(weight):
+    """A dense zero state like ``weight`` (of a sparse weight's full
+    shape, as the JAX package's states are)."""
+    if isinstance(weight, BaseSparseNDArray):
+        return torch.zeros(weight.shape, dtype=weight.dtype_torch,
+                           device=weight.device)
     return torch.zeros_like(weight, memory_format=torch.contiguous_format)
 
 
@@ -151,10 +223,15 @@ class Optimizer:
     def update_multi_precision(self, index, weight, grad, state):
         if self._mp(weight):
             w32, base_state = state
+            _, grad = _dense(weight, grad, "amp_cast")
             self.update(index, w32, grad.to(torch.float32), base_state)
             weight.copy_(w32)
         else:
             self.update(index, weight, grad, state)
+
+    def _dense(self, weight, grad):
+        """:func:`_dense` for this optimizer's update op."""
+        return _dense(weight, grad, f"{type(self).__name__.lower()}_update")
 
     def update_multi_precision_list(self, indices, weights, grads, states):
         """The list form of :meth:`update_multi_precision`: one update per
@@ -207,11 +284,11 @@ class Optimizer:
             idxs = list(indices[start:start + width])
             ws = list(weights[start:start + width])
             ss = list(states[start:start + width])
-            for g in grads[start:start + width]:
-                _dense(g)
+            ws, gs = zip(*(self._dense(w, g) for w, g in zip(
+                ws, grads[start:start + width])))
             hyper = [self.fused_hyper(i) for i in idxs]
             new_w, new_s = self.fused_apply(
-                idxs, ws, list(grads[start:start + width]), ss,
+                idxs, list(ws), list(gs), ss,
                 [h[0] for h in hyper], [h[1] for h in hyper])
             _write(ws, new_w)
             for s, ns in zip(ss, new_s):
@@ -292,7 +369,24 @@ class SGD(Optimizer):
         return _zeros(weight)
 
     def update(self, index, weight, grad, state):
-        _dense(grad)
+        parts = _rowsparse_parts(grad)
+        if parts is not None and self.lazy_update:
+            # lazy row-wise update: only the gradient's rows of the weight
+            # and of the momentum are read and written
+            idx, gv = parts
+            lr, wd, clip = self._common(index)
+            w, wslots = _rows_get(weight, idx)
+            rows = w[wslots]
+            g = _clip_scale(gv, self.rescale_grad, clip) + wd * rows
+            if state is None:
+                _rows_set(weight, w, wslots, rows - lr * g)
+                return
+            m, mslots = _rows_get(state, idx)
+            new_m = self.momentum * m[mslots] - lr * g
+            _rows_set(weight, w, wslots, rows + new_m)
+            _rows_set(state, m, mslots, new_m)
+            return
+        weight, grad = self._dense(weight, grad)
         lr, wd, clip = self._common(index)
         if state is None:
             weight.copy_(oops.sgd_update(weight, grad, lr=lr, wd=wd,
@@ -306,10 +400,10 @@ class SGD(Optimizer):
     def update_multi_precision(self, index, weight, grad, state):
         """fp16 weights take the fused mixed-precision updates: master
         update, momentum and the fp16 cast in one pass (on CUDA, with
-        momentum, the ``mp_sgd`` kernel, in place)."""
-        if not self._mp(weight):
+        momentum, the ``mp_sgd`` kernel, in place); a sparse gradient
+        takes the base class's densified update, as in the JAX package."""
+        if not self._mp(weight) or _is_sparse(grad):
             return super().update_multi_precision(index, weight, grad, state)
-        _dense(grad)
         w32, mom = state
         lr, wd, clip = self._common(index)
         if mom is None:
@@ -330,8 +424,7 @@ class SGD(Optimizer):
         loop's, bit for bit."""
         batch = []
         for i, w, g, s in zip(indices, weights, grads, states):
-            if self._mp(w) and s[1] is not None:
-                _dense(g)
+            if self._mp(w) and s[1] is not None and not _is_sparse(g):
                 lr, wd, _ = self._common(i)
                 batch.append((w, g, s[1], s[0], lr, wd))
             else:
@@ -377,7 +470,7 @@ class NAG(Optimizer):
         return _zeros(weight)
 
     def update(self, index, weight, grad, state):
-        _dense(grad)
+        weight, grad = self._dense(weight, grad)
         lr, wd, clip = self._common(index)
         if state is None:
             weight.copy_(oops.sgd_update(weight, grad, lr=lr, wd=wd,
@@ -430,10 +523,29 @@ class Adam(Optimizer):
         return lr * (math.sqrt(coef2) / coef1)
 
     def update(self, index, weight, grad, state):
-        _dense(grad)
         lr, wd, clip = self._common(index)
         lr = self._corrected(index, lr)
         mean, var = state
+        parts = _rowsparse_parts(grad)
+        if parts is not None and self.lazy_update:
+            # lazy Adam: the rows of the weight, mean and var that the
+            # gradient does not name are untouched
+            idx, gv = parts
+            w, wslots = _rows_get(weight, idx)
+            rows = w[wslots]
+            g = _clip_scale(gv, self.rescale_grad, clip) + wd * rows
+            mb, mslots = _rows_get(mean, idx)
+            vb, vslots = _rows_get(var, idx)
+            m_rows = self.beta1 * mb[mslots] + (1 - self.beta1) * g
+            v_rows = self.beta2 * vb[vslots] + \
+                (1 - self.beta2) * torch.square(g)
+            new_rows = rows - lr * m_rows / (torch.sqrt(v_rows)
+                                             + self.epsilon)
+            _rows_set(weight, w, wslots, new_rows)
+            _rows_set(mean, mb, mslots, m_rows)
+            _rows_set(var, vb, vslots, v_rows)
+            return
+        weight, grad = self._dense(weight, grad)
         _write((weight, mean, var), oops.adam_update(
             weight, grad, mean, var, lr=lr, beta1=self.beta1,
             beta2=self.beta2, epsilon=self.epsilon, wd=wd,
@@ -476,7 +588,7 @@ class AdamW(Optimizer):
         return (_zeros(weight), _zeros(weight))
 
     def update(self, index, weight, grad, state):
-        _dense(grad)
+        weight, grad = self._dense(weight, grad)
         lr, wd, clip = self._common(index)
         mean, var = state
         _write((weight, mean, var), oops.adamw_update(
@@ -513,8 +625,23 @@ class AdaGrad(Optimizer):
         return _zeros(weight)
 
     def update(self, index, weight, grad, state):
-        _dense(grad)
         lr, wd, clip = self._common(index)
+        parts = _rowsparse_parts(grad)
+        if parts is not None:
+            # _sparse_adagrad_update: the history and weight rows the
+            # gradient does not name are untouched
+            idx, gv = parts
+            w, wslots = _rows_get(weight, idx)
+            rows = w[wslots]
+            g = _clip_scale(gv, self.rescale_grad, clip) + wd * rows
+            h, hslots = _rows_get(state, idx)
+            h_rows = h[hslots] + torch.square(g)
+            new_rows = rows - lr * g / (torch.sqrt(h_rows)
+                                        + self.float_stable_eps)
+            _rows_set(weight, w, wslots, new_rows)
+            _rows_set(state, h, hslots, h_rows)
+            return
+        weight, grad = self._dense(weight, grad)
         _write((weight, state), oops.adagrad_update(
             weight, grad, state, lr=lr, epsilon=self.float_stable_eps, wd=wd,
             rescale_grad=self.rescale_grad, clip_gradient=clip))
@@ -541,7 +668,7 @@ class RMSProp(Optimizer):
         return -1.0 if self.clip_weights is None else self.clip_weights
 
     def update(self, index, weight, grad, state):
-        _dense(grad)
+        weight, grad = self._dense(weight, grad)
         lr, wd, clip = self._common(index)
         new_w, new_s = self.fused_apply([index], [weight], [grad], [state],
                                         [lr], [wd])
@@ -588,7 +715,7 @@ class AdaDelta(Optimizer):
         return (_zeros(weight), _zeros(weight))
 
     def update(self, index, weight, grad, state):
-        _dense(grad)
+        weight, grad = self._dense(weight, grad)
         _, wd, clip = self._common(index)
         acc_g, acc_d = state
         _write((weight, acc_g, acc_d), oops.adadelta_update(
@@ -606,7 +733,7 @@ class Ftrl(Optimizer):
         return (_zeros(weight), _zeros(weight))
 
     def update(self, index, weight, grad, state):
-        _dense(grad)
+        weight, grad = self._dense(weight, grad)
         lr, wd, clip = self._common(index)
         z, n = state
         _write((weight, z, n), oops.ftrl_update(
@@ -624,7 +751,7 @@ class FTML(Optimizer):
         return (_zeros(weight), _zeros(weight), _zeros(weight))
 
     def update(self, index, weight, grad, state):
-        _dense(grad)
+        weight, grad = self._dense(weight, grad)
         lr, wd, clip = self._common(index)
         t = self._index_update_count[index]
         d, v, z = state
@@ -640,7 +767,7 @@ class SignSGD(Optimizer):
         super().__init__(learning_rate=learning_rate, **kwargs)
 
     def update(self, index, weight, grad, state):
-        _dense(grad)
+        weight, grad = self._dense(weight, grad)
         lr, wd, clip = self._common(index)
         weight.copy_(oops.signsgd_update(weight, grad, lr=lr, wd=wd,
                                          rescale_grad=self.rescale_grad,
@@ -659,7 +786,7 @@ class Signum(Optimizer):
         return _zeros(weight)
 
     def update(self, index, weight, grad, state):
-        _dense(grad)
+        weight, grad = self._dense(weight, grad)
         lr, wd, clip = self._common(index)
         _write((weight, state), oops.signum_update(
             weight, grad, state, lr=lr, momentum=self.momentum, wd=wd,
@@ -681,7 +808,7 @@ class Adamax(Optimizer):
         return (_zeros(weight), _zeros(weight))
 
     def update(self, index, weight, grad, state):
-        _dense(grad)
+        weight, grad = self._dense(weight, grad)
         lr, wd, clip = self._common(index)
         t = self._index_update_count[index]
         lr /= (1.0 - self.beta1 ** t)
@@ -711,7 +838,7 @@ class Nadam(Optimizer):
         return (_zeros(weight), _zeros(weight))
 
     def update(self, index, weight, grad, state):
-        _dense(grad)
+        weight, grad = self._dense(weight, grad)
         lr, wd, clip = self._common(index)
         t = self._index_update_count[index]
         g = grad * self.rescale_grad + wd * weight
@@ -740,7 +867,7 @@ class SGLD(Optimizer):
     device (:func:`mxnet_tpu_torch.random.generator`)."""
 
     def update(self, index, weight, grad, state):
-        _dense(grad)
+        weight, grad = self._dense(weight, grad)
         lr, wd, clip = self._common(index)
         g = grad * self.rescale_grad + wd * weight
         if clip >= 0:
@@ -766,7 +893,7 @@ class DCASGD(Optimizer):
         return (mom, weight.detach().clone())
 
     def update(self, index, weight, grad, state):
-        _dense(grad)
+        weight, grad = self._dense(weight, grad)
         lr, wd, clip = self._common(index)
         g = grad * self.rescale_grad
         if clip >= 0:
@@ -804,6 +931,7 @@ class Test(Optimizer):
         return _zeros(weight)
 
     def update(self, index, weight, grad, state):
+        weight, grad = self._dense(weight, grad)
         weight.copy_(weight + grad * self.rescale_grad)
         state.copy_(grad)
 
@@ -821,9 +949,18 @@ def _to_device(state, device):
     return state.to(device)
 
 
+def _operand(x):
+    """An updater's operand: a dense NDArray's tensor; a sparse NDArray or
+    a tensor as it is."""
+    return x._data if isinstance(x, NDArray) \
+        and not isinstance(x, BaseSparseNDArray) else x
+
+
 class Updater:
     """Applies an optimizer to ``(index, grad, weight)``, or to lists of
-    them, creating each index's state on first sight."""
+    them, creating each index's state on first sight. Weights and
+    gradients may be tensors or NDArrays (a dense weight is written in
+    place; a ``row_sparse`` one through its payload)."""
 
     def __init__(self, optimizer: Optimizer):
         self.optimizer = optimizer
@@ -834,6 +971,8 @@ class Updater:
     @torch.no_grad()
     def __call__(self, index, grad, weight):
         if isinstance(index, (list, tuple)):
+            grad = [_operand(g) for g in grad]
+            weight = [_operand(w) for w in weight]
             for i, w in zip(index, weight):
                 if i not in self.states:
                     self.states[i] = \
@@ -843,16 +982,18 @@ class Updater:
             opt = self.optimizer
             # as in the reference: the aggregated path takes plain dense
             # tensors; multi-precision lists keep their per-parameter
-            # semantics (SGD runs its fp16 ones in one launch)
+            # semantics (SGD runs its fp16 ones in one launch), and a
+            # list with a sparse gradient is updated per parameter
             if (self.aggregate_updates and opt.has_fused_apply
                     and not opt.multi_precision
-                    and all(g.layout == torch.strided for g in grad)):
+                    and not any(_is_sparse(x) for x in grad + weight)):
                 opt.update_multi(list(index), list(weight), list(grad),
                                  states)
             else:
                 opt.update_multi_precision_list(list(index), list(weight),
                                                 list(grad), states)
             return
+        grad, weight = _operand(grad), _operand(weight)
         if index not in self.states:
             self.states[index] = \
                 self.optimizer.create_state_multi_precision(index, weight)

@@ -1053,3 +1053,126 @@ def test_module_on_the_card_keeps_its_arrays_there():
     arrays += list(args.values()) + list(auxs.values())
     assert all(a._data.is_cuda for a in arrays)
     assert float(ex.aux_dict["bn_moving_mean"].asnumpy().std()) > 0
+
+
+def _sparse_case(device, seed=0, m=64, k=300, n=8):
+    """A csr batch of Zipf-drawn columns and a dense weight, on
+    ``device``."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import nd
+    from mxnet_tpu_torch.ndarray import sparse
+    rs = np.random.RandomState(seed)
+    cols = [np.unique(np.minimum(rs.zipf(1.3, 6) - 1, k - 1))
+            for _ in range(m)]
+    indptr = np.concatenate([[0], np.cumsum([len(c) for c in cols])])
+    vals = rs.randn(indptr[-1]).astype("float32")
+    w = rs.randn(k, n).astype("float32")
+    r = rs.randn(m, n).astype("float32")
+    ctx = mx.gpu(0) if device == "cuda" else mx.cpu()
+    with ctx:
+        x = sparse.csr_matrix((vals, np.concatenate(cols), indptr),
+                              shape=(m, k))
+        return x, nd.array(w), nd.array(r)
+
+
+def _csr_dot_run(device):
+    """Both products and their right operands' row_sparse gradients."""
+    from mxnet_tpu_torch import autograd, nd
+    x, w, r = _sparse_case(device)
+    w.attach_grad(stype="row_sparse")
+    r.attach_grad(stype="row_sparse")
+    with autograd.record():
+        out = nd.dot(x, w)
+        out_t = nd.dot(x, r, transpose_a=True)
+        loss = (out * out).sum() + nd.sum(out_t.data * out_t.data)
+    loss.backward()
+    return {"out": out.asnumpy(), "out_t": out_t.data.asnumpy(),
+            "out_t_rows": out_t.indices.asnumpy(),
+            "gw": w.grad.data.asnumpy(), "gw_rows": w.grad.indices.asnumpy(),
+            "gr": r.grad.asnumpy(), "densified": x.densified(),
+            "stypes": (w.grad.stype, out_t.stype)}
+
+
+def test_csr_dot_both_directions_on_cuda_match_the_cpu():
+    """``nd.dot`` of a csr batch (csr x dense -> dense, csr^T x dense ->
+    row_sparse) and the backward of both on CUDA tensors, against the
+    same port code on the CPU (fp32, summation order only: 1e-5
+    relative); the batch is never densified."""
+    _need_cuda()
+    card, cpu = _csr_dot_run("cuda"), _csr_dot_run("cpu")
+    assert card["stypes"] == cpu["stypes"] == ("row_sparse", "row_sparse")
+    assert not card["densified"]
+    for key in ("out_t_rows", "gw_rows"):
+        np.testing.assert_array_equal(card[key], cpu[key])
+    for key in ("out", "out_t", "gw", "gr"):
+        np.testing.assert_allclose(card[key], cpu[key], rtol=1e-5,
+                                   atol=1e-5)
+
+
+@pytest.mark.parametrize("grad_req", ["write", "add"])
+def test_row_sparse_slot_deposits_on_cuda(grad_req):
+    """``attach_grad(stype="row_sparse")`` on a CUDA array: two backwards
+    through a sparse Embedding replace (``write``) or merge (``add``) the
+    row_sparse gradient, which stays on the card and matches the CPU's."""
+    _need_cuda()
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, nd
+
+    def run(ctx):
+        with ctx:
+            w = nd.array(np.arange(36, dtype="float32").reshape(12, 3))
+            w.attach_grad(grad_req, stype="row_sparse")
+            for ids in ([[1, 4], [4, 9]], [[9, 2], [0, 0]]):
+                with autograd.record():
+                    e = nd.Embedding(nd.array(np.asarray(ids, "float32")), w,
+                                     input_dim=12, output_dim=3,
+                                     sparse_grad=True)
+                    loss = (e * e).sum()
+                loss.backward()
+            g = w.grad
+            return g.stype, g.data._data.device.type, \
+                g.indices.asnumpy(), g.data.asnumpy()
+    card, cpu = run(mx.gpu(0)), run(mx.cpu())
+    assert card[0] == "row_sparse" and card[1] == "cuda"
+    np.testing.assert_array_equal(card[2], cpu[2])
+    np.testing.assert_array_equal(card[2], [0, 1, 2, 4, 9] if grad_req ==
+                                  "add" else [0, 2, 9])
+    np.testing.assert_allclose(card[3], cpu[3], rtol=1e-6)
+
+
+def test_row_merge_is_bit_equal_across_runs_on_cuda():
+    """The merge of duplicate rows (``merge_rows``: a stable sort, then one
+    sequential sum per segment, no atomics) gives the same bits in two
+    runs on the card, at 200,000 Zipf-drawn ids of width 16."""
+    _need_cuda()
+    from mxnet_tpu_torch.ndarray.sparse import merge_rows
+    rs = np.random.RandomState(1)
+    ids = torch.from_numpy(np.minimum(rs.zipf(1.1, 200_000), 50_000)).cuda()
+    vals = torch.from_numpy(rs.randn(200_000, 16).astype("float32")).cuda()
+    u1, v1 = merge_rows(vals, ids)
+    u2, v2 = merge_rows(vals.clone(), ids.clone())
+    assert torch.equal(u1, u2) and torch.equal(v1, v2)
+    uc, vc = merge_rows(vals.cpu(), ids.cpu())
+    assert torch.equal(u1.cpu(), uc)
+    torch.testing.assert_close(v1.cpu(), vc, rtol=1e-5, atol=1e-4)
+
+
+def test_storage_fallback_warns_on_cuda():
+    """A sparse CUDA input to an op with no sparse implementation runs the
+    dense op on the card with the fallback warning, once per op."""
+    _need_cuda()
+    import warnings
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import nd
+    from mxnet_tpu_torch.ndarray import sparse
+    sparse._fallback_warned.clear()
+    with mx.gpu(0):
+        a = sparse.row_sparse_array((np.ones((1, 2), "float32"),
+                                     np.asarray([1])), shape=(3, 2))
+        with warnings.catch_warnings(record=True) as ws:
+            warnings.simplefilter("always")
+            out = nd.relu(a)
+            nd.relu(a)
+    assert sum("dense implementation" in str(w.message) for w in ws) == 1
+    assert out._data.is_cuda
+    np.testing.assert_array_equal(out.asnumpy(), [[0, 0], [1, 1], [0, 0]])

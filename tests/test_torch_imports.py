@@ -46,7 +46,9 @@ SLICE_MODULES = [
     "mxnet_tpu_torch.module.base_module", "mxnet_tpu_torch.module.module",
     "mxnet_tpu_torch.module.executor_group",
     "mxnet_tpu_torch.module.bucketing_module",
-    "mxnet_tpu_torch.module.sequential_module"]
+    "mxnet_tpu_torch.module.sequential_module",
+    # slice 13: sparse storage
+    "mxnet_tpu_torch.ndarray.sparse", "mxnet_tpu_torch.ndarray.sparse_ops"]
 
 _PROBE = r"""
 import importlib, pkgutil, sys

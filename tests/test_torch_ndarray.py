@@ -278,10 +278,14 @@ def test_dlpack_shares_storage():
 
 
 def test_sparse_storage_waits_for_the_deferred_half():
+    """Since the sparse slice (the name is the earlier refusal's):
+    ``tostype`` converts and ``attach_grad(stype=...)`` makes a sparse
+    gradient slot, empty until a backward."""
     with mx.cpu():
-        x = nd.ones((2, 2))
-        with pytest.raises(NotImplementedError, match="Queue A item 1"):
-            x.tostype("row_sparse")
-        with pytest.raises(NotImplementedError, match="Queue A item 1"):
-            x.attach_grad(stype="row_sparse")
+        x = nd.array([[0, 1], [0, 0]])
+        r = x.tostype("row_sparse")
+        assert r.stype == "row_sparse" and r.indices.asnumpy().tolist() == [0]
+        assert x.tostype("csr").indptr.asnumpy().tolist() == [0, 1, 1]
+        x.attach_grad(stype="row_sparse")
+        assert x.grad.stype == "row_sparse" and x.grad.data.shape[0] == 0
         assert x.tostype("default") is x
