@@ -184,6 +184,38 @@ end, failing on the first phase that fails:
     This slice runs no TPU kernel (the JAX package computes sparse work
     with gathers and segment sums outside Pallas), so it adds no entry to
     the kernels line.
+19. autoregressive LM serving (``serve2``) on ``parallel/pipeline_lm.py``'s
+    stack at Cerebras-GPT-1.3B's widths (24 x 2048, 16 heads of 128, FFN
+    8192, vocab 50257, one expert), fp32, TF32 off, random weights drawn
+    on the card from SEED: ``[decode_serve]`` — one ``DecodeEngine``
+    (16-slot pages, f32 pools of 8 GiB, 8 in flight, prefill rungs
+    128/256/512, 64 new tokens, 4 decode steps a call) under 8 closed-loop
+    clients sending 32 prompts of 64-480 tokens: everything on the card,
+    the pools never reallocated, no signature after warmup, no page in use
+    after ``drain`` and a clean servelint audit; the paged logits of one
+    prefill and 8 decode steps against ``dense_lm_logits`` within the
+    ``fusion`` class or ``DECODE_ERR_RATIO`` times the oracle's own fp32
+    error against fp64; four requests' tokens teacher-forced through the
+    oracle (a token off its argmax only within the phase's logit limit);
+    time to first token and per output token (p50/p99), output tokens/s,
+    the decode call's ms at each batch rung, host syncs per tick, a
+    profiled window's busy share and top ten kernels, peak memory, the
+    decode step against its weight-read bound; then a 40-page engine that
+    must preempt. ``[decode_prefix]`` — 16 requests sharing a 256-token
+    prefix through the prefix cache, equal to the cache-off run (or
+    diverging first at a near-tie within that limit), prefill tokens
+    avoided, a copy-on-write copy. ``[decode_spec]`` — a 4-layer draft, 4
+    draft tokens a tick, trajectories as the plain engine's; acceptance
+    rate and tokens/s. ``[decode_quant]`` — bf16 and int8 pools at the
+    f32 pool's bytes, logits within ``quant_bf16`` / ``quant_int8`` of
+    the f32 pool's, the int8 pool >= 3.5x the f32 pool's pages.
+    ``[decode_router]`` — a ``Router`` over 2 replicas sharing the
+    weights: a rolling reload under load dropping nothing, a replica whose
+    scheduler dies mid-load (its breaker opens, its requests fail over),
+    and one HTTP ``POST`` on 127.0.0.1 equal to a direct ``predict``.
+    This path reaches no TPU kernel either (the JAX package's prefill is
+    dense einsums and its paged attention ``lax.scan`` code), so the
+    kernels line is unchanged.
 
 The script prints its own wall time. The last three lines are the card
 (``nvidia-smi``), ``{"kernels": [...]}`` (B2/B3/B4's
@@ -202,6 +234,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import warnings
 
@@ -4369,6 +4402,639 @@ def phase_sparse_params(card, linear):
 
 # each port kernel's symbols in the profiler (substrings): every design of
 # the forward and of the backward passes counts under one name
+# ---------------------------------------------------------------------------
+# autoregressive LM serving (serve2): [decode_serve], [decode_prefix],
+# [decode_spec], [decode_quant], [decode_router]
+# ---------------------------------------------------------------------------
+
+# the LM stack of parallel/pipeline_lm.py at Cerebras-GPT-1.3B's widths
+# (arXiv:2304.03208, Table 1: 24 x 2048, 16 heads of 128, FFN 8192, vocab
+# 50257) with one expert (the gate is the constant 1: a dense FFN), fp32,
+# random weights from SEED drawn on the card (numpy's draw of its 1.41e9
+# values takes ~60 s on a host core) with init_pipeline_lm's scales but
+# one: init_pipeline_lm scales wqkv (L, 3, D, H, K) by 1/sqrt(H), its
+# second-to-last axis, where the projection's fan-in is D. At D = 2048, H
+# = 16 that is 11.3x 1/sqrt(D): attention logits ~100, every softmax
+# saturated, and the model chaotic in fp32 (a first chip run of this
+# phase with that scale: dense_lm_logits in fp32 5.13 max abs from fp64
+# on logits of at most 4.6, and 58-64 of 64 greedy tokens off the fp64
+# oracle's argmax). A trained model is not so: wqkv takes 1/sqrt(D) here
+DECODE_LM = dict(vocab=50257, d_model=2048, n_layers=24, n_heads=16,
+                 d_head=128, d_ff=8192, n_experts=1)
+DECODE_PAGE, DECODE_POOL_BYTES = 16, 8 << 30
+DECODE_INFLIGHT, DECODE_BUCKETS = 8, (128, 256, 512)
+DECODE_MAX_NEW, DECODE_STEPS = 64, 4
+DECODE_REQUESTS, DECODE_CLIENTS, DECODE_PROMPTS = 32, 8, (64, 480)
+# a pool of 40 pages (39 usable) for 8 requests of 256 + 64 tokens (16
+# pages at admission, 20 at the end): growth must preempt
+DECODE_SMALL_PAGES, DECODE_PREEMPT_N, DECODE_PREEMPT_PROMPT = 40, 8, 256
+PREFIX_N, PREFIX_LEN, PREFIX_SUFFIX = 16, 256, (32, 128)
+SPEC_DRAFT_LAYERS, SPEC_TOKENS, SPEC_N = 4, 4, 8
+ROUTER_POOL_BYTES, ROUTER_N = 2 << 30, 16
+DECODE_CHECK_STEPS = 8
+# the paged logits (one prefill, DECODE_CHECK_STEPS decode steps) against
+# dense_lm_logits: within the fusion class, or else, as ERR_OVER_CC holds
+# the attention kernels, the paged path's max abs error against an fp64
+# evaluation of the dense oracle within DECODE_ERR_RATIO times the fp32
+# dense oracle's own: both are fp32 evaluations of one function whose
+# products and sums are ordered differently (the paged decode takes one
+# row through each GEMM and reads K/V back through a gather), and 24
+# layers of such roundings, random in sign, leave neither side more than
+# a small factor from the other; 2 as for the kernels. Two logits of one
+# row then differ from the fp32 oracle's by at most (DECODE_ERR_RATIO + 1)
+# x its error each, so an engine token may differ from the oracle's argmax
+# only where the two logits are within twice that ("flips", counted)
+DECODE_ERR_RATIO = 2.0
+
+
+def _seeded_pipeline_lm():
+    """``init_pipeline_lm``'s tree at DECODE_LM's widths, drawn on the
+    card from SEED: each normal leaf N(0, 1) times its scale, the norms 1,
+    the biases 0 (``pipeline_lm_spec``'s order and scales, wqkv's fan-in
+    D: see DECODE_LM)."""
+    from mxnet_tpu_torch.parallel.pipeline_lm import pipeline_lm_spec
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    tree = {}
+    for path, shape, init in pipeline_lm_spec(**DECODE_LM):
+        if path == ("layers", "wqkv"):
+            init = 1.0 / np.sqrt(DECODE_LM["d_model"])
+        if init in ("ones", "zeros"):
+            val = (torch.ones if init == "ones" else torch.zeros)(
+                shape, dtype=torch.float32, device="cuda")
+        else:
+            val = torch.empty(shape, dtype=torch.float32, device="cuda")
+            val.normal_(0.0, float(init), generator=gen)
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = val
+    return tree
+
+
+def _tree_tensors(tree):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _tree_tensors(v)
+        else:
+            yield v
+
+
+def _decode_engine(params, name, pool_bytes=None, **kw):
+    from mxnet_tpu_torch.serve2 import DecodeEngine, PagedLM
+    kv = kw.get("kv_dtype", "f32")
+    pool_bytes = DECODE_POOL_BYTES if pool_bytes is None else pool_bytes
+    args = dict(page_size=DECODE_PAGE, max_inflight=DECODE_INFLIGHT,
+                prefill_buckets=list(DECODE_BUCKETS),
+                max_new_default=DECODE_MAX_NEW, decode_steps=DECODE_STEPS,
+                name=name, device="cuda",
+                num_pages=PagedLM.pages_for_bytes(
+                    pool_bytes, page_size=DECODE_PAGE,
+                    n_layers=DECODE_LM["n_layers"],
+                    n_heads=DECODE_LM["n_heads"],
+                    d_head=DECODE_LM["d_head"], kv_dtype=kv))
+    args.update(kw)
+    eng = DecodeEngine(params, **args)
+    eng.warmup()
+    return eng
+
+
+def _serve_all(engine, prompts, clients, max_new=None):
+    """Every prompt through ``engine.submit`` from ``clients`` closed-loop
+    clients; returns (handles, the loadgen's summary)."""
+    from mxnet_tpu_torch.serve import run_loadgen
+    handles = {}
+
+    def fire(i):
+        h = handles[i] = engine.submit(prompts[i], max_new_tokens=max_new)
+        h.wait()
+        if h.error is not None:
+            raise h.error
+    load = run_loadgen(fire, list(range(len(prompts))), concurrency=clients)
+    if load["completed"] != len(prompts) or load["errors"]:
+        raise SystemExit(f"chip_smoke: decode requests failed: "
+                         f"{load['errors'][:3]}")
+    return [handles[i] for i in range(len(prompts))], load
+
+
+def _latency_summary(handles, wall_s):
+    """Time to first token and per output token (p50/p99, from each
+    handle's host stamps) and output tokens/s over ``wall_s``."""
+    from mxnet_tpu_torch.telemetry.metrics import percentile_of as pct
+    ttft = sorted(h.t_first_token - h.t_submit for h in handles)
+    tpot = sorted((h.t_done - h.t_first_token) / (len(h.result) - 1)
+                  for h in handles if len(h.result) > 1)
+    out_tokens = sum(len(h.result) for h in handles)
+    return {"ttft_p50_ms": pct(ttft, 50) * 1e3,
+            "ttft_p99_ms": pct(ttft, 99) * 1e3,
+            "tpot_p50_ms": pct(tpot, 50) * 1e3,
+            "tpot_p99_ms": pct(tpot, 99) * 1e3,
+            "output_tokens": out_tokens,
+            "output_tokens_per_s": out_tokens / wall_s, "wall_s": wall_s}
+
+
+def _audit_clean(engine, tag):
+    from mxnet_tpu_torch.passes.servelint import (lint_page_audit,
+                                                  lint_serve_report)
+    bad = [repr(f) for f in lint_page_audit(engine.page_audit())
+           + lint_serve_report(engine.lint_report())
+           if f.severity == "error"]
+    if bad:
+        raise SystemExit(f"chip_smoke: {tag}: servelint errors {bad[:3]}")
+
+
+def _paged_logits(lm, prompt, steps, forced=None):
+    """One prefill of ``prompt`` and ``steps`` decode steps through ``lm``
+    (one row, pages 1..), feeding its own greedy tokens or ``forced``:
+    (tokens fed after the prompt, logits (steps + 1, V) on the card)."""
+    bt = np.zeros((1, lm.max_pages), np.int32)
+    bt[0, :lm.max_pages] = np.arange(1, lm.max_pages + 1)
+    rung = min(b for b in DECODE_BUCKETS if b >= len(prompt))
+    padded = np.zeros((rung,), np.int32)
+    padded[:len(prompt)] = prompt
+    nxt, last = lm.prefill(padded, len(prompt), bt[0])
+    rows, fed = [last], []
+    for s in range(steps):
+        tok = forced[s] if forced is not None else nxt
+        fed.append(int(tok))
+        out, logits = lm.decode(bt, np.array([len(prompt) + s], np.int32),
+                                np.array([tok], np.int32),
+                                np.ones((1,), np.int32))
+        nxt = int(out[0, 0])
+        rows.append(logits[0])
+    return fed, torch.stack(rows)
+
+
+def _logit_check(params, prompt):
+    """[decode_serve]'s logit check: the f32 pool's paged logits against
+    dense_lm_logits in fp32 and fp64. Returns the paged run (for
+    [decode_quant]) and the per-logit limit the flips rule uses."""
+    from mxnet_tpu_torch.opt.verify import tolerance_for
+    from mxnet_tpu_torch.parallel.pipeline_lm import dense_lm_logits
+    from mxnet_tpu_torch.serve2 import PagedLM
+    lm = PagedLM(params, page_size=DECODE_PAGE, num_pages=40,
+                 max_pages_per_seq=39, name="check-f32", device="cuda")
+    fed, paged = _paged_logits(lm, prompt, DECODE_CHECK_STEPS)
+    del lm
+    tokens = torch.tensor([prompt + fed], device="cuda")
+    rows = slice(len(prompt) - 1, len(prompt) + DECODE_CHECK_STEPS)
+    dense32 = dense_lm_logits(params, tokens)[0, rows]
+    params64 = {k: ({kk: vv.double() for kk, vv in v.items()}
+                    if isinstance(v, dict) else v.double())
+                for k, v in params.items()}
+    dense64 = dense_lm_logits(params64, tokens)[0, rows]
+    del params64
+    gc.collect()
+    torch.cuda.empty_cache()
+    rtol, atol = tolerance_for("fusion", "float32")
+    in_fusion = bool(torch.allclose(paged, dense32, rtol=rtol, atol=atol))
+    err = float((paged - dense32).abs().max())
+    dense_err64 = float((dense32.double() - dense64).abs().max())
+    paged_err64 = float((paged.double() - dense64).abs().max())
+    ratio = paged_err64 / dense_err64
+    limit = (DECODE_ERR_RATIO + 1) * dense_err64
+    log(f"[decode_serve] paged logits (prefill + {DECODE_CHECK_STEPS} "
+        f"decode steps, prompt {len(prompt)}) vs dense_lm_logits: max abs "
+        f"{err:.3e}; within fusion (rtol {rtol}, atol {atol}): {in_fusion}; "
+        f"vs fp64: paged {paged_err64:.3e}, dense fp32 {dense_err64:.3e}, "
+        f"ratio {ratio:.3f} (limit {DECODE_ERR_RATIO}); max |logit| "
+        f"{float(dense64.abs().max()):.3f}; greedy tokens agree: "
+        f"{bool((paged.argmax(-1) == dense32.argmax(-1)).all())}")
+    if not (in_fusion or ratio <= DECODE_ERR_RATIO):
+        raise SystemExit("chip_smoke: paged logits disagree with the dense "
+                         "oracle")
+    return {"fed": fed, "logits": paged, "max_abs_err": err,
+            "in_fusion": in_fusion, "paged_fp64_err": paged_err64,
+            "dense_fp64_err": dense_err64, "err_ratio": ratio,
+            "logit_limit": limit}
+
+
+def _teacher_forced(params, prompt, tokens, limit):
+    """The engine's greedy ``tokens`` after ``prompt`` against
+    dense_lm_logits over prompt + tokens: the number of positions whose
+    token differs from the oracle's argmax (each allowed only where the
+    two logits are within 2 * ``limit``) and the largest such gap."""
+    from mxnet_tpu_torch.parallel.pipeline_lm import dense_lm_logits
+    seq = torch.tensor([list(prompt) + list(tokens)[:-1]], device="cuda")
+    lg = dense_lm_logits(params, seq)[0, len(prompt) - 1:]
+    tok = torch.tensor(list(tokens), device="cuda")
+    top = lg.max(-1).values
+    mine = lg.gather(1, tok[:, None])[:, 0]
+    gaps = (top - mine)[tok != lg.argmax(-1)]
+    flips = int(gaps.numel())
+    worst = float(gaps.max()) if flips else 0.0
+    if worst > 2 * limit:
+        raise SystemExit(f"chip_smoke: an engine token's logit is "
+                         f"{worst:.3e} under the oracle's top-1 (limit "
+                         f"{2 * limit:.3e})")
+    return flips, worst
+
+
+def _same_or_near_tie(params, prompts, got, want, limit, tag):
+    """Trajectories ``got`` equal to ``want``, or diverging first where
+    the dense oracle, teacher-forced over the common prefix, has the two
+    tokens within 2 * ``limit`` (a near-tie, counted)."""
+    from mxnet_tpu_torch.parallel.pipeline_lm import dense_lm_logits
+    ties = 0
+    for p, a, b in zip(prompts, got, want):
+        a, b = list(a), list(b)
+        if a == b:
+            continue
+        j = next(i for i in range(min(len(a), len(b))) if a[i] != b[i])
+        lg = dense_lm_logits(params, torch.tensor(
+            [list(p) + a[:j]], device="cuda"))[0, -1]
+        gap = float((lg[a[j]] - lg[b[j]]).abs())
+        if gap > 2 * limit:
+            raise SystemExit(f"chip_smoke: {tag}: trajectories differ at "
+                             f"token {j} by a logit gap of {gap:.3e} "
+                             f"(limit {2 * limit:.3e})")
+        ties += 1
+    return ties
+
+
+def _decode_rung_ms(lm, rungs, context=300):
+    """Host ms of one ``decode`` call (DECODE_STEPS tokens a row) at each
+    batch rung, rows of ``context`` cached tokens on distinct free pages,
+    median of 3 after one warm call, and its device ms (CUDA events)."""
+    per_row = -(-(context + DECODE_STEPS) // lm.page_size)
+    out = {}
+    for b in rungs:
+        bt = np.zeros((b, lm.max_pages), np.int32)
+        bt[:, :per_row] = 1 + np.arange(b * per_row).reshape(b, per_row)
+        args = (bt, np.full((b,), context, np.int32),
+                np.arange(b, dtype=np.int32) + 7,
+                np.full((b,), DECODE_STEPS, np.int32))
+        lm.decode(*args)
+        walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            lm.decode(*args)
+            walls.append((time.perf_counter() - t0) * 1e3)
+        dev = cuda_ms(lambda: lm.decode_device(*args), iters=3, warm=0)
+        out[b] = {"call_ms": sorted(walls)[1], "device_ms": dev,
+                  "per_step_ms": sorted(walls)[1] / DECODE_STEPS}
+    return out
+
+
+def _profiled_window(fn):
+    """Wall ms of ``fn()`` (synchronised) and the device time of its
+    kernels from ``torch.profiler``: (wall_ms, kernel_ms, top ten)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    rows = []
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        rows.append([e.key[:80], us / 1e3, e.count])
+    rows.sort(key=lambda r: -r[1])
+    return wall, sum(r[1] for r in rows), rows[:10]
+
+
+def phase_decode_serve(card, peaks, params):
+    """[decode_serve]: one DecodeEngine at the 1.3B widths under 8
+    closed-loop clients, its gates and its time split; then a 40-page
+    engine that must preempt. Returns what the later decode phases
+    compare with."""
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    engine = _decode_engine(params, "gpt13b")
+    lm = engine.lm
+    where = {str(t.device) for t in list(_tree_tensors(lm.params))
+             + list(lm.pools.values())} | {str(lm.device)}
+    if where != {"cuda:0"}:
+        raise SystemExit(f"chip_smoke: decode tensors on {where}")
+    ptrs = {k: v.data_ptr() for k, v in lm.pools.items()}
+    log(f"[decode_serve] DecodeEngine: {lm.num_pages} pages of "
+        f"{DECODE_PAGE} slots ({lm.pool_bytes} B of f32 pools), rungs "
+        f"decode {engine.decode_rungs} prefill {engine.prefill_rungs}, "
+        f"max_seq_len {engine.max_seq_len}, decode_steps {DECODE_STEPS}, "
+        f"attention {lm.attention}; "
+        f"{sum(t.numel() for t in _tree_tensors(params))} parameters")
+    rng = np.random.default_rng(SEED)
+    lens = rng.integers(DECODE_PROMPTS[0], DECODE_PROMPTS[1] + 1,
+                        DECODE_REQUESTS)
+    prompts = [rng.integers(0, DECODE_LM["vocab"], n).tolist() for n in lens]
+    handles, load = _serve_all(engine, prompts, DECODE_CLIENTS)
+    lat = _latency_summary(handles, load["wall_s"])
+    results = [h.result.tolist() for h in handles]
+    if any(len(r) != DECODE_MAX_NEW for r in results):
+        raise SystemExit("chip_smoke: a request stopped short")
+    # host syncs per tick, counted by the sync debug mode over 8 more
+    # requests (64-token prompts, 32 tokens each)
+    ticks0 = engine.stats()["ticks"]
+    (_, _), syncs, _ = _counted(lambda: _serve_all(
+        engine, [p[:64] for p in prompts[:8]], 8, max_new=32), True)
+    ticks = engine.stats()["ticks"] - ticks0
+    rungs = _decode_rung_ms(lm, engine.decode_rungs)
+    wall, kernel_ms, top = _profiled_window(lambda: _serve_all(
+        engine, [p[:128] for p in prompts[8:16]], 8, max_new=32))
+    st = engine.stats()
+    if st["recompiles_after_warmup"] != 0:
+        raise SystemExit(f"chip_smoke: {st['recompiles_after_warmup']} "
+                         "signatures after warmup")
+    if ptrs != {k: v.data_ptr() for k, v in lm.pools.items()}:
+        raise SystemExit("chip_smoke: a pool was reallocated")
+    check = _logit_check(params, prompts[0][:200])
+    flips = [_teacher_forced(params, prompts[i], results[i],
+                             check["logit_limit"]) for i in range(4)]
+    log(f"[decode_serve] teacher-forced greedy over requests 0-3: "
+        f"{[f for f, _ in flips]} positions whose token is not the "
+        f"oracle's argmax (largest gap {max(g for _, g in flips):.3e}, "
+        f"limit {2 * check['logit_limit']:.3e})")
+    layer_bytes = sum(t.numel() * t.element_size()
+                      for t in _tree_tensors(params["layers"]))
+    head_bytes = params["head"].numel() * params["head"].element_size()
+    bound_ms = (layer_bytes + head_bytes) / peaks["bytes"] * 1e3
+    summary = {
+        "card": card, "model": DECODE_LM, "pool_pages": lm.num_pages,
+        "pool_bytes": lm.pool_bytes, "requests": DECODE_REQUESTS,
+        "clients": DECODE_CLIENTS, **lat,
+        "decode_call_ms_by_rung": rungs,
+        "host_syncs": syncs, "ticks": ticks,
+        "host_syncs_per_tick": syncs / max(ticks, 1),
+        "profiled_window_ms": wall, "profiled_kernel_ms": kernel_ms,
+        "busy_share": kernel_ms / wall, "top_kernels": top,
+        "weight_read_bytes_per_step": layer_bytes + head_bytes,
+        "weight_read_bound_ms": bound_ms,
+        "step_ms_at_top_rung": rungs[DECODE_INFLIGHT]["per_step_ms"],
+        "teacher_forced_flips": [f for f, _ in flips],
+        **{k: check[k] for k in ("max_abs_err", "in_fusion",
+                                 "paged_fp64_err", "dense_fp64_err",
+                                 "err_ratio", "logit_limit")},
+        "stats": {k: st[k] for k in ("ticks", "tokens_generated",
+                                     "preemptions", "finished")}}
+
+    # the same engine serves [decode_prefix]'s requests with the cache off
+    prefix = _prefix_requests()
+    off = [h.result.tolist() for h in _serve_all(engine, prefix, 8)[0]]
+    engine.drain()
+    if engine.stats()["pages"]["pages_used"] != 0:
+        raise SystemExit("chip_smoke: pages in use after drain")
+    _audit_clean(engine, "decode_serve")
+    engine.close()
+    del engine, lm
+
+    # a 40-page pool: growth must preempt
+    small = _decode_engine(params, "gpt13b-small",
+                           num_pages=DECODE_SMALL_PAGES)
+    rng = np.random.default_rng(SEED + 1)
+    pre = [rng.integers(0, DECODE_LM["vocab"],
+                        DECODE_PREEMPT_PROMPT).tolist()
+           for _ in range(DECODE_PREEMPT_N)]
+    _, load2 = _serve_all(small, pre, DECODE_PREEMPT_N)
+    small.drain()
+    pst = small.stats()
+    _audit_clean(small, "decode_serve small pool")
+    small.close()
+    if pst["preemptions"] < 1 or pst["pages"]["pages_used"] != 0:
+        raise SystemExit(f"chip_smoke: the 40-page pool: {pst['preemptions']}"
+                         f" preemptions, {pst['pages']['pages_used']} pages "
+                         "in use after drain")
+    summary.update({"small_pool_preemptions": pst["preemptions"],
+                    "small_pool_wall_s": load2["wall_s"],
+                    "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+                    "phase_s": time.perf_counter() - t_phase})
+    log("[decode_serve] " + json.dumps(summary))
+    return {"prompts": prompts, "results": results, "check": check,
+            "prefix_off": off, "tokens_per_s": lat["output_tokens_per_s"],
+            "pool_pages": summary["pool_pages"]}
+
+
+def _prefix_requests():
+    rng = np.random.default_rng(SEED + 2)
+    shared = rng.integers(0, DECODE_LM["vocab"], PREFIX_LEN).tolist()
+    reqs = [shared + rng.integers(0, DECODE_LM["vocab"], int(n)).tolist()
+            for n in rng.integers(PREFIX_SUFFIX[0], PREFIX_SUFFIX[1] + 1,
+                                  PREFIX_N - 1)]
+    # the shared prefix alone (whole pages): its admission copies on write
+    return reqs + [shared]
+
+
+def phase_decode_prefix(card, params, serve):
+    """[decode_prefix]: 16 requests sharing a 256-token prefix through
+    ``prefix_cache=True``, against the same requests with the cache off."""
+    t0 = time.perf_counter()
+    engine = _decode_engine(params, "gpt13b-prefix", prefix_cache=True)
+    reqs = _prefix_requests()
+    # the first request alone fills the cache; the rest share it
+    first = engine.predict(reqs[0]).tolist()
+    handles, load = _serve_all(engine, reqs[1:], 8)
+    got = [first] + [h.result.tolist() for h in handles]
+    ties = _same_or_near_tie(params, reqs, got, serve["prefix_off"],
+                             serve["check"]["logit_limit"], "decode_prefix")
+    st = engine.stats()
+    pc = st["prefix_cache"]
+    _audit_clean(engine, "decode_prefix")
+    engine.close()
+    summary = {"card": card, "requests": PREFIX_N, "prefix": PREFIX_LEN,
+               "hits": pc["hits"], "cow_copies": pc["cow_copies"],
+               "prefill_tokens_avoided": st["prefill_tokens_avoided"],
+               "prompt_tokens": sum(len(r) for r in reqs),
+               "near_ties": ties, "wall_s": load["wall_s"],
+               "recompiles_after_warmup": st["recompiles_after_warmup"],
+               "phase_s": time.perf_counter() - t0}
+    log("[decode_prefix] " + json.dumps(summary))
+    if (st["prefill_tokens_avoided"] <= 0 or pc["cow_copies"] < 1
+            or st["recompiles_after_warmup"]):
+        raise SystemExit("chip_smoke: the prefix cache saved nothing, made "
+                         "no copy-on-write copy, or new signatures came")
+
+
+def phase_decode_spec(card, params, serve):
+    """[decode_spec]: a 4-layer truncation of the model as the draft, 4
+    draft tokens a tick; trajectories against [decode_serve]'s."""
+    from mxnet_tpu_torch.parallel.pipeline_lm import truncate_pipeline_lm
+    t0 = time.perf_counter()
+    engine = _decode_engine(
+        params, "gpt13b-spec", spec_tokens=SPEC_TOKENS,
+        draft_params=truncate_pipeline_lm(params, SPEC_DRAFT_LAYERS))
+    prompts = serve["prompts"][:SPEC_N]
+    handles, load = _serve_all(engine, prompts, SPEC_N)
+    got = [h.result.tolist() for h in handles]
+    ties = _same_or_near_tie(params, prompts, got,
+                             serve["results"][:SPEC_N],
+                             serve["check"]["logit_limit"], "decode_spec")
+    st = engine.stats()
+    _audit_clean(engine, "decode_spec")
+    engine.close()
+    lat = _latency_summary(handles, load["wall_s"])
+    summary = {"card": card, "draft_layers": SPEC_DRAFT_LAYERS,
+               "spec_tokens": SPEC_TOKENS, "requests": SPEC_N,
+               "acceptance_rate": st["spec"]["acceptance_rate"],
+               "proposed": st["spec"]["proposed"],
+               "accepted": st["spec"]["accepted"], "ticks": st["ticks"],
+               "near_ties": ties, **lat,
+               "decode_serve_tokens_per_s": serve["tokens_per_s"],
+               "recompiles_after_warmup": st["recompiles_after_warmup"],
+               "phase_s": time.perf_counter() - t0}
+    log("[decode_spec] " + json.dumps(summary))
+    if st["recompiles_after_warmup"]:
+        raise SystemExit("chip_smoke: speculative engine made new "
+                         "signatures after warmup")
+
+
+def phase_decode_quant(card, params, serve):
+    """[decode_quant]: bf16 and int8 pools at the f32 pool's bytes: the
+    same prefill and decode steps (the f32 run's tokens fed) within
+    quant_bf16 / quant_int8 of the f32 pool's logits; the int8 pool's
+    capacity and type."""
+    from mxnet_tpu_torch.opt.verify import tolerance_for
+    from mxnet_tpu_torch.serve2 import PagedLM
+    check = serve["check"]
+    prompt = serve["prompts"][0][:200]
+    out = {"card": card, "f32_pages": serve["pool_pages"]}
+    for kv, cls in (("bf16", "quant_bf16"), ("int8", "quant_int8")):
+        pages = PagedLM.pages_for_bytes(
+            DECODE_POOL_BYTES, page_size=DECODE_PAGE,
+            n_layers=DECODE_LM["n_layers"], n_heads=DECODE_LM["n_heads"],
+            d_head=DECODE_LM["d_head"], kv_dtype=kv)
+        lm = PagedLM(params, page_size=DECODE_PAGE, num_pages=pages,
+                     max_pages_per_seq=39, kv_dtype=kv, name=f"check-{kv}",
+                     device="cuda")
+        _, logits = _paged_logits(lm, prompt, DECODE_CHECK_STEPS,
+                                  forced=check["fed"])
+        rtol, atol = tolerance_for(cls, "float32")
+        ok = bool(torch.allclose(logits, check["logits"], rtol=rtol,
+                                 atol=atol))
+        out[kv] = {"pages": pages, "pool_bytes": lm.pool_bytes,
+                   "pool_dtype": str(lm.pools["k"].dtype),
+                   "max_abs_err_vs_f32_pool":
+                       float((logits - check["logits"]).abs().max()),
+                   "class": cls, "within_class": ok,
+                   "pages_over_f32": pages / serve["pool_pages"]}
+        del lm, logits
+        torch.cuda.empty_cache()
+        log(f"[decode_quant] {kv}: " + json.dumps(out[kv]))
+        if not ok:
+            raise SystemExit(f"chip_smoke: {kv} pool logits outside {cls}")
+    log("[decode_quant] " + json.dumps(out))
+    if (out["int8"]["pages_over_f32"] < 3.5
+            or out["int8"]["pool_dtype"] != "torch.int8"):
+        raise SystemExit("chip_smoke: the int8 pool is not what it should "
+                         "be")
+
+
+def phase_decode_router(card, params):
+    """[decode_router]: a Router over 2 DecodeEngine replicas sharing one
+    parameter tree: a rolling reload under closed-loop load dropping
+    nothing; a replica whose scheduler dies mid-load, its breaker open
+    and its requests served by the other; one HTTP round trip."""
+    import urllib.request
+    from mxnet_tpu_torch.serve import (ModelRegistry, ServingEndpoint,
+                                       run_loadgen)
+    from mxnet_tpu_torch.serve2 import Router
+    t0 = time.perf_counter()
+    router = Router(name="gpt13b-router")
+    router.add_group("gpt", lambda v, r: _decode_engine(
+        params, f"gpt13b-r{r}-v{v}", pool_bytes=ROUTER_POOL_BYTES,
+        max_new_default=32), n_replicas=2)
+    rng = np.random.default_rng(SEED + 3)
+    prompts = [rng.integers(0, DECODE_LM["vocab"], int(n)).tolist()
+               for n in rng.integers(64, 257, ROUTER_N)]
+    box = {}
+
+    def reload_mid():
+        time.sleep(0.5)
+        box["report"] = router.rolling_reload("gpt")
+
+    thread = threading.Thread(target=reload_mid, daemon=True)
+    thread.start()
+    load = run_loadgen(lambda p: router.predict("gpt", p, timeout_ms=6e5),
+                       prompts, concurrency=8)
+    thread.join(600)
+    rep = box.get("report", {})
+    brief = {k: rep.get(k) for k in ("new_version", "drained", "dropped",
+                                     "duration_s")}
+    log(f"[decode_router] rolling reload under load: {load['completed']}/"
+        f"{ROUTER_N} served, errors {load['errors'][:2]}, reload {brief}")
+    if (thread.is_alive() or load["completed"] != ROUTER_N or load["errors"]
+            or rep.get("dropped") != 0 or rep.get("new_version") != 2):
+        raise SystemExit("chip_smoke: the rolling reload dropped requests")
+    # replica 0's scheduler dies mid-load
+    victim = router._group("gpt").replicas[0].engine
+
+    def die():
+        raise RuntimeError("replica lost")
+
+    def kill_mid():
+        time.sleep(0.3)
+        victim.tick = die
+        with victim._cv:
+            victim._cv.notify_all()
+    killer = threading.Thread(target=kill_mid, daemon=True)
+    killer.start()
+    load2 = run_loadgen(lambda p: router.predict("gpt", p, timeout_ms=6e5),
+                        prompts, concurrency=8)
+    killer.join(60)
+    state = router._group("gpt").replicas[0].breaker.state
+    log(f"[decode_router] replica 0 lost mid-load: {load2['completed']}/"
+        f"{ROUTER_N} served, errors {load2['errors'][:2]}; its breaker "
+        f"{state}; {victim.stats()['finished']} finished there")
+    if load2["completed"] != ROUTER_N or load2["errors"] or state != "open":
+        raise SystemExit("chip_smoke: requests did not fail over, or the "
+                         "breaker stayed closed")
+    # the HTTP front door
+    front = ModelRegistry()
+    front.register("gpt", router.frontend("gpt"))
+    ep = ServingEndpoint(front, host="127.0.0.1", port=0).start()
+    try:
+        req = urllib.request.Request(
+            ep.address + "/v1/models/gpt:predict", method="POST",
+            data=json.dumps({"inputs": prompts[0]}).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=600) as r:
+            body = json.loads(r.read())
+        direct = router.predict("gpt", prompts[0]).tolist()
+    finally:
+        ep.stop()
+    if body["outputs"] != direct:
+        raise SystemExit("chip_smoke: the HTTP endpoint's tokens differ "
+                         "from a direct predict")
+    audit = router.audit("gpt")
+    router.close()
+    summary = {"card": card, "replicas": 2, "requests": ROUTER_N,
+               "reload": rep, "reload_load_wall_s": load["wall_s"],
+               "failover_load_wall_s": load2["wall_s"],
+               "breaker_after_loss": state, "http_tokens_equal": True,
+               "audit_findings": len(audit["findings"]),
+               "phase_s": time.perf_counter() - t0}
+    log("[decode_router] " + json.dumps(summary, default=str))
+
+
+def phase_decode(card, peaks):
+    """The autoregressive serving slice: every decode phase on one
+    parameter tree, the engines of each closed before the next."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    params = _seeded_pipeline_lm()
+    torch.cuda.synchronize()
+    log(f"[decode_serve] parameters drawn on the card in "
+        f"{time.perf_counter() - t0:.2f} s; "
+        "torch.backends.cuda.matmul.allow_tf32 = False")
+    serve = phase_decode_serve(card, peaks, params)
+    phase_decode_prefix(card, params, serve)
+    phase_decode_spec(card, params, serve)
+    phase_decode_quant(card, params, serve)
+    phase_decode_router(card, params)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[decode] the five decode phases took "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
 KERNEL_NAMES = {"flash_fwd": ("flash_fwd_kernel", "flash_fwd_tc_kernel",
                               "flash_fwd_tc32_kernel",
                               "flash_fwd_tc32_d128_kernel"),
@@ -4414,8 +5080,12 @@ def profiled_step(step):
 def top_rung_breakdown(engine, ladder, top_seq):
     """Where one full dispatch at the top rung goes: the host wall time of
     ``predict`` (staging, copies, forward, unpadding) against the device
-    time of the model's forward and the host time of copying its logits
-    back. Runs after the served load, so its launches are not counted."""
+    time of the model's forward and the host time of bringing its logits
+    back as the engine does (``_to_host``: the request's rows sliced on
+    the card, copied into pinned memory asynchronously, one sync), beside
+    the whole padded block's pageable ``.cpu()`` (the engine's copy until
+    its device-side unpadding). Runs after the served load, so its
+    launches are not counted."""
     b = ladder.max_batch
     tokens_np = np.ones((b, top_seq), np.int32)
     walls = []
@@ -4428,12 +5098,19 @@ def top_rung_breakdown(engine, ladder, top_seq):
         forward_ms = cuda_ms(lambda: engine.model(tokens), iters=5, warm=1)
         logits = engine.model(tokens)
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(3):
-            logits.cpu()
-        d2h_ms = (time.perf_counter() - t0) * 1e3 / 3
+
+        def host_ms(fn):
+            ms = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                fn()
+                ms.append((time.perf_counter() - t0) * 1e3)
+            return sorted(ms)[1]
+        d2h_ms = host_ms(lambda: engine._to_host([logits]))
+        pageable_ms = host_ms(lambda: logits.cpu().numpy())
     return {"rung": [b, top_seq], "predict_wall_ms": sorted(walls)[1],
             "forward_device_ms": forward_ms, "logits_to_host_ms": d2h_ms,
+            "whole_block_pageable_ms": pageable_ms,
             "logits_bytes": logits.numel() * logits.element_size()}
 
 
@@ -4465,6 +5142,7 @@ def main():
     linear = phase_sparse_linear(card)
     phase_sparse_embedding(card)
     phase_sparse_params(card, linear)
+    phase_decode(card, peaks)
     enc32, enc16 = enc["launches"], enc["fp16"]
     nd_attn = {r["dtype"]: r["launches"] for r in nd_run["attention"]}
     nd_b1 = nd_run["b1"]

@@ -1,7 +1,9 @@
 """Typed flags of the port: the flags its modules read.
 
 Counterpart of ``mxnet_tpu/config.py``, holding the ``MXSERVE_*`` flags
-the serving engine and batcher read, the optimizer's
+the serving engine and batcher read, the ``MXSERVE2_*`` and ``MXSERVE3_*``
+flags of the decode tier (``serve2/``), the circuit breaker's
+``MXRESIL_BREAKER_*``, the optimizer's
 ``MXNET_OPTIMIZER_AGGREGATION_SIZE``, the nd ops'
 ``MXNET_SAFE_ACCUMULATION`` and the sparse storage's
 ``MXNET_STORAGE_FALLBACK_LOG_VERBOSE``. Resolution order: :func:`set_flag`
@@ -12,7 +14,7 @@ from __future__ import annotations
 import os
 import threading
 from dataclasses import dataclass
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 __all__ = ["Flag", "get", "set_flag", "unset_flag"]
 
@@ -23,6 +25,7 @@ class Flag:
     type: type
     default: Any
     doc: str
+    choices: Optional[tuple] = None
 
 
 _FLAGS: Dict[str, Flag] = {f.name: f for f in (
@@ -38,6 +41,47 @@ _FLAGS: Dict[str, Flag] = {f.name: f for f in (
          "raises QueueFullError."),
     Flag("MXSERVE_MAX_BATCH", int, 0,
          "Row cap per serving dispatch. 0 = the ladder's top batch rung."),
+    Flag("MXSERVE2_PAGE_SIZE", int, 16,
+         "KV-cache page width in tokens of the continuous-batching tier "
+         "(serve2.kvcache): admit/finish/preempt never change the decode "
+         "programs' shapes."),
+    Flag("MXSERVE2_NUM_PAGES", int, 256,
+         "Pages in a serve2 KV pool (page 0 is the reserved null page); "
+         "running out under load preempts the youngest sequence."),
+    Flag("MXSERVE2_MAX_INFLIGHT", int, 8,
+         "Sequences one serve2 DecodeEngine decodes at once; the decode "
+         "batch rungs are the powers of two up to it."),
+    Flag("MXSERVE2_REPLICAS", int, 2,
+         "Default replicas per model group of a serve2 Router."),
+    Flag("MXSERVE2_RELOAD_DRAIN_TIMEOUT_S", float, 30.0,
+         "Per-replica drain budget of Router.rolling_reload; requests "
+         "still queued after it count as dropped."),
+    Flag("MXSERVE2_DECODE_STEPS", int, 4,
+         "Decode iterations per serve2 decode call (n-step scheduling); "
+         "admit/preempt/finish coarsen to this many tokens."),
+    Flag("MXSERVE2_PREFILL_BUCKETS", str, "16,32,64",
+         "Prompt-length rungs of the serve2 prefill (comma list); longer "
+         "prompts are rejected at submit."),
+    Flag("MXSERVE3_PREFIX_CACHE", bool, False,
+         "Prefix caching in serve2 DecodeEngines: full prompt pages are "
+         "content-hashed and shared (refcounted, copy-on-write); greedy "
+         "outputs are unchanged."),
+    Flag("MXSERVE3_PREFIX_CACHE_PAGES", int, 0,
+         "Cap on pages the prefix cache may pin (0 = no cap; pool "
+         "pressure still evicts LRU cache pages before preemption)."),
+    Flag("MXSERVE3_SPEC_TOKENS", int, 0,
+         "Draft tokens proposed per speculative tick when a DecodeEngine "
+         "has draft_params (0 = off); greedy acceptance is exact."),
+    Flag("MXSERVE3_KV_DTYPE", str, "f32",
+         "Storage type of the serve2 KV pools: 'f32', 'bf16' (quant_bf16 "
+         "class) or 'int8' (per-slot f32 scales, quant_int8 class).",
+         choices=("f32", "bf16", "int8")),
+    Flag("MXRESIL_BREAKER_FAILURES", int, 5,
+         "Consecutive failures that open a circuit breaker "
+         "(resil.policy.CircuitBreaker)."),
+    Flag("MXRESIL_BREAKER_COOLDOWN_S", float, 30.0,
+         "Seconds an open circuit breaker waits before one half-open "
+         "probe."),
     Flag("MXNET_OPTIMIZER_AGGREGATION_SIZE", int, 4,
          "Parameters per aggregated update (Optimizer.update_multi) for "
          "optimizers with a fused_apply; clamped to 1-45. Multi-precision "
@@ -64,15 +108,20 @@ def get(name: str) -> Any:
         return f.default
     if f.type is bool:
         return raw.strip().lower() not in ("0", "false", "no", "off", "")
-    return f.type(raw)
+    val = f.type(raw)
+    if f.choices and val not in f.choices:
+        raise ValueError(f"{name}={val!r} not in {f.choices}")
+    return val
 
 
 def set_flag(name: str, value: Any) -> None:
     """Runtime override (highest precedence)."""
     f = _FLAGS[name]
+    value = value if isinstance(value, f.type) else f.type(value)
+    if f.choices and value not in f.choices:
+        raise ValueError(f"{name}={value!r} not in {f.choices}")
     with _LOCK:
-        _OVERRIDES[name] = value if isinstance(value, f.type) \
-            else f.type(value)
+        _OVERRIDES[name] = value
 
 
 def unset_flag(name: str) -> None:

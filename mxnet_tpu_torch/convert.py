@@ -6,6 +6,10 @@
 LayerNorm's or BatchNorm's ``gamma``/``beta`` ``weight``/``bias``, as
 PyTorch does; BatchNorm's ``running_mean``/``running_var`` keep their names
 and are carried like any parameter.
+
+The serving LM stack (``parallel/pipeline_lm.py``) is a nested dict in
+both packages, with the same keys and layouts:
+:func:`pipeline_lm_from_mxnet_tpu` carries it across.
 """
 from __future__ import annotations
 
@@ -16,10 +20,12 @@ import torch
 from torch import nn
 
 from .base import MXNetError
+from .context import resolve_device
 from .gluon.parameter import JAX_NAMES, collect_params
+from .parallel.pipeline_lm import pipeline_lm_spec
 
 __all__ = ["params_from_mxnet_tpu", "params_to_mxnet_tpu", "port_name",
-           "mxnet_tpu_shapes"]
+           "mxnet_tpu_shapes", "pipeline_lm_from_mxnet_tpu"]
 
 _RENAMES = {v: k for k, v in JAX_NAMES.items()}
 
@@ -70,4 +76,52 @@ def params_from_mxnet_tpu(named: Mapping[str, np.ndarray],
     if missing:
         raise MXNetError(f"no value given for {len(missing)} parameter(s): "
                          f"{missing[:8]}")
+    return out
+
+
+def _flat_tree(tree: Mapping, prefix=()) -> Dict[tuple, object]:
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            out.update(_flat_tree(v, prefix + (k,)))
+        else:
+            out[prefix + (k,)] = v
+    return out
+
+
+def pipeline_lm_from_mxnet_tpu(tree: Mapping, device="cuda") -> Dict:
+    """The port's ``init_pipeline_lm`` tree from the JAX package's (a
+    nested dict of arrays, e.g. ``jax.tree.map(numpy.asarray, params)``):
+    float32 tensors on ``device``. The widths are read from ``embed``,
+    ``layers/wqkv``, ``layers/w1`` and ``head``; every leaf's shape is
+    checked against them, and a missing or extra key raises."""
+    dev = resolve_device(device)
+    flat = {k: np.asarray(v) for k, v in _flat_tree(tree).items()}
+    for need in (("embed",), ("layers", "wqkv"), ("layers", "w1"),
+                 ("head",)):
+        if need not in flat or flat[need].ndim not in (2, 4, 5):
+            raise MXNetError(f"pipeline_lm tree: no usable {'/'.join(need)}")
+    vocab, d_model = flat[("embed",)].shape
+    n_layers, _, _, n_heads, d_head = flat[("layers", "wqkv")].shape
+    _, n_experts, _, d_ff = flat[("layers", "w1")].shape
+    spec = pipeline_lm_spec(vocab=vocab, d_model=d_model,
+                            n_layers=n_layers, n_heads=n_heads,
+                            d_head=d_head, d_ff=d_ff, n_experts=n_experts)
+    want = {path: tuple(shape) for path, shape, _ in spec}
+    extra = sorted("/".join(k) for k in set(flat) - set(want))
+    missing = sorted("/".join(k) for k in set(want) - set(flat))
+    if extra or missing:
+        raise MXNetError(f"pipeline_lm tree: missing {missing}, "
+                         f"unexpected {extra}")
+    out: Dict = {}
+    for path, shape in want.items():
+        arr = flat[path]
+        if tuple(arr.shape) != shape:
+            raise MXNetError(f"pipeline_lm tree: {'/'.join(path)} has "
+                             f"shape {arr.shape}, expected {shape}")
+        node = out
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = torch.from_numpy(
+            np.array(arr, dtype=np.float32)).to(dev)
     return out

@@ -9,9 +9,12 @@
 - :mod:`~mxnet_tpu_torch.serve.engine` — :class:`ServingEngine`: warmup
   over every ladder rung and double-buffered host staging, over a
   ``torch.nn.Module`` or a plain callable;
-- :mod:`~mxnet_tpu_torch.serve.loadgen` — closed- and open-loop load.
+- :mod:`~mxnet_tpu_torch.serve.loadgen` — closed- and open-loop load;
+- :mod:`~mxnet_tpu_torch.serve.endpoint` — :class:`ModelRegistry`
+  (version pinning, atomic swap) and :class:`ServingEndpoint`, the HTTP
+  JSON front door over ``ThreadingHTTPServer``.
 
-The HTTP endpoint waits for a later slice of the port.
+Autoregressive LMs are served by :mod:`mxnet_tpu_torch.serve2`.
 """
 from .batcher import (BatcherStoppedError, DeadlineExceededError,  # noqa: F401
                       DynamicBatcher, InvalidRequestError,
@@ -19,6 +22,7 @@ from .batcher import (BatcherStoppedError, DeadlineExceededError,  # noqa: F401
 from .buckets import (BucketLadder, BucketOverflowError,  # noqa: F401
                       default_ladder, parse_bucket_spec)
 from .engine import InputSpec, ServingEngine  # noqa: F401
+from .endpoint import ModelRegistry, ServingEndpoint  # noqa: F401
 from .loadgen import run_loadgen, run_loadgen_open  # noqa: F401
 
 __all__ = [
@@ -26,5 +30,6 @@ __all__ = [
     "default_ladder", "DynamicBatcher", "Request", "QueueFullError",
     "DeadlineExceededError", "BatcherStoppedError",
     "RequestTooLargeError", "InvalidRequestError", "ServingEngine",
-    "InputSpec", "run_loadgen", "run_loadgen_open",
+    "InputSpec", "run_loadgen", "run_loadgen_open", "ModelRegistry",
+    "ServingEndpoint",
 ]

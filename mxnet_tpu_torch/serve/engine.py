@@ -14,7 +14,12 @@ and everything between a request and the device:
 - **reusable staging buffers**: a pair of host staging buffers per
   signature alternates across dispatches — no per-dispatch allocation,
   and one dispatch of headroom for an asynchronous host-to-device copy
-  (the copy from these pageable buffers is synchronous today).
+  (the copy from these pageable buffers is synchronous today);
+- **device-side unpadding**: each request's rows and real positions are
+  sliced out of the padded outputs on the device, and only those go to
+  the host, asynchronously into one reused pinned buffer, with one sync
+  per dispatch (the JAX package copies the whole padded bucket and
+  unpads on the host).
 
 Two model kinds are accepted: a ``torch.nn.Module`` (put in eval mode and
 run under ``torch.inference_mode``) and any plain callable over tensors.
@@ -113,7 +118,9 @@ class ServingEngine:
     batching : bool — route ``predict`` through the dynamic batcher
         (default True). False = direct dispatch (still bucketed).
     unpad : optional ``f(rows, orig_items, padded_items)`` overriding
-        the output-unpadding heuristic (see :func:`_unpad_output`).
+        the output-unpadding heuristic (see :func:`_unpad_output`);
+        ``rows`` is a request's block of a device output (a tensor),
+        and the hook returns a slice of it.
     device : where the model runs, default ``"cuda"``.
     """
 
@@ -140,6 +147,8 @@ class ServingEngine:
         self._seen_programs: set = set()    # full padded signatures
         self._staging: Dict[Tuple, List[List[np.ndarray]]] = {}
         self._staging_flip: Dict[Tuple, int] = {}
+        self._host_lock = threading.Lock()  # the pinned result buffers
+        self._pinned: Dict[torch.dtype, torch.Tensor] = {}
         self._warmup_report: List[dict] = []
         self._after_warmup_count = 0  # per-engine; the registry counter
         # below is the process-global aggregate across all engines
@@ -228,6 +237,35 @@ class ServingEngine:
             outs = self.model(*in_vals)
         return list(outs) if isinstance(outs, (tuple, list)) else [outs]
 
+    def _to_host(self, blocks: List[torch.Tensor]) -> List[np.ndarray]:
+        """Numpy copies of device ``blocks``. On CUDA each block is copied
+        asynchronously into its own stretch of a pinned buffer (one per
+        dtype, grown as needed, reused across dispatches), then one sync,
+        then out of the buffer by torch's CPU copy (threaded: a 500 MB
+        block's first touch of fresh pages is most of its cost)."""
+        if self.device.type != "cuda":
+            return [b.numpy() for b in blocks]
+        need: Dict[torch.dtype, int] = {}
+        for b in blocks:
+            need[b.dtype] = need.get(b.dtype, 0) + b.numel()
+        with self._host_lock:
+            for dt, n in need.items():
+                buf = self._pinned.get(dt)
+                if buf is None or buf.numel() < n:
+                    self._pinned[dt] = torch.empty(n, dtype=dt,
+                                                   pin_memory=True)
+            offs = dict.fromkeys(need, 0)
+            views = []
+            for b in blocks:
+                off, n = offs[b.dtype], b.numel()
+                view = self._pinned[b.dtype][off:off + n].view(b.shape)
+                view.copy_(b, non_blocking=True)
+                offs[b.dtype] = off + n
+                views.append(view)
+            torch.cuda.current_stream(self.device).synchronize()
+            return [torch.empty(v.shape, dtype=v.dtype).copy_(v).numpy()
+                    for v in views]
+
     def _sync(self):
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
@@ -259,22 +297,22 @@ class ServingEngine:
             self._pad_sum += bucket / max(rows, 1)
             self._pad_n += 1
             outs_dev = self._execute(staging)
-        # copy to the host OUTSIDE the lock: a concurrent direct-dispatch
-        # caller (batching=False) can assemble and launch into the
-        # flipped staging set while this thread waits on the device
-        outs = [o.cpu().numpy() for o in outs_dev]
+        # slice each request's rows and positions on the device, and
+        # copy them to the host OUTSIDE the lock: a concurrent
+        # direct-dispatch caller (batching=False) can assemble and launch
+        # into the flipped staging set while this thread waits
         padded_tuples = [tuple(ps) for ps in padded_items]
-        results = []
+        blocks = []
         offset = 0
         for r in requests:
-            sl = []
             orig_items = [tuple(a.shape[1:]) for a in r.arrays]
-            for o in outs:
-                block = o[offset:offset + r.n_items]
-                sl.append(self._unpad(block, orig_items, padded_tuples))
-            results.append(sl)
+            for o in outs_dev:
+                blocks.append(self._unpad(o[offset:offset + r.n_items],
+                                          orig_items, padded_tuples))
             offset += r.n_items
-        return results
+        host = self._to_host(blocks)
+        k = len(outs_dev)
+        return [host[i * k:(i + 1) * k] for i in range(len(requests))]
 
     # ------------------------------------------------------------------
     # public API

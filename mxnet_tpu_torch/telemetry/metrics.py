@@ -3,17 +3,20 @@
 Counterpart of ``mxnet_tpu/telemetry/metrics.py``, holding the part the
 serving layer feeds: named instruments in one registry, a histogram with
 exact count/sum/min/max and quantiles over a reservoir of recent samples,
-and the one nearest-rank :func:`percentile_of`. Exporters and the pod
-merge wait for the slices that need them.
+the one nearest-rank :func:`percentile_of`, :func:`unregister`, the
+owner tokens that tie per-instance instruments to the object that retires
+them, and the Prometheus text the HTTP endpoint serves. The pod merge
+waits for the slice that needs it.
 """
 from __future__ import annotations
 
 import threading
 from collections import deque
-from typing import Dict
+from typing import Dict, List
 
 __all__ = ["Counter", "Gauge", "Histogram", "counter", "gauge", "histogram",
-           "snapshot", "percentile_of"]
+           "snapshot", "percentile_of", "unregister", "OwnerToken", "owner",
+           "all_metrics", "to_prometheus"]
 
 
 def percentile_of(sorted_vals, q: float):
@@ -137,8 +140,81 @@ def histogram(name: str, doc: str = "") -> Histogram:
     return _get_or_create(Histogram, name, doc)
 
 
+def unregister(name: str) -> bool:
+    """Drop one instrument by name (per-engine gauges when their engine
+    is closed: a reload must not leave a dead pool looking live)."""
+    with _LOCK:
+        return _METRICS.pop(name, None) is not None
+
+
+class OwnerToken:
+    """Ties per-instance instruments (an engine's pool gauges, a
+    replica's breaker gauge) to the object that registered them: it
+    adopts their names at construction and closes the token once it has
+    unregistered them; :meth:`leaked` names any still registered."""
+
+    __slots__ = ("name", "names", "closed")
+
+    def __init__(self, name: str):
+        self.name = str(name)
+        self.names: set = set()
+        self.closed = False
+
+    def adopt(self, *names) -> "OwnerToken":
+        """Instrument names (or instruments) this owner retires."""
+        for n in names:
+            self.names.add(n.name if isinstance(n, Metric) else str(n))
+        return self
+
+    def close(self) -> None:
+        self.closed = True
+
+    def leaked(self) -> List[str]:
+        """Adopted instruments still registered after close."""
+        if not self.closed:
+            return []
+        with _LOCK:
+            return sorted(n for n in self.names if n in _METRICS)
+
+    def __repr__(self):
+        return (f"<OwnerToken {self.name!r} {len(self.names)} "
+                f"instrument(s){' closed' if self.closed else ''}>")
+
+
+def owner(name: str) -> OwnerToken:
+    """A new instrument owner (one per engine or replica). The audit over
+    every owner (the JAX package's metriclint) waits for ROADMAP Queue A
+    item 8."""
+    return OwnerToken(name)
+
+
+def all_metrics() -> Dict[str, Metric]:
+    with _LOCK:
+        return dict(_METRICS)
+
+
 def snapshot() -> Dict[str, object]:
     """{name: value} for every instrument; histogram values are dicts."""
-    with _LOCK:
-        metrics = sorted(_METRICS.items())
-    return {name: m.value() for name, m in metrics}
+    return {name: m.value() for name, m in sorted(all_metrics().items())}
+
+
+def to_prometheus() -> str:
+    """Prometheus text exposition of the current snapshot."""
+    lines: List[str] = []
+    for name, m in sorted(all_metrics().items()):
+        if m.doc:
+            lines.append(f"# HELP {name} {m.doc}")
+        if isinstance(m, Histogram):
+            lines.append(f"# TYPE {name} summary")
+            v = m.value()
+            lines.append(f"{name}_count {v['count']}")
+            lines.append(f"{name}_sum {v['sum']}")
+            if v["count"]:
+                lines.append(f"{name}_min {v['min']}")
+                lines.append(f"{name}_max {v['max']}")
+                lines.append(f'{name}{{quantile="0.5"}} {v["p50"]}')
+                lines.append(f'{name}{{quantile="0.99"}} {v["p99"]}')
+        else:
+            lines.append(f"# TYPE {name} {m.kind}")
+            lines.append(f"{name} {m.value()}")
+    return "\n".join(lines) + "\n"

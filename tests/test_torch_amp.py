@@ -30,6 +30,8 @@ from mxnet_tpu_torch.gluon import Trainer, collect_params
 from mxnet_tpu_torch.gluon import loss as torch_loss
 from mxnet_tpu_torch.gluon.nn import Dense, HybridSequential
 
+from test_torch_resnet_train import keep_zeros
+
 RTOL, ATOL = 1e-5, 1e-6
 FLAGS = [False, False, False, True, False, True, True, False, False, False,
          False, False, False, True, False]
@@ -106,7 +108,7 @@ def _jax_loop():
     net = jax_gluon.nn.HybridSequential()
     net.add(jax_gluon.nn.Dense(HID, activation="relu", in_units=IN),
             jax_gluon.nn.Dense(OUT, in_units=HID))
-    net.initialize()
+    net.initialize(keep_zeros)   # every value is set below
     params = net._collect_params_with_prefix()
     for n, p in params.items():
         p.set_data(mx.nd.array(weights[n]))

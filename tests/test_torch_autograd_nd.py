@@ -33,6 +33,8 @@ import mxnet_tpu_torch as mx
 from mxnet_tpu_torch import autograd, gluon, metric, nd
 from mxnet_tpu_torch.gluon.parameter import make_param
 
+from test_torch_resnet_train import keep_zeros
+
 RTOL, ATOL = 1e-5, 1e-6
 GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-5
 
@@ -313,7 +315,7 @@ def test_user_hybrid_block_trains_as_in_the_jax_package():
     w = _weights()
     batches = _batches()
     jnet = _JLeNet()
-    jnet.initialize()
+    jnet.initialize(keep_zeros)   # every value is set below
     for k, v in w.items():
         getattr(jnet, k).set_data(jnd.array(v))
     jloss, jacc = _train(jnd, jag, jgluon, jmetric, jnet, batches)

@@ -23,6 +23,8 @@ from mxnet_tpu_torch.gluon import loss as torch_loss
 from mxnet_tpu_torch.gluon.nn import Dropout
 from mxnet_tpu_torch.models import BERTModel
 
+from test_torch_resnet_train import keep_zeros
+
 V, C, L, H, FFN, T, B = 50, 32, 2, 4, 64, 16, 2
 
 
@@ -121,7 +123,7 @@ def test_bfloat16_and_refusals(tmp_path):
 def _jax_bert():
     net = jax_tf.BERTModel(vocab_size=V, units=C, num_layers=L, num_heads=H,
                            hidden_size=FFN, max_len=32, dropout=0.0)
-    net.initialize()
+    net.initialize(keep_zeros)   # every value is set below
     net(mx.nd.array(np.zeros((1, 4)), dtype="int32"))
     rng = np.random.RandomState(3)
     params = net._collect_params_with_prefix()

@@ -1176,3 +1176,117 @@ def test_storage_fallback_warns_on_cuda():
     assert sum("dense implementation" in str(w.message) for w in ws) == 1
     assert out._data.is_cuda
     np.testing.assert_array_equal(out.asnumpy(), [[0, 0], [1, 1], [0, 0]])
+
+
+# -- autoregressive serving (serve2) ----------------------------------------
+
+def _tiny_lm(device):
+    from mxnet_tpu_torch.parallel.pipeline_lm import init_pipeline_lm
+    return init_pipeline_lm(0, vocab=64, d_model=32, n_layers=2, n_heads=2,
+                            d_head=16, d_ff=64, n_experts=2, device=device)
+
+
+@pytest.mark.parametrize("kv_dtype", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("form", ["paged_attention", "paged_attention_flat"])
+def test_paged_attention_on_cuda_matches_the_cpu(form, kv_dtype):
+    """Both formulations on the card against the CPU on the same stored
+    pools (fp32 math on both: 1e-5), a row of length 0 exactly zero."""
+    _need_cuda()
+    from mxnet_tpu_torch.parallel import paged_attention as pa
+    g = torch.Generator().manual_seed(0)
+    S, H, K = 32 * 4, 2, 16
+    q = torch.randn(4, H, K, generator=g)
+    k = torch.randn(S, H, K, generator=g)
+    v = torch.randn(S, H, K, generator=g)
+    ks = vs = None
+    if kv_dtype == "int8":
+        ks = k.abs().amax((1, 2)) / 127
+        vs = v.abs().amax((1, 2)) / 127
+        k = torch.round(k / ks[:, None, None]).to(torch.int8)
+        v = torch.round(v / vs[:, None, None]).to(torch.int8)
+    elif kv_dtype == "bf16":
+        k, v = k.bfloat16(), v.bfloat16()
+    bt = torch.randint(1, 32, (4, 5), generator=g)
+    lengths = torch.tensor([0, 3, 8, 20])
+    fn = getattr(pa, form)
+    cuda = lambda x: None if x is None else x.cuda()  # noqa: E731
+    want = fn(q, k, v, bt, lengths, page_size=4, kscale=ks, vscale=vs)
+    got = fn(q.cuda(), k.cuda(), v.cuda(), bt.cuda(), lengths.cuda(),
+             page_size=4, kscale=cuda(ks), vscale=cuda(vs))
+    assert got.is_cuda
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+    assert not got[0].any()
+
+
+def test_paged_lm_on_cuda_matches_the_cpu_and_keeps_its_pools():
+    """Prefill, decode (4 steps a call) and verify on the card against the
+    same calls on the CPU (TF32 off; 1e-4 on logits of a 2-layer model),
+    the same greedy tokens, and the pools' storage unchanged."""
+    _need_cuda()
+    from mxnet_tpu_torch.serve2 import PagedLM
+    torch.backends.cuda.matmul.allow_tf32 = False
+    params = _tiny_lm("cpu")
+    geom = dict(page_size=4, num_pages=16, max_pages_per_seq=4,
+                decode_steps=4)
+    lms = [PagedLM(params, device=d, **geom) for d in ("cpu", "cuda")]
+    ptrs = {k: v.data_ptr() for k, v in lms[1].pools.items()}
+    rows = np.array([[1, 2, 3, 4], [5, 6, 7, 8]], "int32")
+    outs = []
+    for lm in lms:
+        first = []
+        for i, p in enumerate([[3, 9, 1, 4, 7], [11, 2, 30, 5, 5, 8]]):
+            padded = np.zeros((8,), "int32")
+            padded[:len(p)] = p
+            n, last = lm.prefill(padded, len(p), rows[i])
+            first.append((n, last.cpu()))
+        toks, logits = lm.decode(rows, np.array([5, 6], "int32"),
+                                 np.array([f[0] for f in first], "int32"),
+                                 np.array([4, 2], "int32"))
+        vo, va, vl = lm.verify(rows, np.array([9, 8], "int32"),
+                               np.array([[1, 2, 3], [4, 5, 6]], "int32"),
+                               np.array([3, 3], "int32"))
+        outs.append((first, toks, logits.cpu(), vo, va, vl.cpu()))
+    (f0, t0, l0, o0, a0, v0), (f1, t1, l1, o1, a1, v1) = outs
+    for (n0, x0), (n1, x1) in zip(f0, f1):
+        assert n0 == n1
+        torch.testing.assert_close(x1, x0, rtol=1e-4, atol=1e-4)
+    assert np.array_equal(t0[0], t1[0]) and np.array_equal(t0[1, :2],
+                                                           t1[1, :2])
+    torch.testing.assert_close(l1, l0, rtol=1e-4, atol=1e-4)
+    assert np.array_equal(a0, a1)
+    torch.testing.assert_close(v1, v0, rtol=1e-4, atol=1e-4)
+    assert ptrs == {k: v.data_ptr() for k, v in lms[1].pools.items()}
+
+
+def test_decode_engine_defaults_to_the_card():
+    """A DecodeEngine built without ``device`` runs on the card: every
+    parameter and pool there, greedy tokens equal to a CPU engine's, the
+    pools' storage kept across ticks, no signature after warmup."""
+    _need_cuda()
+    from mxnet_tpu_torch.serve2 import DecodeEngine
+    torch.backends.cuda.matmul.allow_tf32 = False
+    params = _tiny_lm("cuda")
+    kw = dict(page_size=4, num_pages=32, max_inflight=4,
+              prefill_buckets=[8], max_new_default=6, max_seq_len=24)
+    eng = DecodeEngine(params, name="cuda-default", **kw)
+    ref = DecodeEngine({k: ({kk: vv.cpu() for kk, vv in v.items()}
+                            if isinstance(v, dict) else v.cpu())
+                        for k, v in params.items()}, name="cuda-ref",
+                       device="cpu", **kw)
+    try:
+        eng.warmup()
+        ref.warmup()
+        assert eng.device.type == "cuda"
+        assert all(t.is_cuda for t in eng.lm.pools.values())
+        assert all(t.is_cuda for t in eng.lm.params["layers"].values())
+        ptrs = {k: v.data_ptr() for k, v in eng.lm.pools.items()}
+        prompts = [[3, 9, 1, 4, 7], [1, 2, 3], [5, 5, 5, 5, 5, 5, 5]]
+        hs = [eng.submit(p) for p in prompts]
+        assert eng.run_until_idle(60.0)
+        for p, h in zip(prompts, hs):
+            assert h.result.tolist() == ref.predict(p).tolist()
+        assert ptrs == {k: v.data_ptr() for k, v in eng.lm.pools.items()}
+        assert eng.stats()["recompiles_after_warmup"] == 0
+    finally:
+        eng.close()
+        ref.close()

@@ -48,7 +48,15 @@ SLICE_MODULES = [
     "mxnet_tpu_torch.module.bucketing_module",
     "mxnet_tpu_torch.module.sequential_module",
     # slice 13: sparse storage
-    "mxnet_tpu_torch.ndarray.sparse", "mxnet_tpu_torch.ndarray.sparse_ops"]
+    "mxnet_tpu_torch.ndarray.sparse", "mxnet_tpu_torch.ndarray.sparse_ops",
+    # slice 14: autoregressive LM serving
+    "mxnet_tpu_torch.opt.verify", "mxnet_tpu_torch.parallel.pipeline_lm",
+    "mxnet_tpu_torch.parallel.paged_attention", "mxnet_tpu_torch.serve2",
+    "mxnet_tpu_torch.serve2.kvcache", "mxnet_tpu_torch.serve2.prefix",
+    "mxnet_tpu_torch.serve2.decode", "mxnet_tpu_torch.serve2.scheduler",
+    "mxnet_tpu_torch.serve2.router", "mxnet_tpu_torch.resil",
+    "mxnet_tpu_torch.resil.policy", "mxnet_tpu_torch.serve.endpoint",
+    "mxnet_tpu_torch.passes", "mxnet_tpu_torch.passes.servelint"]
 
 _PROBE = r"""
 import importlib, pkgutil, sys
@@ -114,8 +122,20 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
     from mxnet_tpu_torch.models import BERTModel, TransformerLM
     from mxnet_tpu_torch.ndarray import load_frombuffer
     from mxnet_tpu_torch.random import generator
+    from mxnet_tpu_torch.convert import pipeline_lm_from_mxnet_tpu
+    from mxnet_tpu_torch.parallel.pipeline_lm import init_pipeline_lm
     from mxnet_tpu_torch.serve import ServingEngine
+    from mxnet_tpu_torch.serve2 import DecodeEngine, PagedLM
+    lm = dict(vocab=8, d_model=4, n_layers=1, n_heads=1, d_head=4, d_ff=8,
+              n_experts=1)
+    tree = init_pipeline_lm(0, device="cpu", **lm)
     for make in (lambda: ServingEngine(lambda x: x),
+                 lambda: init_pipeline_lm(0, **lm),
+                 lambda: pipeline_lm_from_mxnet_tpu(tree),
+                 lambda: PagedLM(tree, page_size=4, num_pages=4,
+                                 max_pages_per_seq=2),
+                 lambda: DecodeEngine(tree, num_pages=8,
+                                      prefill_buckets=[8]),
                  lambda: BERTModel(num_layers=1),
                  lambda: BERTModel(num_layers=1, dtype=torch.float16),
                  lambda: Dropout(0.1),

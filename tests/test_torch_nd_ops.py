@@ -32,6 +32,8 @@ from mxnet_tpu_torch import gluon, nd
 from mxnet_tpu_torch.ops.control_flow import GRAPH_NODES
 from mxnet_tpu_torch.ops.registry import _OPS, register_op
 
+from test_torch_resnet_train import keep_zeros
+
 RTOL, ATOL = 1e-5, 1e-6
 
 _SAMPLER_PREFIXES = ("_random_", "_sample_", "_shuffle", "random_",
@@ -284,7 +286,7 @@ def test_loss_and_embedding_layer_wrap_or_give_nan_as_jax(bad):
     jl = jgluon.loss.SoftmaxCrossEntropyLoss()(jnd.array(x),
                                                jnd.array(label)).asnumpy()
     jemb = jgluon.nn.Embedding(5, 3)
-    jemb.initialize()
+    jemb.initialize(keep_zeros)   # its weight is set below
     jemb.weight.set_data(jnd.array(w))
     je = jemb(jnd.array(label)).asnumpy()
     temb = gluon.nn.Embedding(5, 3, device="cpu")

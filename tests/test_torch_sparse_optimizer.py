@@ -31,6 +31,8 @@ from mxnet_tpu_torch import autograd as tag, gluon as tgluon, nd as tnd
 from mxnet_tpu_torch import optimizer as topt
 from mxnet_tpu_torch.ndarray import sparse as tsp
 
+from test_torch_resnet_train import keep_zeros
+
 RTOL, ATOL = 1e-5, 1e-6
 JAX = SimpleNamespace(nd=jnd, ag=jag, sp=jsp, opt=jopt, gluon=jgluon,
                       err=jmx.base.MXNetError)
@@ -373,7 +375,7 @@ def test_matrix_factorization_gluon_sparse_grad_embedding_is_dense():
         return trace, {n: getattr(net, n).weight for n in init}
 
     jnet = _JMF(users, items, k)
-    jnet.initialize()
+    jnet.initialize(keep_zeros)   # every value is set by run
     jtrace, jw = run(JAX, jnet, lambda m: m.weight.grad().stype,
                      lambda p, v: p.set_data(jnd.array(v)))
     with mx.cpu():

@@ -11,7 +11,9 @@ Losses, the autograd scopes with Dropout, and the whole Gluon step::
 on a small BERTModel (and, in fp32, a small causal TransformerLM with
 128-wide heads, the GPT path's head dim) built in both packages from the
 same numpy-seeded weights, with the same token ids and labels. The JAX side runs once per
-module (hybridized, so that its compile is one program per pass).
+module, each step's forward and backward one compiled program
+(``functional_call`` under ``jax.value_and_grad``, as
+``test_torch_resnet_train.py``'s), then its eager ``Trainer.step``.
 Tolerances:
 
 - losses: rtol/atol 1e-6 (the same fp32 formula);
@@ -42,7 +44,7 @@ from mxnet_tpu_torch.gluon import loss as torch_loss
 from mxnet_tpu_torch.gluon.nn import Dropout
 from mxnet_tpu_torch.models import BERTModel, TransformerLM
 
-from test_torch_resnet_train import keep_zeros
+from test_torch_resnet_train import jax_train_mode_step, keep_zeros
 
 V, C, L, H, FFN, T, B = 100, 64, 2, 4, 128, 32, 2
 LR, MOMENTUM, LOSS_SCALE, STEPS = 0.1, 0.9, 8.0, 2
@@ -96,19 +98,22 @@ def _jax_train(dtype, gpt=False):
         p.set_data(mx.nd.array(named[n]))
     if dtype == "float16":
         net.cast("float16")
-    net.hybridize()
     trainer = jax_gluon.Trainer(net.collect_params(), "sgd", {
         "learning_rate": LR, "momentum": MOMENTUM,
         "multi_precision": dtype == "float16"})
     loss_fn = jax_gluon.loss.SoftmaxCrossEntropyLoss()
+    # the recorded forward and backward as one compiled program (the
+    # eager loss ops and the hybridized backward compiled ~77 programs a
+    # run), then the eager Trainer.step. The global key is made before
+    # the trace, so that the (rate 0) dropout layers draw no tracer into it
+    mx.random.seed(0)
+    step = jax_train_mode_step(
+        net, lambda out, y: loss_fn(out.reshape((-1, V)), y), LOSS_SCALE)
+    x = mx.nd.array(tokens, dtype="int32")
+    y = mx.nd.array(labels.reshape(-1))
     losses = []
     for _ in range(STEPS):
-        with jax_autograd.record():
-            out = net(mx.nd.array(tokens, dtype="int32"))
-            loss = loss_fn(out.reshape((-1, V)),
-                           mx.nd.array(labels.reshape(-1)))
-            scaled = loss * LOSS_SCALE
-        jax_autograd.backward(scaled)
+        loss = step(x, y)
         trainer.step(B * T * LOSS_SCALE)
         losses.append(loss.asnumpy().astype("float32"))
     weights = {n: p.data().asnumpy() for n, p in params.items()}

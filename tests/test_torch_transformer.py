@@ -21,6 +21,8 @@ from mxnet_tpu_torch.gluon import nn as torch_nn
 from mxnet_tpu_torch.models import transformer as torch_tf
 from mxnet_tpu_torch.parallel import local_attention as torch_local
 
+from test_torch_resnet_train import keep_zeros
+
 RTOL, ATOL = 1e-4, 1e-5
 V, C, L, H, FFN, MAXLEN = 100, 64, 2, 4, 128, 64
 
@@ -41,14 +43,26 @@ def _jax_shapes(block):
             for n, p in block._collect_params_with_prefix().items()}
 
 
-def _pair(jax_block, torch_block, x_jax, seed=0):
-    """Initialize ``jax_block`` (one forward resolves deferred shapes),
-    give both blocks the same seeded weights; returns the weights."""
-    jax_block.initialize()
-    jax_block(x_jax)
+def _pair(jax_block, torch_block, seed=0):
+    """Give both blocks the same seeded weights and hybridize the JAX one
+    (its forward one compiled program, not one per op); returns the
+    weights. The JAX block's deferred dims come from the port's block of
+    the same configuration (a dim JAX declares must agree; a wrong
+    deferred one fails the JAX forward; BERTModel's whole shapes are held
+    to JAX's after a JAX forward in
+    ``test_parameter_names_line_up_with_jax``), and it starts from zeros
+    (``keep_zeros``: a random draw compiles a program per shape)."""
+    jax_block.initialize(keep_zeros)
+    shapes = mxnet_tpu_shapes(torch_block)
+    params = jax_block._collect_params_with_prefix()
+    assert set(params) == set(shapes)
+    for n, p in params.items():
+        p.shape = shapes[n]
+        p._finish_deferred_init()
     named = _weights(_jax_shapes(jax_block), seed)
-    for n, p in jax_block._collect_params_with_prefix().items():
+    for n, p in params.items():
         p.set_data(mx.nd.array(named[n]))
+    jax_block.hybridize()
     torch_block.load_state_dict(params_from_mxnet_tpu(named, torch_block))
     torch_block.eval()
     return named
@@ -64,7 +78,7 @@ def test_multi_head_attention_matches_jax(causal):
     jb = jax_tf.MultiHeadAttention(C, H)
     jb._causal = causal
     tb = torch_tf.MultiHeadAttention(C, H, causal=causal, device="cpu")
-    _pair(jb, tb, mx.nd.array(x))
+    _pair(jb, tb)
     want = jb(mx.nd.array(x)).asnumpy()
     with torch.no_grad():
         got = tb(torch.from_numpy(x)).numpy()
@@ -102,7 +116,7 @@ def test_encoder_layer_matches_jax(pre_norm):
     jb = jax_tf.TransformerEncoderLayer(C, H, FFN, pre_norm=pre_norm)
     tb = torch_tf.TransformerEncoderLayer(C, H, FFN, pre_norm=pre_norm,
                                           device="cpu")
-    _pair(jb, tb, mx.nd.array(x))
+    _pair(jb, tb)
     want = jb(mx.nd.array(x)).asnumpy()
     with torch.no_grad():
         got = tb(torch.from_numpy(x)).numpy()
@@ -126,7 +140,7 @@ def test_small_model_matches_jax(kind):
         jb = jax_tf.TransformerLM(V, C, L, H, FFN, MAXLEN, causal=True)
         tb = torch_tf.TransformerLM(V, C, L, H, FFN, MAXLEN, causal=True,
                                     device="cpu")
-    _pair(jb, tb, mx.nd.array(tok, dtype="int32"), seed=5)
+    _pair(jb, tb, seed=5)
     want = jb(mx.nd.array(tok, dtype="int32")).asnumpy()
     with torch.no_grad():
         got = tb(torch.from_numpy(tok)).numpy()
@@ -143,7 +157,7 @@ def test_wide_head_model_matches_jax(causal):
     jb = jax_tf.TransformerLM(V, 320, 1, 2, FFN, MAXLEN, causal=causal)
     tb = torch_tf.TransformerLM(V, 320, 1, 2, FFN, MAXLEN, causal=causal,
                                 device="cpu")
-    _pair(jb, tb, mx.nd.array(tok, dtype="int32"), seed=10)
+    _pair(jb, tb, seed=10)
     want = jb(mx.nd.array(tok, dtype="int32")).asnumpy()
     with torch.no_grad():
         got = tb(torch.from_numpy(tok)).numpy()
@@ -181,7 +195,7 @@ def test_attention_picks_dense_where_no_kernel_serves(monkeypatch, units,
 def test_parameter_names_line_up_with_jax():
     jb = jax_tf.BERTModel(vocab_size=V, units=C, num_layers=L, num_heads=H,
                           hidden_size=FFN, max_len=MAXLEN)
-    jb.initialize()
+    jb.initialize(keep_zeros)   # the values are not read here
     jb(mx.nd.array(_tokens(6), dtype="int32"))
     tb = torch_tf.BERTModel(vocab_size=V, units=C, num_layers=L,
                             num_heads=H, hidden_size=FFN, max_len=MAXLEN,

@@ -214,7 +214,7 @@ def test_dense_flatten_matches_jax(flatten):
     b = rng.randn(5).astype("float32")
     jd = jax_gnn.Dense(5, flatten=flatten, in_units=in_units,
                        activation="tanh")
-    jd.initialize()
+    jd.initialize(keep_zeros)   # its values are set below
     jd.weight.set_data(mx.nd.array(w))
     jd.bias.set_data(mx.nd.array(b))
     want = jd(mx.nd.array(x)).asnumpy()
