@@ -164,7 +164,34 @@ end, failing on the first phase that fails:
     card with ``Speedometer`` and ``do_checkpoint`` for 10 epochs, then
     ``Module.load`` of the last checkpoint scores the same accuracy,
     which beats chance by 0.2;
-18. the sparse slice — ``[sparse_linear]``: ``linear_classification.py``'s
+18. the fused training step (``mxnet_tpu_torch.step``: one captured CUDA
+    graph per input signature, replayed each step) — each phase runs the
+    eager loop twice and the fused step once from the same start, batch
+    and generator states for 3 steps, the rate halved after step 2: the
+    eager runs bit-equal to each other, the fused run bit-equal to them
+    (losses, weights, running statistics, optimizer states), one capture
+    for the run (the rate change re-keys nothing), the kernels of a
+    replayed step counted by ``torch.profiler``; then 4 timed steps of
+    each and a profiled one (step time, busy share, peak memory, capture
+    seconds, reported, not gated). ``[fused_bert]``: BERT-base fp32
+    (dropout 0.1) at 8 x 512 through ``Trainer(..., "adamw")`` and
+    ``trainer.fuse_step(model, SoftmaxCrossEntropyLoss())``, 12/12/12
+    attention launches and 24 splits per replay, all on the fp32
+    tensor-core route; after 2 steps within [train32]'s limits of a
+    reference run with plain attention; the replay's device-to-device
+    copies (the write-back among them) timed by the profiler.
+    ``[fused_resnet50]``: the zoo's ResNet-50 v1 in fp32 at batch 256,
+    SGD with momentum and weight decay, BatchNorm's running statistics
+    updated inside the graph, no attention launch, run twice: with
+    cuDNN's default algorithms, which are not bit-reproducible run to run
+    (reported), the fused step held to the eager loop within
+    [train32]'s limits; with its deterministic ones, bit-equal; each
+    timed. ``[fused_symbol]``: a
+    symbol-mode ``StepFunction`` with AdamW over [module_encoder]'s
+    encoder against ``Executor.forward``/``backward`` and the same
+    optimizer, 12/12/12 launches and 24 splits per replay, its step time
+    beside [module_encoder]'s;
+19. the sparse slice — ``[sparse_linear]``: ``linear_classification.py``'s
     loop at LIBSVM Avazu's width (a csr batch of 8192 rows over 1,000,001
     features, 15 Zipf-drawn features a row, built from its payload on the
     card), ``w.attach_grad(stype="row_sparse")``, ``nd.dot(csr, w)`` and
@@ -184,7 +211,7 @@ end, failing on the first phase that fails:
     This slice runs no TPU kernel (the JAX package computes sparse work
     with gathers and segment sums outside Pallas), so it adds no entry to
     the kernels line.
-19. autoregressive LM serving (``serve2``) on ``parallel/pipeline_lm.py``'s
+20. autoregressive LM serving (``serve2``) on ``parallel/pipeline_lm.py``'s
     stack at Cerebras-GPT-1.3B's widths (24 x 2048, 16 heads of 128, FFN
     8192, vocab 50257, one expert), fp32, TF32 off, random weights drawn
     on the card from SEED: ``[decode_serve]`` — one ``DecodeEngine``
@@ -219,9 +246,10 @@ end, failing on the first phase that fails:
 
 The script prints its own wall time. The last three lines are the card
 (``nvidia-smi``), ``{"kernels": [...]}`` (B2/B3/B4's
-``launches_by_path`` with ``module_encoder_fp32`` and
-``symbol_fused_attention_fp16``, the split's with ``module_encoder_fp32``)
-and ``{"ok": true, "device": {...}}``.
+``launches_by_path`` with ``module_encoder_fp32``,
+``symbol_fused_attention_fp16`` and the fused paths' launches at their
+capture, and ``launches_per_replayed_step`` of the fused paths; the
+split's the same) and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -431,6 +459,20 @@ MODULE_GLUON_RATIO = 1.0 + RESNET32_ERR_RATIO
 # this LeNet has only begun to learn: the JAX package and the port both
 # score ~0.37 on the CPU); the score must beat chance (0.1) by 0.2
 LENET_EXAMPLES, LENET_BATCH, LENET_EPOCHS, LENET_MARGIN = 2000, 64, 10, 0.2
+# the fused step ([fused_bert], [fused_resnet50], [fused_symbol]): the
+# eager loop twice and the fused step once from the same start, batch and
+# generator states for FUSED_STEPS steps, the rate halved after FUSED_LR_AT
+# (a per-step scalar: no new capture), then FUSED_TIMED timed steps of
+# each and a profiled one
+FUSED_STEPS, FUSED_LR_AT, FUSED_TIMED = 3, 2, 4
+# where the eager step is not bit-reproducible (ResNet-50 on cuDNN's
+# default algorithms), a parameter whose update two eager runs already
+# put further apart than [train32]'s 1e-2 (the stem's convolution weight
+# or BatchNorm gamma, 4.4e-2 and 4.7e-2 in two calls on the card: their
+# gradients cancel over the 3.2M positions of the stem's output, summed
+# in any order) is held to FUSED_NOISE_RATIO times that distance; a
+# missed or doubled update is ~1 off
+FUSED_NOISE_RATIO = 3.0
 LADDER = "batch:1,2,4,8;seq:128,256,512"
 # [sparse_linear]: example/sparse/linear_classification's widths (LIBSVM's
 # Avazu: 1,000,001 features, batches of 8192), synthetic: each row holds one
@@ -3939,6 +3981,510 @@ def phase_module_lenet(card):
     return row
 
 
+# -- the fused training step: [fused_bert], [fused_resnet50], [fused_symbol] --
+
+def _flat_state(state):
+    """The tensors of an optimizer state (None, a tensor or a tuple)."""
+    if state is None:
+        return []
+    if isinstance(state, (tuple, list)):
+        return [t for s in state for t in _flat_state(s)]
+    return [state]
+
+
+def _fused_kernel_launches(rows):
+    """Launches of each port kernel symbol (``KERNEL_NAMES``) in a
+    profiled window's rows (``_profile_rows``), those launched at all."""
+    syms = {s for group in KERNEL_NAMES.values() for s in group}
+    counts = {s: sum(r[2] for r in rows if s in r[0]) for s in sorted(syms)}
+    return {k: v for k, v in counts.items() if v}
+
+
+class _BlockPath:
+    """A Gluon model and its Trainer, stepped by the eager loop (``record``
+    -> ``backward`` -> ``Trainer.step``) or by ``Trainer.fuse_step``."""
+
+    def __init__(self, build, loss_fn, opt, opt_kw, x, y):
+        from mxnet_tpu_torch.gluon import Trainer, collect_params
+        self.model = build()
+        self.params = collect_params(self.model)
+        self.trainer = Trainer(self.params, opt, dict(opt_kw))
+        self.loss_fn, self.x, self.y = loss_fn, x, y
+        self.fused = None
+
+    def eager_step(self):
+        from mxnet_tpu_torch import autograd
+        with autograd.record():
+            loss = self.loss_fn(self.model(self.x), self.y)
+        autograd.backward(loss)
+        self.trainer.step(self.x.shape[0])
+        return loss.detach()
+
+    def fused_step(self):
+        if self.fused is None:
+            self.fused = self.trainer.fuse_step(self.model, self.loss_fn)
+        return self.fused.step(self.x, self.y)
+
+    def set_lr(self, lr):
+        self.trainer.set_learning_rate(lr)
+
+    @staticmethod
+    def mean_loss(out):
+        return float(out.float().mean())
+
+    def lr(self):
+        return self.trainer.learning_rate
+
+    def tensors(self):
+        """Weights, BatchNorm's running statistics and optimizer states."""
+        sts = self.trainer._updaters[0].states
+        return [p.detach() for p in self.params.values()] + [
+            t for i in sorted(sts) for t in _flat_state(sts[i])]
+
+
+class _SymbolPath:
+    """The symbolic encoder stepped by ``Executor.forward`` / ``backward``
+    and the list-form ``Updater`` (eager), or by a symbol-mode
+    ``StepFunction`` over the same arrays (fused)."""
+
+    def __init__(self, opt, opt_kw, x, y):
+        import mxnet_tpu_torch as mx
+        from mxnet_tpu_torch import nd
+        from mxnet_tpu_torch import optimizer as opt_mod
+        ctx = mx.gpu(0)
+        self.net = _encoder_symbol(True)
+        self.args = _encoder_params(self.net)
+        self.names = sorted(self.args)
+        self.opt = opt_mod.create(opt, **opt_kw)
+        self.opt.rescale_grad = 1.0 / (ENC_B * ENC_T)
+        self.updater = opt_mod.get_updater(self.opt)
+        self.x, self.y = x, y
+        self.ex = self.net.bind(ctx, args=dict(
+            self.args, data=nd.array(x, ctx=ctx),
+            softmax_label=nd.array(y, ctx=ctx)),
+            args_grad={n: nd.zeros(a.shape, ctx)
+                       for n, a in self.args.items()},
+            grad_req="write")
+        self.opt_name, self.opt_kw = opt, opt_kw
+        self.fused = None
+
+    def eager_step(self):
+        self.ex.forward(is_train=True)
+        self.ex.backward()
+        self.updater(list(range(len(self.names))),
+                     [self.ex.grad_dict[n] for n in self.names],
+                     [self.args[n] for n in self.names])
+        return self.ex.outputs[0]._data
+
+    def fused_step(self):
+        from mxnet_tpu_torch.step import StepFunction
+        if self.fused is None:
+            self.fused = StepFunction(
+                self.net, arg_dict=self.args, aux_dict={},
+                input_names=("data", "softmax_label"),
+                optimizer=self.opt_name, optimizer_params=self.opt_kw,
+                name="encoder")
+            self.opt = self.fused._optimizer
+        return self.fused.step(self.x, self.y, batch_size=ENC_B * ENC_T)
+
+    def set_lr(self, lr):
+        self.opt.set_learning_rate(lr)
+
+    def mean_loss(self, out):
+        """The mean cross-entropy of the SoftmaxOutput's probabilities (the
+        graph's first output) at the labels."""
+        picked = out.gather(1, self.y.reshape(-1, 1).long())
+        return float(-picked.double().log().mean())
+
+    def lr(self):
+        return self.opt.lr
+
+    def tensors(self):
+        sts = (self.fused._updater if self.fused else self.updater).states
+        return [self.args[n]._data for n in self.names] + [
+            t for i in sorted(sts) for t in _flat_state(sts[i])]
+
+
+def _is_device_copy(name):
+    """A profiler row of a device-to-device copy: ``copy_``'s element-wise
+    kernel or a DtoD memcpy (a graph's memcpy node)."""
+    return "direct_copy" in name or "Memcpy DtoD" in name
+
+
+def _fused_against_eager(tag, make, want_launches, extra=None,
+                         limits=False):
+    """The eager loop twice and the fused step once, each from the same
+    start (``make()`` builds a fresh path), for FUSED_STEPS steps, the
+    rate halved after FUSED_LR_AT of them: the two eager runs bit-equal
+    to each other (the eager step is reproducible on the card), and the
+    fused run bit-equal to them (losses, weights, running statistics,
+    optimizer states); one capture (one miss) for the whole run; the
+    kernels a replayed step launches, counted by the profiler, equal to
+    ``want_launches``. Then FUSED_TIMED more steps of each, timed, and a
+    profiled one, whose device-to-device copies (the fused step's
+    write-back among them) are summed. ``extra(path, i)`` runs after step
+    ``i`` of every run and returns values to compare too. With
+    ``limits`` (a block path whose eager step is not bit-reproducible:
+    cuDNN's default algorithms), bit-equality is reported and the fused
+    run is held to the first eager run within [train32]'s limits instead:
+    the mean losses within TRAIN32_LOSS_TOL, the parameters' update within
+    TRAIN32_UPD_TOL relative L2 and each parameter's within
+    TRAIN32_UPD_TOL_EACH, or FUSED_NOISE_RATIO times the two eager runs'
+    worst where that is larger (the biases a BatchNorm follows left out:
+    their update is rounding noise). Returns the summary and the fused
+    path (its model still alive)."""
+    from mxnet_tpu_torch.telemetry import metrics
+    counters = _train_counters()
+    runs, timing, init = [], {}, None
+    for which in ("eager", "eager", "fused"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        path = make()
+        if limits and init is None:
+            init = [p.detach().clone() for p in path.params.values()]
+        step = path.fused_step if which == "fused" else path.eager_step
+        misses = metrics.counter("fused_step_cache_misses_total").value()
+        capture = metrics.histogram("fused_step_compile_seconds")
+        cap0 = capture.value()["sum"]
+        for c in counters.values():
+            c.reset()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, means, extras, walls = [], [], [], []
+        for i in range(FUSED_STEPS):
+            t0 = time.perf_counter()
+            losses.append(step().clone())
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+            means.append(path.mean_loss(losses[-1]))
+            if i + 1 == FUSED_LR_AT:
+                path.set_lr(path.lr() * 0.5)
+            if extra is not None:
+                extras.append(extra(path, i))
+        snap = [t.clone() for t in path.tensors()]
+        launches = {n: c.count for n, c in counters.items() if c.count}
+        for _ in range(FUSED_TIMED):
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        wall_ms = float(np.median(walls[1:]))
+        rows = _profile_rows(step)
+        kernel_ms = sum(r[1] for r in rows)
+        per_step = _fused_kernel_launches(rows)
+        copies = [r for r in rows if _is_device_copy(r[0])]
+        timing[which] = {
+            "first_step_wall_ms": walls[0], "step_wall_ms_median": wall_ms,
+            "step_wall_ms": walls, "profiled_kernel_ms": kernel_ms,
+            "device_busy_share": kernel_ms / wall_ms,
+            "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+            "kernel_launches_per_step": per_step,
+            "device_copy_ms": sum(r[1] for r in copies),
+            "device_copy_launches": sum(r[2] for r in copies),
+            "top5_kernels_ms": [[r[0][:60], r[1], r[2]] for r in rows[:5]]}
+        if which == "fused":
+            timing[which].update({
+                "capture_seconds": capture.value()["sum"] - cap0,
+                "misses": metrics.counter(
+                    "fused_step_cache_misses_total").value() - misses,
+                "programs": path.fused.cache_info()["programs"],
+                "wrapper_launches_at_capture": launches})
+        runs.append((losses, snap, extras))
+        timing[which]["losses"] = means
+        log(f"[{tag}] {which}: losses {means}, step "
+            f"{wall_ms:.2f} ms (first {walls[0]:.1f} ms), busy "
+            f"{kernel_ms / wall_ms:.3f}, peak "
+            f"{timing[which]['peak_memory_bytes'] / 2**30:.2f} GiB, "
+            f"launches per step {per_step}")
+        if which != "fused":
+            del path, snap, step
+    (la, sa, ea), (lb, sb, eb), (lf, sf, ef) = runs
+
+    def same(x, y):
+        return len(x) == len(y) and all(torch.equal(a, b)
+                                        for a, b in zip(x, y))
+
+    def same_extras(x, y):
+        return all(same(a, b) for a, b in zip(x, y))
+
+    reproducible = same(la, lb) and same(sa, sb) and same_extras(ea, eb)
+    equal = same(la, lf) and same(sa, sf) and same_extras(ea, ef)
+    finite = all(bool(torch.isfinite(v).all()) for v in la + lf)
+    fused = timing["fused"]
+    near = {}
+    if limits:
+        names = list(path.params)
+        n = len(names)
+        loss_err = max(abs(path.mean_loss(a) - path.mean_loss(b))
+                       for a, b in zip(la, lf))
+        upd_err, _ = _update_diff(sf[:n], sa[:n], init, names)
+        noise = _noise_biases(path.model)
+        keep = [i for i, name in enumerate(names) if name not in noise]
+        _, worst = _update_diff([sf[i] for i in keep], [sa[i] for i in keep],
+                                [init[i] for i in keep],
+                                [names[i] for i in keep])
+        # the same three figures between the two eager runs: the noise
+        # of the algorithms themselves, reported
+        run_err = (max(abs(path.mean_loss(a) - path.mean_loss(b))
+                       for a, b in zip(la, lb)),
+                   _update_diff(sb[:n], sa[:n], init, names)[0],
+                   list(_update_diff([sb[i] for i in keep],
+                                     [sa[i] for i in keep],
+                                     [init[i] for i in keep],
+                                     [names[i] for i in keep])[1]))
+        near = {"loss_max_abs_diff": loss_err,
+                "update_rel_l2_diff": upd_err,
+                "worst_parameter_rel_diff": list(worst),
+                "eager_run_to_run": run_err,
+                "noise_biases_left_out": n - len(keep),
+                "limits": [TRAIN32_LOSS_TOL, TRAIN32_UPD_TOL,
+                           max(TRAIN32_UPD_TOL_EACH,
+                               FUSED_NOISE_RATIO * run_err[2][0])]}
+
+    summary = {
+        "eager_losses": timing["eager"]["losses"],
+        "fused_losses": fused["losses"],
+        "steps_compared": FUSED_STEPS, "lr_halved_after": FUSED_LR_AT,
+        "eager_bit_reproducible": reproducible,
+        "fused_bit_equal_to_eager": equal, "losses_finite": finite,
+        "tensors_compared": len(sa),
+        "misses": fused["misses"], "programs": fused["programs"],
+        "want_launches_per_step": want_launches,
+        "eager": timing["eager"], "fused": fused,
+        "fused_over_eager_step": fused["step_wall_ms_median"]
+        / timing["eager"]["step_wall_ms_median"]}
+    bad = []
+    if limits:
+        summary["fused_vs_eager_within_train32_limits"] = near
+        if (not finite or near["loss_max_abs_diff"] > TRAIN32_LOSS_TOL
+                or near["update_rel_l2_diff"] > TRAIN32_UPD_TOL
+                or near["worst_parameter_rel_diff"][0]
+                > near["limits"][2]):
+            bad.append("fused outside [train32]'s limits of eager "
+                       "(or not finite)")
+    elif not (reproducible and equal and finite):
+        bad.append("not bit-equal (or not finite)")
+    if fused["misses"] != 1 or fused["programs"] != 1:
+        bad.append(f"{fused['misses']} captures for one signature")
+    if fused["kernel_launches_per_step"] != want_launches:
+        bad.append(f"replayed launches {fused['kernel_launches_per_step']}")
+    if bool(want_launches) != bool(fused["wrapper_launches_at_capture"]):
+        bad.append(f"wrapper launches at the capture "
+                   f"{fused['wrapper_launches_at_capture']}")
+    if bad:
+        log(f"[{tag}] " + json.dumps(summary))
+        raise SystemExit(f"chip_smoke: {tag}: {'; '.join(bad)}")
+    return summary, path
+
+
+def _profile_rows(step):
+    """[name, device ms, launches] of every CUDA kernel of one more
+    ``step()``, from ``torch.profiler`` (kernels inside a replayed CUDA
+    graph included), largest first."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    rows = []
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        rows.append([e.key, us / 1e3, e.count])
+    rows.sort(key=lambda r: -r[1])
+    return rows
+
+
+def _write_back_bytes(path):
+    """Bytes the fused step's write-back must move: each weight's and
+    state's new value read once and written once into its own storage,
+    over the path's tensors; and how many tensors that is."""
+    dst = path.tensors()
+    return 2 * sum(t.numel() * t.element_size() for t in dst), len(dst)
+
+
+# per replayed step of BERT-base and of the encoder (12 layers each): B2,
+# B3, B4 on the fp32 tensor-core route (D = 64) and a split per pass
+FUSED_ATTN_WANT = {"flash_fwd_tc32_kernel": ENC_LAYERS,
+                   "flash_bwd_tc32_dq_kernel": ENC_LAYERS,
+                   "flash_bwd_tc32_dkv_kernel": ENC_LAYERS,
+                   "split_bf16x3_kernel": 2 * ENC_LAYERS}
+
+
+def phase_fused_bert(card, peaks, train32):
+    """BERT-base fp32 (dropout 0.1) at 8 x 512 through ``Trainer(...,
+    "adamw")`` and ``trainer.fuse_step(model, SoftmaxCrossEntropyLoss())``:
+    the captured step bit-equal to the eager loop over FUSED_STEPS steps
+    (the rate halved after FUSED_LR_AT, with no new capture), 12/12/12
+    attention launches and 24 splits per replayed step on the fp32
+    tensor-core route; after REF_STEPS steps within [train32]'s limits of
+    a reference run with plain attention and the same update."""
+    from mxnet_tpu_torch.gluon import collect_params
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.ops.flash_attention import flash_attention_ref
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    tokens, labels = _train_batch(30522)
+    loss_fn = SoftmaxCrossEntropyLoss()
+    adamw = dict(ADAMW, multi_precision=False)
+
+    def make(attention=None):
+        def build():
+            model = _seeded_bert(torch.float32)
+            if attention is not None:
+                for layer in model.layers:
+                    layer.attn.attention = attention
+            return model
+        return _BlockPath(build, loss_fn, "adamw", adamw, tokens, labels)
+
+    after2 = []
+
+    def keep_after2(path, i):
+        if i == REF_STEPS - 1 and path.fused is not None:
+            after2.extend(p.detach().clone() for p in path.params.values())
+        return []
+
+    summary, path = _fused_against_eager("fused_bert", make,
+                                         FUSED_ATTN_WANT, keep_after2)
+    write_bytes, write_tensors = _write_back_bytes(path)
+    names = list(path.params)
+    del path
+    gc.collect()
+    torch.cuda.empty_cache()
+    ref = make(flash_attention_ref)
+    init = [p.detach().clone() for p in ref.params.values()]
+    ref_losses = [float(ref.eager_step().float().mean())
+                  for _ in range(REF_STEPS)]
+    loss_err = max(abs(a - b) for a, b in zip(summary["fused_losses"],
+                                              ref_losses))
+    upd_err, worst = _update_diff(after2, [p.detach() for p in
+                                           ref.params.values()], init, names)
+    del ref, init, after2
+    gc.collect()
+    torch.cuda.empty_cache()
+    summary.update({
+        "card": card, "batch": [TRAIN_B, TRAIN_T], "dtype": "float32",
+        "optimizer": {"adamw": adamw},
+        "reference_losses": ref_losses,
+        "loss_max_abs_diff_vs_plain_attention": loss_err,
+        "update_rel_l2_diff_vs_plain_attention": upd_err,
+        "worst_parameter_rel_diff": list(worst),
+        # the replayed step's device-to-device copies: the write-back
+        # (write_back_tensors copies) and any other copy the step makes
+        "write_back_in_graph_ms": summary["fused"]["device_copy_ms"],
+        "write_back_in_graph_copies":
+            summary["fused"]["device_copy_launches"],
+        "write_back_tensors": write_tensors,
+        "write_back_bytes": write_bytes,
+        "write_back_bound_ms": write_bytes / peaks["bytes"] * 1e3,
+        "train32_sgd_step_wall_ms_median": train32["step_wall_ms_median"],
+        "seconds": time.perf_counter() - t0})
+    log("[fused_bert] " + json.dumps(summary))
+    if (loss_err > TRAIN32_LOSS_TOL or upd_err > TRAIN32_UPD_TOL
+            or worst[0] > TRAIN32_UPD_TOL_EACH):
+        raise SystemExit("chip_smoke: fused_bert disagrees with the "
+                         "plain-attention reference run")
+    return summary
+
+
+def phase_fused_resnet50(card):
+    """ResNet-50 v1 (the zoo's, Xavier from SEED), fp32 (TF32 off), batch
+    256, SGD with momentum and weight decay, through ``fuse_step``, twice.
+    First with cuDNN's default convolution algorithms, which users run:
+    they are not bit-reproducible run to run here (a filter gradient may
+    sum in any order; reported as ``eager_bit_reproducible``), so the
+    fused step is held to the eager loop within [train32]'s limits over
+    FUSED_STEPS steps, and timed. That run takes RESNET_CHECK_LR: at
+    RESNET_LR the fresh model's first steps amplify the summation order's
+    rounding until two eager runs differ by more than those limits (the
+    two eager runs' distance is reported). Then with cuDNN's deterministic
+    algorithms (``cudnn.deterministic``), under which the eager step is
+    reproducible: the captured step bit-equal to the eager loop over
+    FUSED_STEPS steps, the BatchNorm running statistics (updated inside
+    the graph) bit-equal after REF_STEPS steps; timed too. No attention
+    launch in either."""
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    x, y = _resnet_batch(RESNET_B, torch.float32, "cuda")
+    sgd = {"learning_rate": RESNET_LR, "momentum": RESNET_MOMENTUM,
+           "wd": RESNET_WD}
+    loss_fn = SoftmaxCrossEntropyLoss()
+
+    def make(lr=RESNET_LR):
+        return _BlockPath(lambda: _seeded_resnet50("cuda"), loss_fn, "sgd",
+                          dict(sgd, learning_rate=lr), x, y)
+
+    def stats_after2(path, i):
+        return [p.detach().clone() for n, p in path.params.items()
+                if "running" in n] if i == REF_STEPS - 1 else []
+
+    default, path = _fused_against_eager(
+        "fused_resnet50_cudnn_default", lambda: make(RESNET_CHECK_LR), {},
+        limits=True)
+    default["learning_rate"] = RESNET_CHECK_LR
+    del path
+    torch.backends.cudnn.deterministic = True
+    try:
+        summary, path = _fused_against_eager("fused_resnet50", make, {},
+                                             stats_after2)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    n_stats = sum(1 for n in path.params if "running" in n)
+    del path
+    gc.collect()
+    torch.cuda.empty_cache()
+    summary.update({
+        "card": card, "batch": RESNET_B, "dtype": "float32",
+        "optimizer": {"sgd": sgd}, "running_statistics": n_stats,
+        "cudnn_deterministic": True,
+        "eager_bit_reproducible_cudnn_default":
+            default["eager_bit_reproducible"],
+        "cudnn_default": default,
+        "seconds": time.perf_counter() - t0})
+    log("[fused_resnet50] " + json.dumps(summary))
+    return summary
+
+
+def phase_fused_symbol(card, enc):
+    """``StepFunction(sym, optimizer="adamw", ...)`` in symbol mode over
+    [module_encoder]'s BERT-base-wide encoder (its graph and weights):
+    bit-equal over FUSED_STEPS steps to the eager ``Executor.forward`` /
+    ``backward`` and the list-form ``Updater`` with the same optimizer
+    (the rate halved after FUSED_LR_AT with no new capture), its
+    ``_fused_attention`` nodes launching B2/B3/B4 12/12/12 and 24 splits
+    per replayed step; its step time beside [module_encoder]'s."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED)
+    x, y = (torch.from_numpy(rng.integers(0, ENC_VOCAB, (ENC_B, ENC_T))
+                             .astype(np.float32)).cuda() for _ in range(2))
+    adamw = dict(ADAMW, multi_precision=False)
+    summary, path = _fused_against_eager(
+        "fused_symbol", lambda: _SymbolPath("adamw", adamw, x, y),
+        FUSED_ATTN_WANT)
+    del path
+    gc.collect()
+    torch.cuda.empty_cache()
+    mod = enc["summary"]
+    summary.update({
+        "card": card, "batch": [ENC_B, ENC_T], "dtype": "float32",
+        "optimizer": {"adamw": adamw},
+        "module_encoder_sgd_step_wall_ms_median": mod["step_wall_ms_median"],
+        "module_encoder_device_busy_share": mod["device_busy_share"],
+        "seconds": time.perf_counter() - t0})
+    log("[fused_symbol] " + json.dumps(summary))
+    return summary
+
+
 # -- the sparse slice: [sparse_linear], [sparse_embedding], [sparse_params] --
 
 def _zipf_cdf(n, s):
@@ -5055,22 +5601,7 @@ def profiled_step(step):
     (``key_averages``, device-side kernel events only): the total, each of
     the port's kernels summed over its launches, and the ten kernels
     that take most of it as [name, ms, calls]."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        step()
-        torch.cuda.synchronize()
-    rows = []
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = e.self_cuda_time_total
-        rows.append([e.key, us / 1e3, e.count])
-    rows.sort(key=lambda r: -r[1])
+    rows = _profile_rows(step)
     ours = {name: sum(r[1] for r in rows if any(s in r[0] for s in syms))
             for name, syms in KERNEL_NAMES.items()}
     return (sum(r[1] for r in rows), ours,
@@ -5139,6 +5670,9 @@ def main():
     enc = phase_module_encoder(card, train32_summary)
     phase_module_resnet50(card, check32)
     phase_module_lenet(card)
+    fbert = phase_fused_bert(card, peaks, train32_summary)
+    phase_fused_resnet50(card)
+    fsym = phase_fused_symbol(card, enc)
     linear = phase_sparse_linear(card)
     phase_sparse_embedding(card)
     phase_sparse_params(card, linear)
@@ -5179,7 +5713,25 @@ def main():
         return {"train_fp16": train[name], "train_fp32": train32[name],
                 "train_gpt_fp32": gpt[name],
                 "module_encoder_fp32": enc32[name],
-                "symbol_fused_attention_fp16": enc16[name]}
+                "symbol_fused_attention_fp16": enc16[name],
+                **fused_capture(name)}
+
+    def fused_capture(name):
+        """The wrapper's launches on the fused paths: the warm-up and the
+        capture (a replay is no Python call)."""
+        return {f"{tag}_capture": run["fused"]["wrapper_launches_at_capture"]
+                .get(name, 0) for tag, run in (("fused_bert_fp32", fbert),
+                                               ("fused_symbol_fp32", fsym))}
+
+    def fused_total(name):
+        return sum(fused_capture(name).values())
+
+    def per_replay(symbol):
+        """Launches per replayed fused step, counted by the profiler."""
+        return {"fused_bert_fp32": fbert["fused"]["kernel_launches_per_step"]
+                .get(symbol, 0),
+                "fused_symbol_fp32": fsym["fused"]
+                ["kernel_launches_per_step"].get(symbol, 0)}
     common = {"card": card}
 
     def fwd_err(key, wide, **want):
@@ -5199,7 +5751,7 @@ def main():
         "launches": serve_launches + train["flash_fwd"]
         + train32["flash_fwd"] + gpt["flash_fwd"]
         + sum(r["flash_fwd"] for r in nd_attn.values())
-        + enc32["flash_fwd"] + enc16["flash_fwd"],
+        + enc32["flash_fwd"] + enc16["flash_fwd"] + fused_total("flash_fwd"),
         "launches_by_path": {"serve": serve_launches,
                              **launches("flash_fwd"),
                              "nd_fused_attention": {
@@ -5217,9 +5769,11 @@ def main():
             "source": "mxnet_tpu_torch/csrc/flash_fwd_tc32.cu",
             "route": "cuda",
             "launches": serve_launches + train32["flash_fwd"]
-            + enc32["flash_fwd"],
+            + enc32["flash_fwd"] + fused_total("flash_fwd"),
             "launches_tc32": serve_launches + train32["flash_fwd_tc32"]
-            + enc32["flash_fwd_tc32"],
+            + enc32["flash_fwd_tc32"] + fused_total("flash_fwd_tc32"),
+            "launches_per_replayed_step": per_replay(
+                "flash_fwd_tc32_kernel"),
             "max_abs_err": fwd_err("max_abs_err", False, route="tc32"),
             "cuda_core_max_abs_err": fwd_err("cc_max_abs_err", False),
             "err_over_cc": fwd_err("err_over_cc", False),
@@ -5269,7 +5823,8 @@ def main():
             "launches": train[f"flash_bwd_{which}"]
             + train32[f"flash_bwd_{which}"] + gpt[f"flash_bwd_{which}"]
             + sum(r[f"flash_bwd_{which}"] for r in nd_attn.values())
-            + enc32[f"flash_bwd_{which}"] + enc16[f"flash_bwd_{which}"],
+            + enc32[f"flash_bwd_{which}"] + enc16[f"flash_bwd_{which}"]
+            + fused_total(f"flash_bwd_{which}"),
             "launches_by_path": {
                 **launches(f"flash_bwd_{which}"),
                 "nd_fused_attention_under_record": {
@@ -5289,7 +5844,10 @@ def main():
                 "source": "mxnet_tpu_torch/csrc/flash_bwd_tc32.cu",
                 "route": "cuda",
                 "launches": train32[f"flash_bwd_{which}_tc32"]
-                + enc32[f"flash_bwd_{which}_tc32"],
+                + enc32[f"flash_bwd_{which}_tc32"]
+                + fused_total(f"flash_bwd_{which}_tc32"),
+                "launches_per_replayed_step": per_replay(
+                    f"flash_bwd_tc32_{which}_kernel"),
                 "max_abs_err": bwd_err(which, route="tc32"),
                 "cuda_core_max_abs_err": bwd_err(which, "cc_max_abs_err",
                                                  route="tc32"),
@@ -5333,11 +5891,13 @@ def main():
         "launches": serve_launches + train32["split_bf16x3"]
         + gpt["split_bf16x3"]
         + sum(r["split_bf16x3"] for r in nd_attn.values())
-        + enc32["split_bf16x3"],
+        + enc32["split_bf16x3"] + fused_total("split_bf16x3"),
+        "launches_per_replayed_step": per_replay("split_bf16x3_kernel"),
         "launches_by_path": {"serve": serve_launches,
                              "train_fp32": train32["split_bf16x3"],
                              "train_gpt_fp32": gpt["split_bf16x3"],
                              "module_encoder_fp32": enc32["split_bf16x3"],
+                             **fused_capture("split_bf16x3"),
                              "nd_fused_attention": {
                                  d: r["split_bf16x3"]
                                  for d, r in nd_attn.items()}},

@@ -3,10 +3,14 @@
 Every source under ``csrc/`` is compiled by ``nvcc`` for Hopper
 (``sm_90a``) into its own shared library with a plain C interface and
 loaded with :mod:`ctypes`. A library is built at first use into
-``_build/`` beside this file, named by a hash of its source, the shared
-headers and the flags, so an edited source rebuilds and an unchanged one
-loads at once. Nothing is
-built when the package is imported.
+``_build/`` beside this file (or the directory ``MXNET_COMPILE_CACHE_DIR``
+names: the persistent compile cache, :mod:`mxnet_tpu_torch.step.cache`),
+named by a hash of its source, the shared headers and the flags, so an
+edited source rebuilds and an unchanged one loads at once. A library
+found there counts as a hit of ``jax_compile_cache_hits_total``, one that
+``nvcc`` builds as a miss of ``jax_compile_cache_misses_total`` (the JAX
+package's names for its persistent cache). Nothing is built when the
+package is imported.
 """
 from __future__ import annotations
 
@@ -19,6 +23,7 @@ import threading
 import time
 from typing import Dict, List, Optional
 
+from . import config
 from .base import MXNetError
 
 __all__ = ["SOURCES", "NVCC_FLAGS", "build_all", "load", "LaunchCounter"]
@@ -47,6 +52,24 @@ def _nvcc() -> str:
                      "use")
 
 
+def build_dir() -> str:
+    """Where the libraries live: ``MXNET_COMPILE_CACHE_DIR`` if set, else
+    ``_build/`` beside this file."""
+    return config.get("MXNET_COMPILE_CACHE_DIR") or BUILD_DIR
+
+
+def _count(hit: bool) -> None:
+    from .telemetry import metrics
+    if hit:
+        metrics.counter("jax_compile_cache_hits_total",
+                        "persistent-compile-cache hits (kernel libraries "
+                        "found built)").inc()
+    else:
+        metrics.counter("jax_compile_cache_misses_total",
+                        "persistent-compile-cache misses (kernel "
+                        "libraries built by nvcc)").inc()
+
+
 def _target(name: str) -> str:
     """Path of the library, named by a hash of the source, the shared
     headers (``csrc/*.cuh``) and the flags."""
@@ -55,7 +78,7 @@ def _target(name: str) -> str:
     for f in [name + ".cu"] + headers:
         with open(os.path.join(CSRC, f), "rb") as fh:
             digest.update(fh.read())
-    return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
+    return os.path.join(build_dir(), f"{name}-{digest.hexdigest()[:16]}.so")
 
 
 def build_all(names: Optional[List[str]] = None) -> Dict[str, dict]:
@@ -70,9 +93,11 @@ def build_all(names: Optional[List[str]] = None) -> Dict[str, dict]:
         for name in names or SOURCES:
             out = _target(name)
             if os.path.exists(out):
+                _count(True)
                 report[name] = {"path": out, "seconds": 0.0, "log": ""}
                 continue
-            os.makedirs(BUILD_DIR, exist_ok=True)
+            _count(False)
+            os.makedirs(os.path.dirname(out), exist_ok=True)
             tmp = f"{out}.{os.getpid()}.tmp"
             cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
                    os.path.join(CSRC, name + ".cu")]

@@ -5,9 +5,13 @@ the serving engine and batcher read, the ``MXSERVE2_*`` and ``MXSERVE3_*``
 flags of the decode tier (``serve2/``), the circuit breaker's
 ``MXRESIL_BREAKER_*``, the optimizer's
 ``MXNET_OPTIMIZER_AGGREGATION_SIZE``, the nd ops'
-``MXNET_SAFE_ACCUMULATION`` and the sparse storage's
-``MXNET_STORAGE_FALLBACK_LOG_VERBOSE``. Resolution order: :func:`set_flag`
-runtime override > environment > declared default.
+``MXNET_SAFE_ACCUMULATION``, the sparse storage's
+``MXNET_STORAGE_FALLBACK_LOG_VERBOSE``, and the fused step's
+``MXNET_GRAD_BUCKET_BYTES``, ``MXNET_EAGER_SYNC`` and
+``MXNET_COMPILE_CACHE_DIR`` with the engine's ``MXNET_ENGINE_TYPE``.
+Resolution order: :func:`set_flag` runtime override > environment >
+declared default. :func:`generation` counts the overrides, for the
+per-op dispatch that caches a flag against it.
 """
 from __future__ import annotations
 
@@ -16,7 +20,7 @@ import threading
 from dataclasses import dataclass
 from typing import Any, Dict, Optional
 
-__all__ = ["Flag", "get", "set_flag", "unset_flag"]
+__all__ = ["Flag", "get", "set_flag", "unset_flag", "generation"]
 
 
 @dataclass(frozen=True)
@@ -93,9 +97,32 @@ _FLAGS: Dict[str, Flag] = {f.name: f for f in (
     Flag("MXNET_STORAGE_FALLBACK_LOG_VERBOSE", bool, True,
          "Warn (once per op) when a sparse input runs through an op's "
          "dense implementation (ref: env_var.md:30)."),
+    Flag("MXNET_GRAD_BUCKET_BYTES", int, 4 << 20,
+         "Byte cap of one flat gradient bucket (step.GradientBuckets): "
+         "parameters of one dtype share a bucket up to it. No step reads "
+         "the buckets yet: the trainer's bucketed exchange comes with "
+         "the distribution slice (ROADMAP Queue A item 6)."),
+    Flag("MXNET_EAGER_SYNC", bool, False,
+         "Block after every eager op (engine.eager_sync, read by the op "
+         "dispatch, ops.registry.call_op): a device error surfaces at "
+         "the op that raised it."),
+    Flag("MXNET_COMPILE_CACHE_DIR", str, "",
+         "Directory of the persistent kernel cache: the nvcc-built "
+         "libraries of csrc/, keyed by source digest (empty: _build/ "
+         "beside the package)."),
+    Flag("MXNET_ENGINE_TYPE", str, "ThreadedEnginePerDevice",
+         "'NaiveEngine' makes dispatch synchronous (engine.is_sync): "
+         "every eager op blocks, as under MXNET_EAGER_SYNC."),
 )}
 _OVERRIDES: Dict[str, Any] = {}
 _LOCK = threading.Lock()
+_GEN = [0]  # bumped on every runtime override
+
+
+def generation() -> int:
+    """How many overrides were set or unset so far: a value cached
+    against it is stale once it moves."""
+    return _GEN[0]
 
 
 def get(name: str) -> Any:
@@ -122,8 +149,10 @@ def set_flag(name: str, value: Any) -> None:
         raise ValueError(f"{name}={value!r} not in {f.choices}")
     with _LOCK:
         _OVERRIDES[name] = value
+        _GEN[0] += 1
 
 
 def unset_flag(name: str) -> None:
     with _LOCK:
         _OVERRIDES.pop(name, None)
+        _GEN[0] += 1

@@ -24,9 +24,12 @@ the graph op by op on torch tensors
 
 ``MXNET_EXEC_BULK_EXEC_TRAIN`` / ``_INFERENCE`` are accepted and change
 nothing: the graph runs op by op either way. One captured program per
-input signature (CUDA graphs) is the fused-step slice's work (ROADMAP
-Queue A item 3). ``MXNET_GRAPH_OPT`` > 0 raises: the graph optimizer is
-ROADMAP Queue A item 5, and :attr:`opt_report` is None.
+input signature is the fused step's (:class:`~mxnet_tpu_torch.step.
+StepFunction`), whose symbol mode runs :func:`graph_forward_backward`:
+the training forward and its backward in one call, sharing
+:meth:`Executor.backward`'s gradient rule. ``MXNET_GRAPH_OPT`` > 0
+raises: the graph optimizer is ROADMAP Queue A item 5, and
+:attr:`opt_report` is None.
 """
 from __future__ import annotations
 
@@ -40,12 +43,56 @@ from .context import Context
 from .ndarray.ndarray import NDArray, _wrap
 from .symbol.symbol import Symbol, _infer_all_shapes, eval_graph
 
-__all__ = ["Executor"]
+__all__ = ["Executor", "graph_forward_backward"]
 
 
 def _tensor_of(v, like: torch.Tensor) -> torch.Tensor:
     t = v._data if isinstance(v, NDArray) else torch.as_tensor(v)
     return t.detach().to(device=like.device, dtype=like.dtype)
+
+
+def _vjp(outs, leaves, ograds):
+    """Gradients of ``outs`` with respect to ``leaves``: each output's head
+    gradient from ``ograds`` (ones where None; outputs that take no
+    gradient left out), zeros for a leaf the outputs do not reach."""
+    heads, cots = [], []
+    for o, og in zip(outs, ograds):
+        if not o.requires_grad:
+            continue
+        heads.append(o)
+        cots.append(torch.ones_like(o) if og is None else _tensor_of(og, o))
+    grads = torch.autograd.grad(heads, leaves, cots, allow_unused=True) \
+        if heads else [None] * len(leaves)
+    return [torch.zeros_like(leaf) if g is None else g
+            for leaf, g in zip(leaves, grads)]
+
+
+def graph_forward_backward(symbol: Symbol, grad_names: List[str]):
+    """The training forward of ``symbol`` and its backward in one call::
+
+        fb(arg_vals, aux_vals, ograds=None, device=None)
+            -> (outputs, aux_updates, {name: gradient})
+
+    over tensors by name, gradients taken with respect to ``grad_names``
+    by ``torch.autograd.grad`` (head gradients ``ograds``, ones by
+    default). Counterpart of ``mxnet_tpu/executor.py::
+    graph_forward_backward``, shared with :class:`Executor`'s backward
+    (:func:`_vjp`); the fused step's symbol mode runs it."""
+    names = list(grad_names)
+
+    def fb(arg_vals, aux_vals, ograds=None, device=None):
+        leaves = {n: arg_vals[n].detach().requires_grad_(True)
+                  for n in names}
+        vm = dict(arg_vals)
+        vm.update(leaves)
+        vm.update(aux_vals)
+        with torch.enable_grad():
+            outs, aux_updates = eval_graph(symbol, vm, True, device)
+        grads = _vjp(outs, [leaves[n] for n in names],
+                     ograds if ograds is not None else [None] * len(outs))
+        return outs, aux_updates, dict(zip(names, grads))
+
+    return fb
 
 
 class Executor:
@@ -162,23 +209,12 @@ class Executor:
             ograds = [out_grads]
         else:
             ograds = list(out_grads)
-        heads, cots = [], []
-        for o, og in zip(outs, ograds):
-            if not o.requires_grad:
-                continue
-            heads.append(o)
-            cots.append(torch.ones_like(o) if og is None
-                        else _tensor_of(og, o))
         names = list(leaves)
-        grads = torch.autograd.grad(heads, [leaves[n] for n in names], cots,
-                                    allow_unused=True) if heads \
-            else [None] * len(names)
+        grads = _vjp(outs, [leaves[n] for n in names], ograds)
         for name, g in zip(names, grads):
             tgt = self.grad_dict.get(name)
             if tgt is None:
                 continue
-            if g is None:
-                g = torch.zeros_like(leaves[name])
             if self.grad_req.get(name) == "add":
                 tgt._data = tgt._data + g
             else:

@@ -16,8 +16,9 @@ front, so there is no deferred initialization):
   ``cast`` (a BatchNorm keeps fp32 for 16-bit types), in place, so a
   Trainer made afterwards sees the cast tensors;
 - ``hybridize(active, static_alloc, static_shape)``: keeps the flags and
-  runs eagerly. Capture of the forward and the step into one program per
-  input signature is the fused-step slice (ROADMAP Queue A item 3).
+  runs eagerly. The whole training step is captured as one CUDA graph per
+  input signature by ``Trainer.fuse_step`` (:mod:`mxnet_tpu_torch.step`),
+  which runs the block through :func:`functional_call`.
 
 - ``save_parameters(filename)`` / ``load_parameters(filename, ...)``:
   every parameter under those names in MXNet's ``.params`` format
@@ -68,7 +69,8 @@ from ..ndarray.ndarray import NDArray, _wrap
 from ..ops.registry import call_op
 from .parameter import collect_params
 
-__all__ = ["Block", "HybridBlock", "SymbolBlock", "as_dtype"]
+__all__ = ["Block", "HybridBlock", "SymbolBlock", "as_dtype",
+           "functional_call"]
 
 _DTYPES = {"float16": torch.float16, "bfloat16": torch.bfloat16,
            "float32": torch.float32, "float64": torch.float64}
@@ -118,6 +120,25 @@ def _wrap_tree(x):
     if isinstance(x, (list, tuple)):
         return type(x)(_wrap_tree(v) for v in x)
     return x
+
+
+def functional_call(block, args, training=False):
+    """``block``'s forward on ``args`` (tensors or NDArrays) over its own
+    parameters, recorded for autograd, in training mode if ``training``;
+    returns the outputs as a tuple of tensors.
+
+    Counterpart of ``mxnet_tpu/gluon/block.py::functional_call``, reduced
+    to what the fused step needs: the parameters are the block's own
+    tensors, so no values are substituted, and the aux writes
+    (BatchNorm's running statistics) land in their parameters' storage
+    by the layers' own in-place copies, where the JAX package returns
+    them as values. Inside a captured CUDA graph those copies are part of
+    the graph."""
+    args = [_unwrap_tree(a) for a in args]
+    with autograd._Scope(True, training):
+        out = block(*args)
+    outs = out if isinstance(out, (list, tuple)) else (out,)
+    return tuple(_unwrap_tree(o) for o in outs)
 
 
 _naming = threading.local()

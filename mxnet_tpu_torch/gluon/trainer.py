@@ -15,7 +15,8 @@ all of them where there are several (the reference's aggregated branch:
 ``mp_sgd`` launch for every fp16 parameter of multi-precision SGD with
 momentum), else one call per parameter. ``save_states``/``load_states``
 keep the optimizer and its states in a file (the path without a
-kvstore).
+kvstore). ``fuse_step`` makes the whole step one captured program
+(:mod:`mxnet_tpu_torch.step`).
 
 A sparse gradient (a torch sparse tensor on a parameter) stays out of
 the aggregated path: the list-form ``Updater`` updates it on its own,
@@ -50,16 +51,24 @@ class Trainer:
     """``params`` is a dict (as :func:`collect_params` gives) or a list of
     ``torch.nn.Parameter``; ``optimizer`` a registered name with
     ``optimizer_params``, or an :class:`~mxnet_tpu_torch.optimizer.
-    Optimizer`. Only ``kvstore="device"`` (one device) is ported."""
+    Optimizer`. Only ``kvstore="device"`` (one device) is ported, so
+    ``update_on_kvstore=True`` is refused too."""
 
     def __init__(self, params: Union[Dict[str, nn.Parameter],
                                      List[nn.Parameter]],
-                 optimizer, optimizer_params=None, kvstore="device"):
+                 optimizer, optimizer_params=None, kvstore="device",
+                 update_on_kvstore=None):
         if kvstore != "device":
             raise NotImplementedError(
                 f"kvstore={kvstore!r}: the port's Trainer runs on one device "
                 "(kvstore='device'); distributed kvstores come with the "
                 "distribution slice (ROADMAP Queue A item 6)")
+        if update_on_kvstore:
+            raise MXNetError(
+                "update_on_kvstore=True: the port's Trainer has no kvstore "
+                "to run the optimizer on (one device); it updates in "
+                "step() or in a fused step. Create the Trainer with "
+                "update_on_kvstore=False (or no kvstore)")
         if isinstance(params, dict):
             names, params = list(params.keys()), list(params.values())
         elif isinstance(params, (list, tuple)):
@@ -74,6 +83,9 @@ class Trainer:
                                  f"Parameters, got list of {type(p)}.")
         self._params = params
         self._names = names
+        # the index of each parameter, by identity (a torch parameter has
+        # no name of its own): what a fused step maps its parameters by
+        self._param2idx = {id(p): i for i, p in enumerate(params)}
         optimizer_params = dict(optimizer_params or {})
         self._scale = float(optimizer_params.get("rescale_grad", 1.0))
         param_dict = dict(enumerate(params))
@@ -151,6 +163,24 @@ class Trainer:
             for _, p in live:
                 if getattr(p, "grad_req", "write") != "add":
                     p.grad = None
+
+    def fuse_step(self, net, loss_fn=None, shard_plan=None, **kwargs):
+        """This trainer's whole step as one :class:`~mxnet_tpu_torch.step.
+        StepFunction`: ``fused.step(x, y)`` replaces ``record`` ->
+        ``backward`` -> ``step(batch_size)``, bit-equal to that loop for
+        the optimizers with a ``fused_apply``; on CUDA one captured graph
+        per input signature. The trainer keeps owning the optimizer and
+        its states, which the step updates in place (``save_states`` sees
+        the post-update values). A sharded plan (``shard_plan=``) waits
+        for ROADMAP Queue A item 6, the elastic kvstore (which the
+        constructor refuses with every other kvstore) for item 7; the
+        ``MXTUNE_AUTO`` consult waits for item 8."""
+        if shard_plan is not None:
+            raise MXNetError("fuse_step(shard_plan=...): the sharded step "
+                             "comes with the distribution slice (ROADMAP "
+                             "Queue A item 6)")
+        from ..step import StepFunction
+        return StepFunction(net, loss_fn, trainer=self, **kwargs)
 
     def save_states(self, fname):
         """Write the optimizer and every state it holds to ``fname`` (the

@@ -43,6 +43,7 @@ from typing import Callable, Dict, List, Optional
 
 import torch
 
+from .. import engine
 from ..base import MXNetError
 
 __all__ = ["register_op", "get_op", "has_op", "list_ops", "OpInfo",
@@ -193,18 +194,24 @@ def _amp_hook(name, fn):
 
 
 _set_grad = torch._C._set_grad_enabled
+_block_if_sync = engine.block_if_sync
 
 
 def call_op(fn, recorded: bool, *args, **kwargs):
     """``fn(*args, **kwargs)`` with torch recording exactly when
-    ``recorded`` (an op inside ``autograd.record()``)."""
+    ``recorded`` (an op inside ``autograd.record()``); then, under
+    ``MXNET_EAGER_SYNC`` or ``NaiveEngine``, a wait for the device
+    (``engine.block_if_sync``)."""
     if recorded or not torch.is_grad_enabled():
-        return fn(*args, **kwargs)
-    _set_grad(False)
-    try:
-        return fn(*args, **kwargs)
-    finally:
-        _set_grad(True)
+        out = fn(*args, **kwargs)
+    else:
+        _set_grad(False)
+        try:
+            out = fn(*args, **kwargs)
+        finally:
+            _set_grad(True)
+    _block_if_sync()
+    return out
 
 
 def add_call_params(info: OpInfo, params: dict, training: bool,

@@ -266,7 +266,11 @@ class Optimizer:
     def fused_apply(self, indices, weights, grads, states, lrs, wds):
         """Pure multi-tensor update: ``(new_weights, new_states)`` lists,
         ``states`` entries shaped as :meth:`create_state` makes them;
-        nothing given is written."""
+        nothing given is written. ``lrs``/``wds`` are Python floats (the
+        aggregated eager update) or 0-d tensors of the weight's dtype on
+        its device (the fused step's, filled before each step so that a
+        captured graph reads the new values), with the same bits either
+        way."""
         raise NotImplementedError(
             f"{type(self).__name__} has no functional fused_apply; the "
             "aggregated update takes the per-parameter loop")

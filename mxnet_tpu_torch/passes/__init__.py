@@ -1,11 +1,12 @@
-"""Analysis passes of the port: the structured :class:`Finding` record
-and, so far, ``servelint``. Counterpart of ``mxnet_tpu/passes/``; the
-pass manager and the other passes wait for ROADMAP Queue A item 8."""
+"""Analysis passes of the port: the structured :class:`Finding` record,
+the :class:`Pass` base, ``servelint`` and ``steplint``. Counterpart of
+``mxnet_tpu/passes/``; the pass manager and the other passes wait for
+ROADMAP Queue A item 8."""
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
-__all__ = ["Finding", "SEVERITIES"]
+__all__ = ["Finding", "Pass", "SEVERITIES"]
 
 # ordered weakest -> strongest
 SEVERITIES = ("info", "warn", "error")
@@ -39,3 +40,17 @@ class Finding:
     def __repr__(self):
         return (f"[{self.severity.upper()}] {self.pass_name}/{self.check} "
                 f"{self.obj}: {self.message}")
+
+
+class Pass:
+    """Base of an analysis pass: a ``name`` and ``run(target) ->
+    [Finding]``, which reads its target and changes nothing."""
+
+    name = "pass"
+
+    def run(self, target) -> List[Finding]:
+        raise NotImplementedError
+
+    def finding(self, check: str, obj: str, severity: str, message: str,
+                loc: Optional[str] = None) -> Finding:
+        return Finding(self.name, check, obj, severity, message, loc)

@@ -17,6 +17,7 @@ import torch
 import mxnet_tpu as mx
 from mxnet_tpu.models import transformer as jax_tf
 from mxnet_tpu_torch import MXNetError, amp, autograd
+from mxnet_tpu_torch.convert import mxnet_tpu_shapes
 from mxnet_tpu_torch.ndarray import serialization
 from mxnet_tpu_torch.gluon import Trainer, collect_params
 from mxnet_tpu_torch.gluon import loss as torch_loss
@@ -124,9 +125,15 @@ def _jax_bert():
     net = jax_tf.BERTModel(vocab_size=V, units=C, num_layers=L, num_heads=H,
                            hidden_size=FFN, max_len=32, dropout=0.0)
     net.initialize(keep_zeros)   # every value is set below
-    net(mx.nd.array(np.zeros((1, 4)), dtype="int32"))
+    # the deferred dims from the port's model of the same configuration,
+    # as test_torch_train.py takes them: an eager JAX forward would
+    # compile every op of the net to learn them
+    shapes = mxnet_tpu_shapes(_port_bert())
     rng = np.random.RandomState(3)
     params = net._collect_params_with_prefix()
+    for n, p in params.items():
+        p.shape = shapes[n]
+        p._finish_deferred_init()
     for p in params.values():
         p.set_data(mx.nd.array(rng.randn(*p.shape).astype("float32") * 0.1))
     return net, params

@@ -1290,3 +1290,261 @@ def test_decode_engine_defaults_to_the_card():
     finally:
         eng.close()
         ref.close()
+
+
+# -- the fused training step (mxnet_tpu_torch.step), one CUDA graph a step ---
+
+def _small_bert_cuda(dropout=0.1):
+    """A 2-layer, 64-unit BERT on the card (heads of 16: the fp32
+    tensor-core route), its dropout generators seeded."""
+    from mxnet_tpu_torch.gluon.nn import Dropout
+    from mxnet_tpu_torch.models import BERTModel
+    torch.manual_seed(0)
+    model = BERTModel(vocab_size=100, units=64, num_layers=2, num_heads=4,
+                      hidden_size=128, max_len=32, dropout=dropout,
+                      device="cuda")
+    for i, d in enumerate(m for m in model.modules()
+                          if isinstance(m, Dropout)):
+        d.manual_seed(i)
+    return model
+
+
+def _bn_mlp_cuda(rate=0.2, lr=None):
+    from mxnet_tpu_torch.gluon.nn import (BatchNorm, Dense, Dropout,
+                                          HybridSequential)
+    torch.manual_seed(0)
+    net = HybridSequential(Dense(32, 10, activation="relu", device="cuda"),
+                           BatchNorm(in_channels=32, device="cuda"),
+                           Dropout(rate, device="cuda"),
+                           Dense(4, 32, device="cuda"))
+    net[2].manual_seed(7)
+    return net
+
+
+def _step_batches(which, n):
+    rng = np.random.RandomState(0)
+    if which == "bert":
+        return [tuple(torch.from_numpy(rng.randint(0, 100, (2, 32))).cuda()
+                      for _ in range(2)) for _ in range(n)]
+    return [(torch.from_numpy(rng.uniform(-1, 1, (8, 10)).astype(
+                 "float32")).cuda(),
+             torch.from_numpy(rng.uniform(-1, 1, (8, 4)).astype(
+                 "float32")).cuda()) for _ in range(n)]
+
+
+def _fused_vs_eager(which, opt, kwargs, batches, fused, hook=None):
+    """Steps over ``batches`` through the eager loop or the fused step;
+    ``hook(i, model, trainer)`` runs after step ``i``. Returns the model,
+    trainer, losses and the step function."""
+    from mxnet_tpu_torch import autograd
+    from mxnet_tpu_torch.gluon import Trainer, collect_params
+    from mxnet_tpu_torch.gluon import loss as gloss
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model = _small_bert_cuda() if which == "bert" else _bn_mlp_cuda()
+    loss_fn = gloss.SoftmaxCrossEntropyLoss() if which == "bert" \
+        else gloss.L2Loss()
+    trainer = Trainer(collect_params(model), opt, dict(kwargs))
+    step = trainer.fuse_step(model, loss_fn) if fused else None
+    losses = []
+    for i, (x, y) in enumerate(batches):
+        if fused:
+            loss = step.step(x, y)
+        else:
+            with autograd.record():
+                loss = loss_fn(model(x), y)
+            autograd.backward(loss)
+            trainer.step(x.shape[0])
+        losses.append(loss.detach().clone())
+        if hook is not None:
+            hook(i, model, trainer)
+    torch.cuda.synchronize()
+    return model, trainer, losses, step
+
+
+def _same_run(a, b):
+    from mxnet_tpu_torch.gluon import collect_params
+    assert all(torch.equal(x, y) for x, y in zip(a[2], b[2])), "losses"
+    pa, pb = collect_params(a[0]), collect_params(b[0])
+    for n in pa:
+        assert torch.equal(pa[n], pb[n]), n
+    sa, sb = a[1]._updaters[0].states, b[1]._updaters[0].states
+    assert sorted(sa) == sorted(sb)
+    for i in sa:
+        xs = sa[i] if isinstance(sa[i], tuple) else (sa[i],)
+        ys = sb[i] if isinstance(sb[i], tuple) else (sb[i],)
+        for x, y in zip(xs, ys):
+            assert (x is None and y is None) or torch.equal(x, y), i
+
+
+@pytest.mark.parametrize("which,opt,kwargs", [
+    ("bert", "adamw", {"learning_rate": 1e-3, "wd": 1e-4}),
+    ("bert", "sgd", {"learning_rate": 0.05, "momentum": 0.9}),
+    ("bn_mlp", "sgd", {"learning_rate": 0.05, "momentum": 0.9,
+                       "wd": 0.01}),
+    ("bn_mlp", "adam", {"learning_rate": 0.01})])
+def test_fused_step_capture_equals_eager_bit_for_bit(which, opt, kwargs):
+    """Three replays of the captured step equal three eager steps from the
+    same start, batch and dropout generators, bit for bit: losses,
+    weights, BatchNorm's running statistics and optimizer states; the
+    warm-up before the capture left no trace."""
+    _need_cuda()
+    batches = _step_batches(which, 1) * 3
+    eager = _fused_vs_eager(which, opt, kwargs, batches, False)
+    again = _fused_vs_eager(which, opt, kwargs, batches, False)
+    _same_run(eager, again)   # the eager step is bit-reproducible
+    fused = _fused_vs_eager(which, opt, kwargs, batches, True)
+    _same_run(eager, fused)
+    assert fused[3].cache_info()["programs"] == 1
+
+
+def test_fused_step_lr_change_takes_effect_without_recapture():
+    _need_cuda()
+
+    def hook(i, model, trainer):
+        if i == 1:
+            trainer.set_learning_rate(0.003)
+
+    kw = {"learning_rate": 1e-2, "momentum": 0.9}
+    batches = _step_batches("bert", 4)
+    eager = _fused_vs_eager("bert", "sgd", kw, batches, False, hook)
+    from mxnet_tpu_torch.telemetry import metrics
+    misses = metrics.counter("fused_step_cache_misses_total")
+    m0 = misses.value()
+    fused = _fused_vs_eager("bert", "sgd", kw, batches, True, hook)
+    assert misses.value() == m0 + 1   # the first capture only
+    _same_run(eager, fused)
+
+
+def test_fused_step_replays_draw_new_dropout_masks():
+    """lr 0 keeps the weights: two replays differ only by their masks,
+    which differ, and each equals the eager step's from the same
+    generator state."""
+    _need_cuda()
+    kw = {"learning_rate": 0.0}
+    batches = _step_batches("bn_mlp", 1) * 2
+    eager = _fused_vs_eager("bn_mlp", "sgd", kw, batches, False)
+    fused = _fused_vs_eager("bn_mlp", "sgd", kw, batches, True)
+    assert not torch.equal(fused[2][0], fused[2][1])
+    _same_run(eager, fused)
+
+
+def test_fused_step_rekeys_on_new_parameter_storage():
+    _need_cuda()
+    from mxnet_tpu_torch.telemetry import metrics
+
+    def hook(i, model, trainer):
+        if i == 1:   # as load_parameters into another dtype would
+            w = model[0].weight
+            w.data = w.data.clone()
+
+    kw = {"learning_rate": 0.05, "momentum": 0.9}
+    batches = _step_batches("bn_mlp", 4)
+    eager = _fused_vs_eager("bn_mlp", "sgd", kw, batches, False, hook)
+    m0 = metrics.counter("fused_step_cache_misses_total").value()
+    fused = _fused_vs_eager("bn_mlp", "sgd", kw, batches, True, hook)
+    assert metrics.counter("fused_step_cache_misses_total").value() == m0 + 2
+    _same_run(eager, fused)
+
+
+def test_fused_step_replays_on_new_inputs_through_the_kernels():
+    """Each replay on a new batch equals the eager step on it, bit for bit:
+    the attention kernels ran inside the graph. Their launch counters
+    count Python calls, so they move at the warm-up and the capture only,
+    not at a replay; a replay makes no host synchronisation."""
+    _need_cuda()
+    from mxnet_tpu_torch.ops.flash_attention import (
+        LAUNCHES, LAUNCHES_DKV_TC32, LAUNCHES_SPLIT)
+    kw = {"learning_rate": 1e-3}
+    batches = _step_batches("bert", 4)
+    eager = _fused_vs_eager("bert", "adam", kw, batches, False)
+    counts = []
+
+    def hook(i, model, trainer):
+        counts.append((LAUNCHES.count, LAUNCHES_DKV_TC32.count,
+                       LAUNCHES_SPLIT.count))
+        if i == 1:
+            torch.cuda.set_sync_debug_mode("error")
+
+    try:
+        fused = _fused_vs_eager("bert", "adam", kw, batches, True, hook)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    _same_run(eager, fused)
+    assert counts[1] == counts[2] == counts[3]
+
+
+def test_fused_step_host_sync_in_the_loss_raises():
+    """A host synchronisation inside the step cannot be captured: the
+    step raises MXNetError naming the capture, runs no eager step in its
+    place, and leaves the weights as they were."""
+    _need_cuda()
+    from mxnet_tpu_torch import MXNetError
+    from mxnet_tpu_torch.gluon import Trainer, collect_params
+    from mxnet_tpu_torch.gluon import loss as gloss
+
+    class SyncingLoss(gloss.L2Loss):
+        def forward(self, pred, label, sample_weight=None):
+            loss = super().forward(pred, label, sample_weight)
+            if loss.sum().item() < 0:   # a host read of a device value
+                loss = loss * 2
+            return loss
+
+    net = _bn_mlp_cuda()
+    params = collect_params(net)
+    before = {n: p.detach().clone() for n, p in params.items()}
+    trainer = Trainer(params, "sgd", {"learning_rate": 0.1})
+    fused = trainer.fuse_step(net, SyncingLoss())
+    x, y = _step_batches("bn_mlp", 1)[0]
+    with pytest.raises(MXNetError, match="capture"):
+        fused.step(x, y)
+    for n, p in params.items():
+        assert torch.equal(p, before[n]), n
+    assert trainer._optimizer._index_update_count == {}
+
+
+_EAGER_SYNC_PROBE = """
+import sys
+import numpy as np
+import mxnet_tpu_torch as mx
+from mxnet_tpu_torch import config, nd
+config.set_flag("MXNET_EAGER_SYNC", sys.argv[1] == "1")
+x = nd.array(np.arange(8, dtype=np.float32), ctx=mx.gpu(0))
+i = nd.array(np.array([1, 99], dtype=np.float32), ctx=mx.gpu(0))
+x.wait_to_read()
+i.wait_to_read()
+try:
+    y = x[i]          # index 99 of 8: a device-side assert, raised late
+except RuntimeError:
+    print("raised at the op")
+    sys.exit(0)
+try:
+    y.asnumpy()
+except RuntimeError:
+    print("raised at the read")
+    sys.exit(0)
+print("not raised")
+"""
+
+
+@pytest.mark.parametrize("sync,where", [("1", "raised at the op"),
+                                        ("0", "raised at the read")])
+def test_eager_sync_surfaces_a_device_error_at_its_op(sync, where):
+    """Under MXNET_EAGER_SYNC the op dispatch waits for the device after
+    every op, so an out-of-range index (a device-side assert, which
+    leaves the process's CUDA context unusable: hence a process of its
+    own) raises at the indexing op; without it the op returns and the
+    error comes at the next read."""
+    _need_cuda()
+    import os
+    import subprocess
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=root + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    env.pop("CUDA_LAUNCH_BLOCKING", None)
+    run = subprocess.run([sys.executable, "-c", _EAGER_SYNC_PROBE, sync],
+                         cwd=root, env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert run.stdout.strip().splitlines()[-1:] == [where], \
+        (run.stdout, run.stderr[-2000:])

@@ -56,7 +56,11 @@ SLICE_MODULES = [
     "mxnet_tpu_torch.serve2.decode", "mxnet_tpu_torch.serve2.scheduler",
     "mxnet_tpu_torch.serve2.router", "mxnet_tpu_torch.resil",
     "mxnet_tpu_torch.resil.policy", "mxnet_tpu_torch.serve.endpoint",
-    "mxnet_tpu_torch.passes", "mxnet_tpu_torch.passes.servelint"]
+    "mxnet_tpu_torch.passes", "mxnet_tpu_torch.passes.servelint",
+    # slice 15: the fused training step
+    "mxnet_tpu_torch.step", "mxnet_tpu_torch.step.stepfn",
+    "mxnet_tpu_torch.step.buckets", "mxnet_tpu_torch.step.cache",
+    "mxnet_tpu_torch.engine", "mxnet_tpu_torch.passes.steplint"]
 
 _PROBE = r"""
 import importlib, pkgutil, sys

@@ -45,13 +45,21 @@ def _data(shape, n, seed):
     return x, y
 
 
-def _init_params(jmod, seed):
-    """Numpy-seeded parameters of the JAX module's shapes, N(0, 0.1^2)."""
+def _init_params(net, data_shape, seed):
+    """Numpy-seeded parameters N(0, 0.1^2) for every argument of ``net``
+    but the data and the label, zero aux states, in the shapes of the
+    port's symbolic inference (no module bound and nothing drawn to learn
+    them; the JAX package's inference gives the same shapes)."""
+    label = (data_shape[0],)
+    arg_shapes, _, aux_shapes = net.infer_shape(data=data_shape,
+                                                softmax_label=label)
+    shapes = {n: s for n, s in zip(net.list_arguments(), arg_shapes)
+              if n not in ("data", "softmax_label")}
     rs = np.random.RandomState(seed)
-    args, auxs = jmod.get_params()
-    return ({n: (rs.randn(*a.shape) * 0.1).astype("float32")
-             for n, a in sorted(args.items())},
-            {n: np.zeros(a.shape, "float32") for n, a in auxs.items()})
+    return ({n: (rs.randn(*s) * 0.1).astype("float32")
+             for n, s in sorted(shapes.items())},
+            {n: np.zeros(s, "float32")
+             for n, s in zip(net.list_auxiliary_states(), aux_shapes)})
 
 
 def _nd(pkg, v):
@@ -91,11 +99,7 @@ def trained(request):
     (jnet, shapes), (tnet, _) = graphs._build(jmx, make), \
         graphs._build(mx, make)
     x, y = _data(shapes["data"], BATCH * N_BATCHES, 0)
-    probe = jmx.mod.Module(jnet)
-    probe.bind(data_shapes=[("data", (BATCH,) + shapes["data"][1:])],
-               label_shapes=[("softmax_label", (BATCH,))])
-    probe.init_params()
-    args, auxs = _init_params(probe, 1)
+    args, auxs = _init_params(tnet, (BATCH,) + shapes["data"][1:], 1)
     want = _train(jmx, jnet, x, y, args, auxs)
     with mx.cpu():
         got = _train(mx, tnet, x, y, args, auxs)
