@@ -382,6 +382,24 @@ RESNET32_ERR_RATIO, RESNET64_TOL = 3.0, 1e-9
 # step's largest is checked finite and reported
 RESNET_B, RESNET_STEPS, RESNET_LOSS_SCALE = 256, 9, 64.0
 RESNET_FP16_PARAMS = 87
+# [zoo_inception3] / [zoo_mobilenet_v2]: two zoo families built as a user
+# builds them (get_model with no device and no input sizes, initialize on
+# the card, cast to fp16 and the Trainer both before the first forward),
+# trained in fp16 with multi-precision SGD (one B1 launch a step) for
+# 1 + 8 steps on batches of gluon.data.DataLoader over an ArrayDataset of
+# synthetic uint8 HWC images (label k of ZOO_LABELS brightens band k)
+# through ToTensor and Normalize: Inception v3 at 299 x 299, batch 32 (the
+# reference's per-GPU batch for it, BASELINE.md:38), and MobileNet v2 1.0
+# at 224 x 224, batch 256 (ResNet-50's [train_resnet50] batch). The loss
+# scale is [train_resnet50]'s; the export check holds the exported graph's
+# fp16 logits to ZOO_EXPORT_TOL of the largest logit, and [zoo_mobilenet_v2]
+# also takes one step at batch ZOO_CHECK_B in fp32 and fp64 on the card and
+# the CPU, held as [resnet_check] holds ResNet-50
+ZOO_PHASES = (("zoo_inception3", "inceptionv3", 299, 32),
+              ("zoo_mobilenet_v2", "mobilenetv2_1.0", 224, 256))
+ZOO_STEPS, ZOO_LR, ZOO_LABELS, ZOO_WORKERS = 9, 0.05, 10, 4
+ZOO_MEAN, ZOO_STD = (0.485, 0.456, 0.406), (0.229, 0.224, 0.225)
+ZOO_EXPORT_TOL, ZOO_CHECK_B, ZOO_CHECK_LR = 1e-2, 4, 1e-3
 # [train_bert_adamw_fp16]: BERT-base fp16 (dropout 0.1, 8 x 512 tokens)
 # with BERT's optimizer (Devlin et al. 2018, appendix A.2: Adam with
 # decoupled weight decay 0.01, beta2 0.999; epsilon 1e-6 as in
@@ -495,6 +513,15 @@ EMB_VOCAB, EMB_DIM, EMB_BATCH, EMB_BPTT = 793_471, 512, 128, 20
 EMB_ZIPF, EMB_STEPS, EMB_TOL = 1.0, 7, 1e-6
 N_REQUESTS, CONCURRENCY = 24, 4
 HEADS, HEAD_DIM = 12, 64
+
+
+def _params_of(net):
+    """``{structural name: tensor}`` of a port model (``0.weight``,
+    ``features.1.running_var``): the names ``convert.py`` and ``.params``
+    files use."""
+    from mxnet_tpu_torch.gluon.parameter import collect_params
+    return collect_params(net)
+
 
 # Published dense peaks (NVIDIA data sheets): fp32 without tensor cores
 # (FFMA), bf16 on tensor cores, device-memory bytes/s. Matched on the card's
@@ -2472,7 +2499,7 @@ def phase_resnet_check(card):
     state = {k: v.cpu() for k, v in
              _seeded_resnet50("cuda").state_dict().items()}
     model = _seeded_resnet50("cpu")
-    names = list(model.collect_params())
+    names = list(_params_of(model))
     stat_names = [n for n in names if n.endswith(("running_mean",
                                                   "running_var"))]
     trained = [n for n in names if n not in stat_names]
@@ -2491,7 +2518,7 @@ def phase_resnet_check(card):
         net.load_state_dict(state)
         net.cast(dtype)
         net.to(device)
-        params = net.collect_params()
+        params = _params_of(net)
         trainer = Trainer(params, "sgd", {"learning_rate": RESNET_CHECK_LR,
                                           "momentum": RESNET_MOMENTUM,
                                           "wd": RESNET_WD})
@@ -2609,7 +2636,7 @@ def phase_train_resnet50(card, peaks):
     from mxnet_tpu_torch.opt import kernels as opt_kernels
     t0 = time.perf_counter()
     net = _seeded_resnet50("cuda", "float16")
-    params = net.collect_params()
+    params = _params_of(net)
     names = list(params)
     init_state = {k: v.detach().clone() for k, v in net.state_dict().items()}
     fp16 = [n for n, p in params.items()
@@ -2740,7 +2767,7 @@ def phase_train_resnet50(card, peaks):
     # through B1's plain version, fp32 ones through plain SGD)
     ref = _seeded_resnet50("cuda", "float16")
     ref.load_state_dict(init_state)
-    ref_params = ref.collect_params()
+    ref_params = _params_of(ref)
     ref_state = {n: (p.detach().float().clone(),
                      torch.zeros_like(p, dtype=torch.float32))
                  for n, p in ref_params.items() if p.requires_grad}
@@ -3246,18 +3273,16 @@ def phase_train_gluon_nd(card, resnet_summary):
     import mxnet_tpu_torch as mx
     from mxnet_tpu_torch import autograd, gluon, initializer, metric, nd
     from mxnet_tpu_torch.gluon.model_zoo.vision import get_model
-    from mxnet_tpu_torch.gluon.parameter import make_param
     from mxnet_tpu_torch.opt import kernels as opt_kernels
 
     class Classifier(gluon.HybridBlock):
         """The output layer as a user writes it."""
 
-        def __init__(self, units, in_units, device):
+        def __init__(self, units, in_units):
             super().__init__()
-            self.weight = make_param("weight", (units, in_units), device,
-                                     torch.float32)
-            self.bias = make_param("bias", (units,), device, torch.float32,
-                                   "zeros")
+            self.weight = self.params.get("weight", shape=(units, in_units))
+            self.bias = self.params.get("bias", shape=(units,),
+                                        init="zeros")
 
         def hybrid_forward(self, F, x, weight, bias):
             return F.FullyConnected(x, weight, bias,
@@ -3267,7 +3292,7 @@ def phase_train_gluon_nd(card, resnet_summary):
     ctx = mx.gpu(0)
     mx.random.seed(SEED)
     net = get_model("resnet50_v1", classes=RESNET_CLASSES, device="cuda")
-    net.output = Classifier(RESNET_CLASSES, 2048, ctx.torch_device)
+    net.output = Classifier(RESNET_CLASSES, 2048)
     net.initialize(initializer.Xavier(rnd_type="gaussian", factor_type="in",
                                       magnitude=2))
     net.cast("float16")
@@ -3742,7 +3767,7 @@ def phase_module_resnet50(card, check32):
     gx, gy = (t.cuda() for t in _resnet_batch(RESNET_B, torch.float32,
                                               "cpu"))
     gl_net = _seeded_resnet50("cuda")
-    gl_params = gl_net.collect_params()
+    gl_params = _params_of(gl_net)
     gl_big = Trainer(gl_params, "sgd", {"learning_rate": RESNET_LR,
                                         "momentum": RESNET_MOMENTUM,
                                         "wd": RESNET_WD})
@@ -3768,7 +3793,7 @@ def phase_module_resnet50(card, check32):
     names = list(jax_params)   # the Module's; each new net counts its own
     trained = [n for n, p in jax_params.items() if p.requires_grad]
     stats = [n for n in jax_params if n not in trained]
-    noise = {id(net.collect_params()[n]) for n in _noise_biases(net)}
+    noise = {id(_params_of(net)[n]) for n in _noise_biases(net)}
     kept = [n for n in trained if id(jax_params[n]) not in noise]
     del net, jax_params
     rows = torch.arange(RESNET_CHECK_B)
@@ -5556,6 +5581,310 @@ def phase_decode_router(card, params):
     log("[decode_router] " + json.dumps(summary, default=str))
 
 
+def _zoo_loader(size, batch):
+    """A DataLoader over ``3 * batch`` synthetic images (uint8, HWC, from
+    SEED with numpy; label k brightens the k-th of ZOO_LABELS horizontal
+    bands) and int32 labels, through ToTensor and Normalize, in
+    ZOO_WORKERS worker processes."""
+    from mxnet_tpu_torch.gluon.data import ArrayDataset, DataLoader
+    from mxnet_tpu_torch.gluon.data.vision import transforms
+    rng = np.random.RandomState(SEED)
+    n = 3 * batch
+    y = rng.randint(0, ZOO_LABELS, n).astype(np.int32)
+    x = rng.randint(0, 128, (n, size, size, 3)).astype(np.uint8)
+    band = size // ZOO_LABELS
+    for i, k in enumerate(y):
+        x[i, k * band:(k + 1) * band] += 100
+    tf = transforms.Compose([transforms.ToTensor(),
+                             transforms.Normalize(ZOO_MEAN, ZOO_STD)])
+    return DataLoader(ArrayDataset(x, y).transform_first(tf),
+                      batch_size=batch, last_batch="discard",
+                      num_workers=ZOO_WORKERS, pin_memory=True)
+
+
+def _zoo_names(net):
+    """``{collect_params() key without the model's own prefix: shape}``
+    (the prefix counts the models built before it)."""
+    return {n[len(net.prefix):]: p.shape
+            for n, p in net.collect_params().items()}
+
+
+def _zoo_reference(name, size):
+    """The names and shapes the same build resolves on the CPU."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd
+    from mxnet_tpu_torch.gluon.model_zoo import get_model
+    with mx.cpu():
+        ref = get_model(name)
+        ref.initialize()
+        with autograd.pause():
+            ref(torch.zeros(1, 3, size, size))
+    return _zoo_names(ref)
+
+
+def phase_zoo(card, tag, name, size, batch):
+    """``name`` built and trained through the public API as a user script
+    does (see ZOO_PHASES), with the checks of its deferred resolution,
+    placement, dtypes, naming, B1 count, gradients, loss and running
+    statistics, each fatal."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, gluon
+    from mxnet_tpu_torch.gluon import nn as gnn
+    from mxnet_tpu_torch.gluon.model_zoo import get_model
+    from torch.nn.parameter import UninitializedParameter
+    t0 = time.perf_counter()
+    loader = _zoo_loader(size, batch)
+    batches = []
+    with mx.gpu(0):
+        while len(batches) < ZOO_STEPS + 1:
+            batches.extend(loader)
+    load_s = time.perf_counter() - t0
+    want_shapes = _zoo_reference(name, size)
+    mx.random.seed(SEED)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter()
+    net = get_model(name)
+    net.initialize(mx.init.Xavier(magnitude=2), ctx=mx.gpu(0))
+    net.cast("float16")
+    params = net.collect_params()
+    trainer = gluon.Trainer(params, "sgd", {
+        "learning_rate": ZOO_LR, "momentum": 0.9, "wd": 1e-4,
+        "multi_precision": True})
+    deferred = sum(isinstance(p, UninitializedParameter)
+                   for p in net.parameters())
+    tensors = _params_of(net)
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    feed = iter(batches * 2)
+    first_forward_s, grad_max, missing = [], [], []
+
+    def update():
+        grads = [p.grad for p in tensors.values() if p.grad is not None]
+        grad_max.append(torch.stack(torch._foreach_norm(
+            grads, float("inf"))).float().max())
+        trainer.step(batch * RESNET_LOSS_SCALE)
+    checked = _checked(update, tensors, missing)
+
+    def step(events=None):
+        xb, yb = next(feed)
+        if events:
+            events[0].record()
+        with autograd.record():
+            out = net(xb.astype("float16"))
+            if not first_forward_s:
+                torch.cuda.synchronize()
+                first_forward_s.append(time.perf_counter() - t_build)
+            loss = loss_fn(out, yb)
+            scaled = loss * RESNET_LOSS_SCALE
+        if events:
+            events[1].record()
+        scaled.backward()
+        if events:
+            events[2].record()
+        checked()
+        if events:
+            events[3].record()
+        return loss._data.detach().float().mean()
+
+    want = dict.fromkeys(_train_counters(), 0)
+    want["mp_sgd"] = 1
+    losses, walls, parts, totals, peak = _run_steps(
+        tag, ZOO_STEPS, step, missing, want)
+    shapes = _zoo_names(net)
+    faults = []
+    if any(isinstance(p, UninitializedParameter) for p in net.parameters()):
+        faults.append("a parameter is still uninitialized")
+    if any(p.device != torch.device("cuda", 0) for p in net.parameters()):
+        faults.append("a parameter is not on cuda:0")
+    if list(shapes) != list(want_shapes) or shapes != want_shapes:
+        faults.append("names or shapes differ from the CPU build's")
+    for m in net.modules():
+        ps = [p for p in m.parameters(recurse=False)]
+        if isinstance(m, (gnn.Conv2D, gnn.Dense)) and any(
+                p.dtype != torch.float16 for p in ps):
+            faults.append(f"{m.prefix}: a weight is not fp16")
+        if isinstance(m, gnn.BatchNorm) and any(
+                p.dtype != torch.float32 for p in ps):
+            faults.append(f"{m.prefix}: a BatchNorm parameter is not fp32")
+    bns = [m for m in net.modules() if isinstance(m, gnn.BatchNorm)]
+    if not all(bool((m.running_mean != 0).any())
+               and bool((m.running_var != 1).any()) for m in bns):
+        faults.append("a running statistic did not move")
+    max_grad = [g.item() for g in grad_max]
+    if not all(np.isfinite(max_grad)):
+        faults.append(f"a gradient held inf or NaN: {max_grad}")
+    if not losses[-1] < losses[1]:
+        faults.append(f"the loss did not fall over the 8 steps: {losses}")
+    if totals["mp_sgd"] != ZOO_STEPS:
+        faults.append(f"{totals['mp_sgd']} B1 launches in {ZOO_STEPS} steps")
+    if faults:
+        raise SystemExit(f"chip_smoke: {tag}: " + "; ".join(faults[:6]))
+    steady = range(1, len(walls))
+    wall_ms = float(np.median([walls[i] for i in steady]))
+    kernel_ms, ours, top = profiled_step(step)
+    if ours["mp_sgd"] <= 0:
+        raise SystemExit(f"chip_smoke: {tag}: the profiler found no device "
+                         "time for mp_sgd")
+    fp16 = [p for p in net.parameters()
+            if p.requires_grad and p.dtype == torch.float16]
+    summary = {
+        "card": card, "model": name, "batch": [batch, 3, size, size],
+        "steps": ZOO_STEPS, "dtype": "float16, BatchNorm float32",
+        "parameters": len(params),
+        "deferred_before_first_forward": deferred,
+        "values": sum(p.numel() for p in net.parameters()),
+        "losses": losses, "max_abs_grad_by_step": max_grad,
+        "step_wall_ms_median": wall_ms, "step_wall_ms": walls,
+        "images_per_s": batch / (wall_ms / 1e3),
+        "forward_ms": float(np.median([parts[i][0] for i in steady])),
+        "backward_ms": float(np.median([parts[i][1] for i in steady])),
+        "optimizer_ms": float(np.median([parts[i][2] for i in steady])),
+        "profiled_kernel_ms": kernel_ms,
+        "device_busy_share": kernel_ms / wall_ms, "top_kernels_ms": top,
+        "b1_ms_per_step": ours["mp_sgd"],
+        "b1_launches_per_step": totals["mp_sgd"] / ZOO_STEPS,
+        "b1_tensors_per_step": len(fp16),
+        "b1_values_per_step": sum(p.numel() for p in fp16),
+        "construction_to_first_forward_s": first_forward_s[0],
+        "data_loading_s": load_s, "peak_memory_bytes": peak,
+        "launches": totals}
+    log(f"[{tag}] " + json.dumps(summary))
+    return net, batches, summary
+
+
+def phase_zoo_export(net, batches):
+    """[zoo_mobilenet_v2]: ``export`` and ``SymbolBlock.imports`` on the
+    card give the block's predict-mode fp16 logits within ZOO_EXPORT_TOL
+    of the largest."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, gluon
+    x = batches[0][0]._data[:16].half()
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "mobilenetv2")
+        net.export(path)
+        blk = gluon.SymbolBlock.imports(path + "-symbol.json", ["data"],
+                                        path + "-0000.params",
+                                        ctx=mx.gpu(0))
+    with torch.no_grad(), autograd.predict_mode():
+        want = net(x).float()
+        got = blk(x).float()
+    err = ((got - want).abs().max() / want.abs().max()).item()
+    log(f"[zoo_mobilenet_v2] export -> SymbolBlock.imports on the card: "
+        f"{len(blk.collect_params())} parameters, logits max abs error "
+        f"{err:.3e} of the largest (limit {ZOO_EXPORT_TOL})")
+    if not (torch.isfinite(got).all() and err <= ZOO_EXPORT_TOL):
+        raise SystemExit("chip_smoke: zoo_mobilenet_v2: the exported graph "
+                         "disagrees with the block")
+    return err
+
+
+def phase_zoo_check(card, name, size):
+    """[zoo_mobilenet_v2]: one SGD step at batch ZOO_CHECK_B from the same
+    weights and batch on the card and the CPU, in fp32 and fp64 (TF32
+    off): the card's fp64 run within RESNET64_TOL of the CPU's, and its
+    fp32 errors against the CPU's fp64 run (loss, update, running
+    statistics, logits) at most RESNET32_ERR_RATIO times the CPU's fp32
+    errors, as [resnet_check] holds ResNet-50."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, gluon
+    from mxnet_tpu_torch.gluon.model_zoo import get_model
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.RandomState(SEED)
+    x0 = rng.uniform(-1, 1, (ZOO_CHECK_B, 3, size, size))
+    y0 = rng.randint(0, 1000, ZOO_CHECK_B).astype(np.float32)
+    mx.random.seed(SEED)
+    with mx.cpu():
+        src = get_model(name)
+        src.initialize(mx.init.Xavier(magnitude=2))
+        with autograd.pause():
+            src(torch.zeros(1, 3, size, size))
+    state = {k: v.detach().clone() for k, v in src.state_dict().items()}
+
+    def run(device, dtype):
+        ctx = mx.gpu(0) if device == "cuda" else mx.cpu()
+        net = get_model(name)
+        net.initialize(ctx=ctx)
+        with autograd.pause():
+            net(torch.zeros(1, 3, size, size, device=device))
+        net.load_state_dict(state)
+        net.cast(dtype)
+        tensors = _params_of(net)
+        trainer = gluon.Trainer(net.collect_params(), "sgd", {
+            "learning_rate": ZOO_CHECK_LR, "momentum": 0.9, "wd": 1e-4})
+        x = torch.from_numpy(x0).to(device, getattr(torch, dtype))
+        y = torch.from_numpy(y0).to(device)
+        loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+        with autograd.record():
+            loss = loss_fn(net(x), y).mean()
+        autograd.backward(loss)
+        trainer.step(1)
+        with torch.no_grad(), autograd.predict_mode():
+            logits = net(x)
+        return {"loss": loss.detach().double().cpu(),
+                "logits": logits.double().cpu(),
+                "weights": {n: p.detach().double().cpu().clone()
+                            for n, p in tensors.items()}}
+
+    runs = {(d, t): run(d, t) for d in ("cuda", "cpu")
+            for t in ("float32", "float64")}
+    names = list(runs[("cpu", "float64")]["weights"])
+    stats = [n for n in names if n.endswith(("running_mean", "running_var"))]
+    trained = [n for n in names if n not in stats]
+    init = {n: state[port_name_of(n)].double() for n in names}
+
+    def errors(got, ref):
+        upd, _ = _update_diff([got["weights"][n] for n in trained],
+                              [ref["weights"][n] for n in trained],
+                              [init[n] for n in trained], trained)
+        return {"loss": abs(got["loss"] - ref["loss"]).item(),
+                "update": upd,
+                "stats": _rel_l2([got["weights"][n] for n in stats],
+                                 [ref["weights"][n] for n in stats]),
+                "logits": _rel_l2([got["logits"]], [ref["logits"]])}
+
+    ref = runs[("cpu", "float64")]
+    e64 = errors(runs[("cuda", "float64")], ref)
+    card32 = errors(runs[("cuda", "float32")], ref)
+    cpu32 = errors(runs[("cpu", "float32")], ref)
+    keys = ("loss", "update", "stats", "logits")
+    ratios = {k: card32[k] / max(cpu32[k], 1e-300) for k in keys}
+    summary = {"card": card, "batch": [ZOO_CHECK_B, 3, size, size],
+               "fp64_cuda_vs_cpu": e64, "fp32_cuda_vs_fp64": card32,
+               "fp32_cpu_vs_fp64": cpu32,
+               "fp32_error_ratio_cuda_over_cpu": ratios}
+    log("[zoo_mobilenet_v2] one step at batch 4, card vs CPU: "
+        + json.dumps(summary))
+    ok = all(e64[k] <= RESNET64_TOL for k in keys) \
+        and max(ratios.values()) <= RESNET32_ERR_RATIO \
+        and all(torch.isfinite(r["logits"]).all() for r in runs.values())
+    if not ok:
+        raise SystemExit("chip_smoke: zoo_mobilenet_v2: the step on the card "
+                         "disagrees with the CPU")
+    return summary
+
+
+def port_name_of(name):
+    from mxnet_tpu_torch.convert import port_name
+    return port_name(name)
+
+
+def phase_zoo_all(card):
+    """Both zoo phases; returns their summaries by tag."""
+    out = {}
+    for tag, name, size, batch in ZOO_PHASES:
+        net, batches, summary = phase_zoo(card, tag, name, size, batch)
+        if tag == "zoo_mobilenet_v2":
+            summary["export_logits_error"] = phase_zoo_export(net, batches)
+            del net, batches
+            torch.cuda.empty_cache()
+            summary["check"] = phase_zoo_check(card, name, size)
+        else:
+            del net, batches
+        torch.cuda.empty_cache()
+        out[tag] = summary
+    return out
+
+
 def phase_decode(card, peaks):
     """The autoregressive serving slice: every decode phase on one
     parameter tree, the engines of each closed before the next."""
@@ -5676,6 +6005,7 @@ def main():
     linear = phase_sparse_linear(card)
     phase_sparse_embedding(card)
     phase_sparse_params(card, linear)
+    zoo = phase_zoo_all(card)
     phase_decode(card, peaks)
     enc32, enc16 = enc["launches"], enc["fp16"]
     nd_attn = {r["dtype"]: r["launches"] for r in nd_run["attention"]}
@@ -5924,7 +6254,8 @@ def main():
         "replaces": "mxnet_tpu/opt/kernels.py:95",
         "launches": train["mp_sgd"] + resnet["mp_sgd"]
         + adamw["launches"]["mp_sgd"] + gluon_nd["launches"]["mp_sgd"]
-        + nd_b1["single"]["launches"] + nd_b1["multi"]["launches"],
+        + nd_b1["single"]["launches"] + nd_b1["multi"]["launches"]
+        + sum(z["launches"]["mp_sgd"] for z in zoo.values()),
         "launches_by_path": {"train_fp16": train["mp_sgd"],
                              "train_resnet50_fp16": resnet["mp_sgd"],
                              "train_bert_adamw_fp16":
@@ -5934,13 +6265,17 @@ def main():
                              "nd_mp_sgd_mom_update_bert_150":
                                  nd_b1["single"]["launches"],
                              "nd_multi_mp_sgd_mom_update_bert_150":
-                                 nd_b1["multi"]["launches"]},
+                                 nd_b1["multi"]["launches"],
+                             **{f"{t}_fp16": z["launches"]["mp_sgd"]
+                                for t, z in zoo.items()}},
         "launches_per_step": {
             "train_fp16": train["mp_sgd"] / TRAIN_STEPS,
             "train_resnet50_fp16": resnet["mp_sgd"] / RESNET_STEPS,
             "train_bert_adamw_fp16": adamw["launches"]["mp_sgd"]
             / adamw["steps"],
-            "train_gluon_nd_fp16": gluon_nd["b1_launches_per_step"]},
+            "train_gluon_nd_fp16": gluon_nd["b1_launches_per_step"],
+            **{f"{t}_fp16": z["b1_launches_per_step"]
+               for t, z in zoo.items()}},
         "max_abs_err": max([r["max_abs_err"] for r in sgd_rows]
                            + [r[f"clip_{c}"]["max_abs_err"]
                               for r in multi_rows.values()

@@ -119,9 +119,11 @@ class LossScaler:
         self._unskipped = 0
 
     def has_overflow(self, params) -> bool:
-        """Whether any gradient of ``params`` holds an inf or a NaN: one
-        reduction over all of them (``multi_all_finite``), one sync."""
-        grads = [p.grad for p in params if p.grad is not None]
+        """Whether any gradient of ``params`` (Gluon ``Parameter``s or
+        their tensors) holds an inf or a NaN: one reduction over all of
+        them (``multi_all_finite``), one sync."""
+        tensors = [getattr(p, "tensor", p) for p in params]
+        grads = [t.grad for t in tensors if t.grad is not None]
         if not grads:
             return False
         return multi_all_finite(*grads).item() == 0.0

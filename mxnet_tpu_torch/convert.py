@@ -2,10 +2,13 @@
 
 ``mxnet_tpu`` names a block's parameters by ``_collect_params_with_prefix()``
 (``layers.0.attn.qkv.weight``, ``ln_f.gamma``, ``features.1.running_var``,
-...). The port keeps the same attribute paths and layouts, and names a
-LayerNorm's or BatchNorm's ``gamma``/``beta`` ``weight``/``bias``, as
-PyTorch does; BatchNorm's ``running_mean``/``running_var`` keep their names
-and are carried like any parameter.
+``features.3.out.1.gamma``, ...). The port keeps the same attribute paths
+and layouts, in every zoo family and layer, and names a normalization
+layer's (BatchNorm, LayerNorm, InstanceNorm, GroupNorm) ``gamma``/``beta``
+``weight``/``bias``, as PyTorch does; BatchNorm's
+``running_mean``/``running_var`` and PReLU's ``alpha`` keep their names
+and are carried like any parameter. A model built without input sizes
+takes weights once a forward resolved its shapes.
 
 The serving LM stack (``parallel/pipeline_lm.py``) is a nested dict in
 both packages, with the same keys and layouts:
@@ -18,6 +21,7 @@ from typing import Dict, Mapping, Tuple
 import numpy as np
 import torch
 from torch import nn
+from torch.nn.parameter import UninitializedParameter
 
 from .base import MXNetError
 from .context import resolve_device
@@ -58,8 +62,16 @@ def params_from_mxnet_tpu(named: Mapping[str, np.ndarray],
     """A state dict for ``model`` from the JAX package's ``{name: array}``.
 
     Every shape is checked against ``model``; a parameter missing on
-    either side raises. The tensors are CPU copies in the model's dtypes:
+    either side raises, and so does one whose deferred shape is not
+    resolved yet (run one forward, or ``load_parameters``, first). The
+    tensors are CPU copies in the model's dtypes:
     ``model.load_state_dict(result)`` moves them to its device."""
+    pending = [n for n, p in model.named_parameters()
+               if isinstance(p, UninitializedParameter)]
+    if pending:
+        raise MXNetError(f"{len(pending)} parameter(s) of the model wait "
+                         f"for their first forward ({pending[:4]}); run "
+                         "one forward before carrying weights in")
     target = model.state_dict()
     out: Dict[str, torch.Tensor] = {}
     for name, arr in named.items():

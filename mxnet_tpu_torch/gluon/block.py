@@ -1,41 +1,60 @@
 """Gluon ``Block`` and ``HybridBlock`` as ``torch.nn.Module``s.
 
 Counterpart of ``mxnet_tpu/gluon/block.py``'s ``Block`` and
-``HybridBlock``: the Gluon calls a training script makes on a model,
-over a module whose parameters exist from the start (shapes are given up
-front, so there is no deferred initialization):
+``HybridBlock``: the Gluon calls a training script makes on a model.
+A layer's parameters are Gluon :class:`~mxnet_tpu_torch.gluon.parameter.
+Parameter`s, each over one ``torch.nn.Parameter`` that the layer holds as
+its attribute (``dense.weight``) and computes with:
 
-- ``collect_params(select=None)``: ``{name: parameter}`` under the JAX
-  package's names (:func:`~mxnet_tpu_torch.gluon.parameter.collect_params`);
-- ``initialize(init=Uniform(), force_reinit=False)``: each parameter from
-  its own initializer where it has one (a bias's ``"zeros"``, a BatchNorm
-  gamma's ``"ones"``), else from ``init``; a parameter that an earlier
-  ``initialize`` set is left alone unless ``force_reinit``. Until then a
-  layer holds its construction-time defaults;
+- ``params``: the block's own :class:`ParameterDict` (``params.get``
+  makes a parameter under the block's prefix); assigning a Parameter to
+  an attribute registers its tensor, so a user block written for the JAX
+  package (``self.w = self.params.get("w", shape=...)``, ``self.w.data()``
+  or ``hybrid_forward(F, x, w)``) runs as written;
+- ``collect_params(select=None)``: a :class:`ParameterDict` of every
+  parameter under the JAX package's prefixed names
+  (``hybridsequential0_dense0_weight``), in its order, ``select`` a
+  regular expression matched on those names;
+  ``_collect_params_with_prefix()`` the same parameters under structural
+  names (``0.weight``), the keys of ``.params`` files;
+- ``initialize(init=None, ctx=None, verbose=False, force_reinit=False)``:
+  each parameter on ``ctx`` (default: the current context) from its own
+  initializer where it has one (a bias's ``"zeros"``, a BatchNorm gamma's
+  ``"ones"``), else from ``init``; an initialized parameter is left alone
+  unless ``force_reinit``. A parameter whose shape is not known yet
+  (``Dense(64)``, ``Conv2D(32, 3)``, ``BatchNorm()``) is deferred: at the
+  block's first forward the layer's ``_infer_param_shapes`` fills in its
+  shape from the input and the initialization finishes there, outside
+  autograd's recording. A layer built with ``device=`` and known shapes
+  holds construction-time values until ``initialize`` sets them;
 - ``cast(dtype)``: every parameter to ``dtype`` through each layer's own
-  ``cast`` (a BatchNorm keeps fp32 for 16-bit types), in place, so a
-  Trainer made afterwards sees the cast tensors;
+  ``cast`` (a BatchNorm keeps fp32 for 16-bit types), in place; before
+  the shapes resolve it sets the dtype they will be made in;
 - ``hybridize(active, static_alloc, static_shape)``: keeps the flags and
-  runs eagerly. The whole training step is captured as one CUDA graph per
-  input signature by ``Trainer.fuse_step`` (:mod:`mxnet_tpu_torch.step`),
-  which runs the block through :func:`functional_call`.
-
+  runs eagerly, before or after the first forward. The whole training
+  step is captured as one CUDA graph per input signature by
+  ``Trainer.fuse_step`` (:mod:`mxnet_tpu_torch.step`), which runs the
+  block through :func:`functional_call` and resolves deferred shapes at
+  its first step;
 - ``save_parameters(filename)`` / ``load_parameters(filename, ...)``:
-  every parameter under those names in MXNet's ``.params`` format
+  every parameter under its structural name in MXNet's ``.params`` format
   (:mod:`mxnet_tpu_torch.ndarray.serialization`), so that a file either
-  package writes loads in the other bit for bit.
+  package writes loads in the other bit for bit; loading into a deferred
+  block resolves its shapes from the file;
+- ``register_child``, ``summary``.
 
 A block takes NDArrays as MXNet's do: ``Block.__call__`` unwraps NDArray
-arguments once, runs the block on their tensors (recorded inside
-``autograd.record()``, under ``torch.no_grad()`` outside it, as any nd op)
-and wraps the outputs as NDArrays; the layers inside run plain torch.
-Tensors in give tensors out, unchanged. A ``HybridBlock`` that defines
-only ``hybrid_forward(self, F, x, *args, **params)`` runs it with ``F`` =
-:mod:`mxnet_tpu_torch.ndarray`, its inputs as NDArrays and each of its
-own parameters (``torch.nn.Parameter`` attributes, made with
-:func:`~mxnet_tpu_torch.gluon.parameter.make_param` or directly) passed
-by name as an NDArray view of the parameter: no copy, and gradients reach
-it.
+arguments once, runs a layer of the port on their tensors (recorded
+inside ``autograd.record()``, under ``torch.no_grad()`` outside it, as
+any nd op) and wraps the outputs as NDArrays; the layers inside run plain
+torch. Tensors in give tensors out, unchanged. A user block whose
+``forward`` overrides only ``Block``'s or ``HybridBlock``'s is written
+on NDArrays, as for the JAX package: it is called with NDArrays (tensors
+given to it are wrapped, and its outputs unwrapped for such a caller).
+A ``HybridBlock`` that defines only ``hybrid_forward(self, F, x, *args,
+**params)`` runs it with ``F`` = :mod:`mxnet_tpu_torch.ndarray`, its
+inputs as NDArrays and each of its own parameters passed by attribute
+name as an NDArray view of the tensor: no copy, and gradients reach it.
 
 Names and the symbolic trace, for ``export`` and ``SymbolBlock``: a block
 takes ``prefix=`` and names itself as the JAX package's blocks do (a
@@ -49,25 +68,29 @@ the ops, node names and parameters of the JAX package's
 = :mod:`mxnet_tpu_torch.symbol`. ``export`` writes the traced graph and
 the parameters (``arg:``/``aux:``) in files either package reads;
 :class:`SymbolBlock` runs such a graph as a block. The torch-direct
-forward stays the path for tensors and NDArrays. ``summary`` is not
-ported yet (ROADMAP Queue A item 2).
+forward stays the path for tensors and NDArrays.
 """
 from __future__ import annotations
 
+import math
+import re
 import threading
 from typing import Dict, Optional, Union
 
 import torch
 from torch import nn
 
+from torch.nn.parameter import UninitializedParameter
+
 from .. import autograd
 from .. import initializer as init_mod
 from ..base import MXNetError
-from ..context import resolve_device
+from ..context import as_device, resolve_device
 from ..ndarray import serialization
 from ..ndarray.ndarray import NDArray, _wrap
 from ..ops.registry import call_op
-from .parameter import collect_params
+from .parameter import (DeferredInitializationError, Parameter,
+                        ParameterDict, _known, collect_params, param_of)
 
 __all__ = ["Block", "HybridBlock", "SymbolBlock", "as_dtype",
            "functional_call"]
@@ -87,21 +110,14 @@ def as_dtype(dtype: Union[str, torch.dtype]) -> torch.dtype:
                          f"{sorted(_DTYPES)})") from None
 
 
-def _cast_param(p: nn.Parameter, dtype: torch.dtype) -> None:
-    with torch.no_grad():
-        p.data = p.data.to(dtype)
-        if p.grad is not None:
-            p.grad = p.grad.to(dtype)
-
-
 def _cast_tree(module: nn.Module, dtype: torch.dtype) -> None:
     """A Block casts itself; a plain module's parameters are cast here and
     its children visited."""
     if isinstance(module, Block):
         module.cast(dtype)
         return
-    for p in module.parameters(recurse=False):
-        _cast_param(p, dtype)
+    for attr, p in module.named_parameters(recurse=False):
+        param_of(module, attr, p).cast(dtype)
     for child in module.children():
         _cast_tree(child, dtype)
 
@@ -198,14 +214,39 @@ def _hybridize_tree(module: nn.Module, active: bool, **kwargs) -> None:
             _hybridize_tree(child, active, **kwargs)
 
 
+_ND_FORWARD: Dict[type, bool] = {}
+
+
+def _nd_forward(cls) -> bool:
+    """Whether ``cls.forward`` is a user's forward on NDArrays: defined
+    outside the port (and outside torch), over only the generic
+    ``forward`` of ``HybridBlock`` or of torch (a user subclass of a
+    ported layer computes on its tensors)."""
+    found = _ND_FORWARD.get(cls)
+    if found is None:
+        definers = [k for k in cls.__mro__ if "forward" in vars(k)]
+        own = ("mxnet_tpu_torch", "torch")
+        user = not definers[0].__module__.startswith(own)
+        ported = [k for k in definers[1:] if k is not HybridBlock
+                  and k.__module__.startswith("mxnet_tpu_torch")]
+        found = _ND_FORWARD[cls] = user and not ported
+    return found
+
+
+def _pending(module: nn.Module):
+    return [(attr, t) for attr, t in module._parameters.items()
+            if isinstance(t, UninitializedParameter)]
+
+
 class Block(nn.Module):
     """A module with the Gluon calls of a model (see the module's
     docstring)."""
 
-    def __init__(self, *args, prefix=None, **kwargs):
+    def __init__(self, *args, prefix=None, params=None, **kwargs):
         super().__init__(*args, **kwargs)
         self._empty_prefix = prefix == ""
         self._prefix = _BlockScope.create(prefix, self._alias())
+        self._params = ParameterDict(self._prefix, shared=params)
         self._scope = _BlockScope(self)
 
     def _alias(self) -> str:
@@ -220,28 +261,70 @@ class Block(nn.Module):
         return self._prefix[:-1] if self._prefix.endswith("_") \
             else self._prefix
 
+    @property
+    def params(self) -> ParameterDict:
+        """This block's own parameters (not its children's)."""
+        return self._params
+
     def name_scope(self):
         """``with block.name_scope():`` blocks made inside are named
         under this one."""
         return self._scope
 
+    def __setattr__(self, name, value):
+        if isinstance(value, Parameter):
+            # the Parameter stays the attribute (``self.w.data()``); its
+            # tensor is registered, for autograd, ``hybrid_forward`` and
+            # collection
+            self._parameters.pop(name, None)
+            object.__setattr__(self, name, value)
+            self._parameters[name] = value.tensor
+            self._params.setdefault(value.name, value)
+            return
+        if name in self.__dict__ and isinstance(self.__dict__[name],
+                                                 Parameter):
+            del self.__dict__[name]
+            self._parameters.pop(name, None)
+        super().__setattr__(name, value)
+
+    def _new_param(self, attr, shape, dtype=torch.float32, init=None,
+                   device=None, grad_req="write", differentiable=True,
+                   allow_deferred_init=True, **kwargs) -> nn.Parameter:
+        """Make this layer's parameter ``attr`` (named as
+        :meth:`param_name` names it) and return its tensor, to be assigned
+        as the attribute. With ``device`` and a known shape it holds
+        construction-time values there; otherwise it waits for
+        ``initialize`` (and, with a 0 in ``shape``, the first forward)."""
+        p = Parameter(self.param_name(attr), grad_req=grad_req, shape=shape,
+                      dtype=as_dtype(dtype), init=init,
+                      allow_deferred_init=allow_deferred_init,
+                      differentiable=differentiable, **kwargs)
+        self._params[p.name] = p
+        if device is not None:
+            p._device = resolve_device(device)
+            if all(s > 0 for s in p.shape):
+                p._materialize_now(p._device)
+        return p.tensor
+
+    def param(self, attr: str) -> Parameter:
+        """The :class:`Parameter` of this block's tensor ``attr``."""
+        return param_of(self, attr, self._parameters[attr])
+
     def param_name(self, attr: str) -> str:
         """The JAX package's name of this block's parameter ``attr``
         (``weight``, or a normalization layer's ``gamma`` for the port's
         ``weight``)."""
+        t = self._parameters.get(attr)
+        p = None if t is None else t.__dict__.get("_mx_param")
+        if p is not None:
+            return p.name
         renames = getattr(self, "_JAX_NAMES", None) or {}
         return self._prefix + renames.get(attr, attr)
 
     def named_jax_params(self) -> Dict[str, nn.Parameter]:
-        """``{JAX package name: parameter}`` in the naming of
+        """``{JAX package name: tensor}`` in the naming of
         :meth:`param_name`, the names ``export`` writes."""
-        out = {}
-        for mod in self.modules():
-            if not isinstance(mod, Block):
-                continue
-            for attr, p in mod.named_parameters(recurse=False):
-                out[mod.param_name(attr)] = p
-        return out
+        return {name: p.tensor for name, p in self.collect_params().items()}
 
     def _param_vars(self) -> Dict[str, object]:
         """A variable for each parameter of this block, by attribute."""
@@ -259,9 +342,35 @@ class Block(nn.Module):
         from .. import symbol as sym_ns
         return trace(sym_ns, *args)
 
+    def _resolve_deferred(self, args) -> None:
+        """Finish the deferred initialization of this block's own
+        parameters from the first input's shapes (the JAX package's
+        ``_deferred_infer_shape``)."""
+        pending = [param_of(self, a, t) for a, t in _pending(self)]
+        if not pending:
+            return
+        if not all(_known(p.shape) for p in pending):
+            infer = getattr(self, "_infer_param_shapes", None)
+            if infer is None:
+                raise MXNetError(
+                    f"Deferred initialization failed for {self.name}: "
+                    "layer does not implement shape inference")
+            infer(*[_unwrap_tree(a) for a in args])
+        for p in pending:
+            p._finish_deferred_init()
+            p._check_initialized()
+
     def __call__(self, *args, **kwargs):
         if any(_is_symbol(a) for a in args):
             return self._symbol_call(*args)
+        if self._parameters and _pending(self):
+            self._resolve_deferred(args)
+        if _nd_forward(type(self)):
+            tensors = any(isinstance(a, torch.Tensor) for a in args)
+            out = self.forward(*[_wrap_tree(a) for a in args],
+                               **{k: _wrap_tree(v) for k, v in
+                                  kwargs.items()})
+            return _unwrap_tree(out) if tensors else out
         for a in args:
             if isinstance(a, NDArray):
                 break
@@ -275,35 +384,87 @@ class Block(nn.Module):
                       **kwargs)
         return _wrap_tree(out)
 
-    def collect_params(self, select: Optional[str] = None
-                       ) -> Dict[str, nn.Parameter]:
-        return collect_params(self, select)
+    def register_child(self, block, name=None):
+        """Register ``block`` as a child (named by its index unless
+        ``name``)."""
+        self.add_module(name or str(len(self._modules)), block)
 
-    def initialize(self, init=None, force_reinit=False):
-        default = init_mod.create(init) if init is not None \
-            else init_mod.Uniform()
-        for name, p in self.collect_params().items():
-            if getattr(p, "_mx_initialized", False) and not force_reinit:
-                continue
-            own = getattr(p, "_mx_init", None)
-            (default if own is None else init_mod.create(own))(name, p.data)
-            p._mx_initialized = True
+    def collect_params(self, select: Optional[str] = None) -> ParameterDict:
+        """Every parameter of this block and its children under its
+        prefixed name (the JAX package's keys and order); ``select`` keeps
+        the names a regular expression matches from their start."""
+        pattern = re.compile(select) if select else None
+        ret = ParameterDict(self._prefix)
+        for mod in self.modules():
+            for attr, t in mod.named_parameters(recurse=False):
+                p = param_of(mod, attr, t)
+                if pattern is None or pattern.match(p.name):
+                    ret.update({p.name: p})
+        return ret
+
+    def _collect_params_with_prefix(self, prefix="") -> Dict[str, Parameter]:
+        """``{structural name: Parameter}`` (``0.weight``,
+        ``features.1.gamma``), as ``.params`` files name them."""
+        owner = {}
+        for mod in self.modules():
+            for attr, t in mod.named_parameters(recurse=False):
+                owner.setdefault(id(t), (mod, attr))
+        head = prefix + "." if prefix else ""
+        return {head + name: param_of(*owner[id(t)], t)
+                for name, t in collect_params(self).items()}
+
+    def initialize(self, init=None, ctx=None, verbose=False,
+                   force_reinit=False):
+        """Initialize every parameter on ``ctx`` (see the module's
+        docstring)."""
+        self.collect_params().initialize(init, ctx, verbose, force_reinit)
 
     def cast(self, dtype):
         dtype = as_dtype(dtype)
         for child in self.children():
             _cast_tree(child, dtype)
-        for p in self.parameters(recurse=False):
-            _cast_param(p, dtype)
+        for attr, p in self._parameters.items():
+            if p is not None:
+                param_of(self, attr, p).cast(dtype)
 
     def hybridize(self, active=True, **kwargs):
         _hybridize_tree(self, active, **kwargs)
 
+    def summary(self, *inputs):
+        """Print each block's name, type and parameter count, children
+        indented under their parent; with ``inputs``, one forward (not
+        recorded) resolves deferred shapes first."""
+        if inputs:
+            with autograd.pause():
+                self(*inputs)
+        rows = []
+
+        def walk(block, depth):
+            n = 0
+            for attr, t in block._parameters.items():
+                if t is not None:
+                    shape = block.param(attr).shape
+                    n += math.prod(shape) if shape else 0
+            rows.append(("  " * depth + block.name, type(block).__name__,
+                         n))
+            for child in block.children():
+                if isinstance(child, Block):
+                    walk(child, depth + 1)
+
+        walk(self, 0)
+        print(f"{'Layer':<40}{'Type':<24}{'Params':<12}")
+        print("-" * 76)
+        for name, type_, n in rows:
+            print(f"{name:<40}{type_:<24}{n:<12}")
+        print("-" * 76)
+        print(f"Parameters in total: {sum(r[2] for r in rows)}")
+
     def save_parameters(self, filename, deduplicate=False):
-        """Write every parameter, named as :meth:`collect_params` names
-        them, to ``filename`` in MXNet's format."""
-        serialization.save(filename, {name: p.detach() for name, p in
-                                      self.collect_params().items()})
+        """Write every parameter, under its structural name, to
+        ``filename`` in MXNet's format."""
+        serialization.save(filename, {
+            name: p.data()._data.detach()
+            for name, p in self._collect_params_with_prefix().items()})
 
     def load_parameters(self, filename, ctx=None, allow_missing=False,
                         ignore_extra=False, cast_dtype=False,
@@ -313,38 +474,37 @@ class Block(nn.Module):
         unless ``allow_missing``; a name the model lacks raises unless
         ``ignore_extra``. Values take each parameter's dtype, as in the
         JAX package, unless ``cast_dtype`` with ``dtype_source="saved"``,
-        where the parameter takes the file's. ``ctx`` (a device) moves
-        every loaded parameter there; else each stays on its device.
-        Shapes are fixed when a layer is built, so a shape that differs
-        raises."""
+        where the parameter takes the file's. A deferred parameter takes
+        the file's shape and finishes its initialization; one never
+        initialized is made on ``ctx`` (default: the current context).
+        ``ctx`` moves every loaded parameter there; else each stays on its
+        device. A resolved shape that differs raises."""
         loaded = serialization.load(filename, device="cpu")
-        params = self.collect_params()
+        params = self._collect_params_with_prefix()
         if not allow_missing:
             for name in params:
                 if name not in loaded:
                     raise MXNetError(f"Parameter '{name}' is missing in "
                                      f"file '{filename}'")
         dev = None if ctx is None else resolve_device(ctx)
-        with torch.no_grad():
-            for name, value in loaded.items():
-                if name not in params:
-                    if not ignore_extra:
-                        raise MXNetError(
-                            f"Parameter '{name}' loaded from file "
-                            f"'{filename}' is not present in Block")
-                    continue
-                p = params[name]
-                if tuple(value.shape) != tuple(p.shape):
+        for name, value in loaded.items():
+            if name not in params:
+                if not ignore_extra:
                     raise MXNetError(
-                        f"Parameter '{name}' has shape {tuple(p.shape)}, "
-                        f"the file's is {tuple(value.shape)}")
-                dtype = value.dtype if cast_dtype and \
-                    dtype_source == "saved" else p.dtype
-                target = p.device if dev is None else dev
-                if target == p.device and dtype == p.dtype:
-                    p.data.copy_(value)
-                else:
-                    p.data = value.to(device=target, dtype=dtype)
+                        f"Parameter '{name}' loaded from file "
+                        f"'{filename}' is not present in Block")
+                continue
+            param = params[name]
+            param.shape = tuple(value.shape)
+            if isinstance(param.tensor, UninitializedParameter):
+                if not param._deferred_init:
+                    param.initialize(ctx=ctx)
+                param._finish_deferred_init()
+            if cast_dtype and dtype_source == "saved":
+                param.cast(value.dtype)
+            if dev is not None and param.tensor.device != dev:
+                param.reset_ctx(dev)
+            param.set_data(value)
 
     save_params = save_parameters
     load_params = load_parameters
@@ -369,7 +529,15 @@ class HybridBlock(Block):
         ``data``) and ``path-%04d.params`` (every parameter under its JAX
         package name, ``aux:`` for the graph's aux states, else ``arg:``),
         which ``SymbolBlock.imports`` and ``Module.load`` of either
-        package read."""
+        package read. Every parameter must be resolved: run one forward
+        first where shapes were deferred."""
+        for name, p in self.collect_params().items():
+            try:
+                p._check_initialized()
+            except DeferredInitializationError as e:
+                raise MXNetError("export requires resolved parameter "
+                                 "shapes; run one forward pass before "
+                                 "export") from e
         sym = self._trace_symbol()
         sym.save(f"{path}-symbol.json")
         aux_names = set(sym.list_auxiliary_states())
@@ -397,8 +565,8 @@ class HybridBlock(Block):
     def hybrid_forward(self, F, x, *args, **kwargs):
         raise NotImplementedError
 
-    def __init__(self, *args, prefix=None, **kwargs):
-        super().__init__(*args, prefix=prefix, **kwargs)
+    def __init__(self, *args, prefix=None, params=None, **kwargs):
+        super().__init__(*args, prefix=prefix, params=params, **kwargs)
         self._active = False
         self._flags: Dict[str, bool] = {}
 
@@ -449,8 +617,9 @@ class SymbolBlock(HybridBlock):
         t = value.detach()
         if self._device is not None:
             t = t.to(resolve_device(self._device))
-        self._graph_params[name] = nn.Parameter(
-            t.clone(), requires_grad=name not in self._aux_names)
+        t = nn.Parameter(t.clone(), requires_grad=name not in self._aux_names)
+        self._graph_params[name] = t
+        param_of(self._graph_params, name, t)._initialized = True
 
     @staticmethod
     def imports(symbol_file, input_names, param_file=None, ctx=None):
@@ -471,10 +640,12 @@ class SymbolBlock(HybridBlock):
                            params, device=dev)
 
     def collect_params(self, select=None):
-        import re
         pattern = re.compile(select) if select else None
-        return {n: p for n, p in self._graph_params.items()
-                if pattern is None or pattern.match(n)}
+        ret = ParameterDict("")
+        ret.update({n: param_of(self._graph_params, n, p)
+                    for n, p in self._graph_params.items()
+                    if pattern is None or pattern.match(n)})
+        return ret
 
     def named_jax_params(self):
         return dict(self._graph_params.items())

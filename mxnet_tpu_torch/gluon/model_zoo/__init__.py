@@ -1,4 +1,4 @@
-"""Predefined models of the port: the ResNet family of the vision zoo."""
+"""Predefined models of the port: the vision zoo."""
 from . import vision  # noqa: F401
 from .vision import get_model  # noqa: F401
 

@@ -1,29 +1,31 @@
-"""Convolution and pooling layers as Gluon blocks.
+"""Convolution, transposed convolution, pooling and padding layers as
+Gluon blocks.
 
 Counterpart of ``mxnet_tpu/gluon/nn/conv_layers.py``'s ``Conv1D``/
-``Conv2D``/``Conv3D`` and the max, average and global pools, over
-:mod:`mxnet_tpu_torch.ops.nn` (cuDNN and ATen on the card). Channels come
-first (NCW, NCHW, NCDHW) and ``in_channels`` is required: the port builds
-shapes up front. A convolution's weight is ``(channels, in_channels /
-groups, *kernel)``, the layout of both packages, with a bias by default
-(``use_bias=True``). The transposed convolutions and ``ReflectionPad2D``
-are not ported yet.
+``Conv2D``/``Conv3D``, ``Conv1DTranspose``/``Conv2DTranspose``/
+``Conv3DTranspose``, the max, average and global pools and
+``ReflectionPad2D``, over :mod:`mxnet_tpu_torch.ops.nn` (cuDNN and ATen
+on the card). Channels come first (NCW, NCHW, NCDHW); ``in_channels=0``
+(the default) resolves at the first forward. A convolution's weight is
+``(channels, in_channels / groups, *kernel)`` and a transposed one's
+``(in_channels, channels / groups, *kernel)``, the layouts of both
+packages, with a bias by default (``use_bias=True``).
 """
 from __future__ import annotations
 
 import torch
 
 from ...base import MXNetError
-from ...context import resolve_device
 from ...ops import nn as nn_ops
-from ..block import HybridBlock, as_dtype
-from ..parameter import make_param
+from ..block import HybridBlock
 from .basic_layers import Activation
 
-__all__ = ["Conv1D", "Conv2D", "Conv3D", "MaxPool1D", "MaxPool2D",
+__all__ = ["Conv1D", "Conv2D", "Conv3D", "Conv1DTranspose",
+           "Conv2DTranspose", "Conv3DTranspose", "MaxPool1D", "MaxPool2D",
            "MaxPool3D", "AvgPool1D", "AvgPool2D", "AvgPool3D",
            "GlobalMaxPool1D", "GlobalMaxPool2D", "GlobalMaxPool3D",
-           "GlobalAvgPool1D", "GlobalAvgPool2D", "GlobalAvgPool3D"]
+           "GlobalAvgPool1D", "GlobalAvgPool2D", "GlobalAvgPool3D",
+           "ReflectionPad2D"]
 
 _LAYOUTS = {1: "NCW", 2: "NCHW", 3: "NCDHW"}
 
@@ -35,35 +37,52 @@ def _tuple(v, n):
 class _Conv(HybridBlock):
     def __init__(self, n, channels, kernel_size, strides, padding, dilation,
                  groups, layout, in_channels, activation, use_bias,
-                 weight_initializer, bias_initializer, device, dtype):
-        super().__init__()
+                 weight_initializer, bias_initializer, device, dtype,
+                 prefix=None, params=None, output_padding=None):
+        super().__init__(prefix=prefix, params=params)
         if layout != _LAYOUTS[n]:
             raise NotImplementedError(
                 f"layout {layout!r}: the port's convolutions take "
                 f"{_LAYOUTS[n]}; the channels-last choice waits in ROADMAP "
                 "Queue A item 2")
-        if in_channels <= 0:
-            raise MXNetError(f"{type(self).__name__}: in_channels is "
-                             "required (the port builds shapes up front)")
+        self._transposed = output_padding is not None
         if in_channels % groups or channels % groups:
             raise MXNetError(f"{type(self).__name__}: {in_channels} -> "
                              f"{channels} channels in {groups} groups")
-        dev = resolve_device(device)
-        dtype = as_dtype(dtype)
+        self._channels = channels
         self._kwargs = dict(kernel=_tuple(kernel_size, n),
                             stride=_tuple(strides, n),
                             pad=_tuple(padding, n),
                             dilate=_tuple(dilation, n), num_group=groups)
-        self.weight = make_param("weight", (channels, in_channels // groups)
-                                 + self._kwargs["kernel"], dev, dtype,
-                                 weight_initializer)
-        self.bias = make_param("bias", (channels,), dev, dtype,
-                               bias_initializer) if use_bias else None
-        self.act = Activation(activation) if activation is not None \
-            else None
+        if self._transposed:
+            self._kwargs["adj"] = _tuple(output_padding, n)
+        self.weight = self._new_param(
+            "weight", self._weight_shape(in_channels), dtype,
+            weight_initializer, device)
+        self.bias = self._new_param("bias", (channels,), dtype,
+                                    bias_initializer, device) \
+            if use_bias else None
+        with self.name_scope():
+            self.act = Activation(activation, prefix=activation + "_") \
+                if activation is not None else None
+
+    def _weight_shape(self, in_channels):
+        g = self._kwargs["num_group"]
+        if self._transposed:
+            return (in_channels, self._channels // g) + self._kwargs["kernel"]
+        return (self._channels, in_channels // g) + self._kwargs["kernel"]
+
+    def _infer_param_shapes(self, x, *args):
+        self.param("weight").shape = self._weight_shape(x.shape[1])
 
     def forward(self, x):
-        out = nn_ops.convolution(x, self.weight, self.bias, **self._kwargs)
+        if self._transposed:
+            out = nn_ops.deconvolution(
+                x, self.weight, *(() if self.bias is None else (self.bias,)),
+                no_bias=self.bias is None, **self._kwargs)
+        else:
+            out = nn_ops.convolution(x, self.weight, self.bias,
+                                     **self._kwargs)
         return out if self.act is None else self.act(out)
 
     def _trace(self, F, x):
@@ -71,15 +90,19 @@ class _Conv(HybridBlock):
         k = self._kwargs
         params = dict(kernel=k["kernel"], stride=k["stride"],
                       dilate=k["dilate"], pad=k["pad"],
-                      num_filter=self.weight.shape[0],
+                      num_filter=self._channels,
                       num_group=k["num_group"], no_bias=self.bias is None)
+        if self._transposed:
+            params["adj"] = k["adj"]
         ins = [x, v["weight"]] + ([] if self.bias is None else [v["bias"]])
-        out = F.Convolution(*ins, **params)
+        op = F.Deconvolution if self._transposed else F.Convolution
+        out = op(*ins, **params)
         return out if self.act is None else self.act(out)
 
     def extra_repr(self):
-        w = self.weight.shape
-        return (f"{w[1] * self._kwargs['num_group']} -> {w[0]}, "
+        w = self.param("weight").shape
+        cin = w[0] if self._transposed else w[1] * self._kwargs["num_group"]
+        return (f"{cin or None} -> {self._channels}, "
                 f"kernel={self._kwargs['kernel']}, "
                 f"stride={self._kwargs['stride']}, "
                 f"pad={self._kwargs['pad']}, bias={self.bias is not None}")
@@ -89,24 +112,24 @@ class Conv1D(_Conv):
     def __init__(self, channels, kernel_size, strides=1, padding=0,
                  dilation=1, groups=1, layout="NCW", activation=None,
                  use_bias=True, weight_initializer=None,
-                 bias_initializer="zeros", in_channels=0, device="cuda",
-                 dtype=torch.float32):
+                 bias_initializer="zeros", in_channels=0, device=None,
+                 dtype=torch.float32, prefix=None, params=None):
         super().__init__(1, channels, kernel_size, strides, padding,
                          dilation, groups, layout, in_channels, activation,
                          use_bias, weight_initializer, bias_initializer,
-                         device, dtype)
+                         device, dtype, prefix, params)
 
 
 class Conv2D(_Conv):
     def __init__(self, channels, kernel_size, strides=(1, 1), padding=(0, 0),
                  dilation=(1, 1), groups=1, layout="NCHW", activation=None,
                  use_bias=True, weight_initializer=None,
-                 bias_initializer="zeros", in_channels=0, device="cuda",
-                 dtype=torch.float32):
+                 bias_initializer="zeros", in_channels=0, device=None,
+                 dtype=torch.float32, prefix=None, params=None):
         super().__init__(2, channels, kernel_size, strides, padding,
                          dilation, groups, layout, in_channels, activation,
                          use_bias, weight_initializer, bias_initializer,
-                         device, dtype)
+                         device, dtype, prefix, params)
 
 
 class Conv3D(_Conv):
@@ -114,11 +137,50 @@ class Conv3D(_Conv):
                  padding=(0, 0, 0), dilation=(1, 1, 1), groups=1,
                  layout="NCDHW", activation=None, use_bias=True,
                  weight_initializer=None, bias_initializer="zeros",
-                 in_channels=0, device="cuda", dtype=torch.float32):
+                 in_channels=0, device=None, dtype=torch.float32,
+                 prefix=None, params=None):
         super().__init__(3, channels, kernel_size, strides, padding,
                          dilation, groups, layout, in_channels, activation,
                          use_bias, weight_initializer, bias_initializer,
-                         device, dtype)
+                         device, dtype, prefix, params)
+
+
+class Conv1DTranspose(_Conv):
+    def __init__(self, channels, kernel_size, strides=1, padding=0,
+                 output_padding=0, dilation=1, groups=1, layout="NCW",
+                 activation=None, use_bias=True, weight_initializer=None,
+                 bias_initializer="zeros", in_channels=0, device=None,
+                 dtype=torch.float32, prefix=None, params=None):
+        super().__init__(1, channels, kernel_size, strides, padding,
+                         dilation, groups, layout, in_channels, activation,
+                         use_bias, weight_initializer, bias_initializer,
+                         device, dtype, prefix, params, output_padding)
+
+
+class Conv2DTranspose(_Conv):
+    def __init__(self, channels, kernel_size, strides=(1, 1), padding=(0, 0),
+                 output_padding=(0, 0), dilation=(1, 1), groups=1,
+                 layout="NCHW", activation=None, use_bias=True,
+                 weight_initializer=None, bias_initializer="zeros",
+                 in_channels=0, device=None, dtype=torch.float32,
+                 prefix=None, params=None):
+        super().__init__(2, channels, kernel_size, strides, padding,
+                         dilation, groups, layout, in_channels, activation,
+                         use_bias, weight_initializer, bias_initializer,
+                         device, dtype, prefix, params, output_padding)
+
+
+class Conv3DTranspose(_Conv):
+    def __init__(self, channels, kernel_size, strides=(1, 1, 1),
+                 padding=(0, 0, 0), output_padding=(0, 0, 0),
+                 dilation=(1, 1, 1), groups=1, layout="NCDHW",
+                 activation=None, use_bias=True, weight_initializer=None,
+                 bias_initializer="zeros", in_channels=0, device=None,
+                 dtype=torch.float32, prefix=None, params=None):
+        super().__init__(3, channels, kernel_size, strides, padding,
+                         dilation, groups, layout, in_channels, activation,
+                         use_bias, weight_initializer, bias_initializer,
+                         device, dtype, prefix, params, output_padding)
 
 
 class _Pooling(HybridBlock):
@@ -228,3 +290,17 @@ class GlobalAvgPool2D(_Pooling):
 class GlobalAvgPool3D(_Pooling):
     def __init__(self, layout="NCDHW"):
         super().__init__(3, 1, None, 0, True, True, "avg", layout)
+
+
+class ReflectionPad2D(HybridBlock):
+    """Pad the two spatial axes of an NCHW input by reflection:
+    ``padding`` on every side, or the ``Pad`` op's 8-tuple."""
+
+    def __init__(self, padding=0, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        if isinstance(padding, int):
+            padding = (0, 0, 0, 0, padding, padding, padding, padding)
+        self._padding = tuple(padding)
+
+    def hybrid_forward(self, F, x):
+        return F.Pad(x, mode="reflect", pad_width=self._padding)

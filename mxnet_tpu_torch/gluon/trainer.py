@@ -31,6 +31,14 @@ found: its ``.grad`` is None, which raises unless ``ignore_stale_grad`` is
 set, and then it is skipped. A parameter whose ``grad_req`` attribute is
 ``"add"`` keeps its gradient across steps, as in the reference; the
 caller zeroes it.
+
+The Trainer takes Gluon :class:`~mxnet_tpu_torch.gluon.parameter.Parameter`s
+(``net.collect_params()``, a dict or a list of them) or their tensors, and
+keeps the tensors: it may be made before the first forward resolves
+deferred shapes, because a deferred tensor keeps its identity when it is
+made, and the optimizer makes each state at that parameter's first update.
+A parameter's ``grad_req`` (``"null"``: never updated), ``lr_mult`` and
+``wd_mult`` are read from it at every step.
 """
 from __future__ import annotations
 
@@ -43,13 +51,15 @@ from torch import nn
 from .. import optimizer as opt_mod
 from .. import telemetry
 from ..base import MXNetError
+from .parameter import Parameter
 
 __all__ = ["Trainer"]
 
 
 class Trainer:
-    """``params`` is a dict (as :func:`collect_params` gives) or a list of
-    ``torch.nn.Parameter``; ``optimizer`` a registered name with
+    """``params`` is a dict (``Block.collect_params()``, or the tensors of
+    :func:`collect_params`) or a list of ``Parameter``s or tensors;
+    ``optimizer`` a registered name with
     ``optimizer_params``, or an :class:`~mxnet_tpu_torch.optimizer.
     Optimizer`. Only ``kvstore="device"`` (one device) is ported, so
     ``update_on_kvstore=True`` is refused too."""
@@ -73,10 +83,13 @@ class Trainer:
             names, params = list(params.keys()), list(params.values())
         elif isinstance(params, (list, tuple)):
             params = list(params)
-            names = [f"param{i}" for i in range(len(params))]
+            names = [p.name if isinstance(p, Parameter) else f"param{i}"
+                     for i, p in enumerate(params)]
         else:
             raise ValueError("First argument must be a list or dict of "
                              f"Parameters, got {type(params)}.")
+        params = [p.tensor if isinstance(p, Parameter) else p
+                  for p in params]
         for p in params:
             if not isinstance(p, nn.Parameter):
                 raise ValueError("First argument must be a list or dict of "

@@ -10,13 +10,16 @@ an ``__init__`` attribute (a variable's own initializer) wins over the
 suffix. An initializer fills a tensor (or an NDArray's) in place,
 drawing from :func:`mxnet_tpu_torch.random.generator` of the tensor's
 device: values are drawn in fp32 and cast to the tensor's dtype, as the
-JAX package draws and casts. Orthogonal, Bilinear, LSTMBias, Mixed and
-Load are not ported yet.
+JAX package draws and casts. ``Orthogonal`` (an orthonormal basis of a
+random matrix, by SVD), ``Bilinear`` (an upsampling kernel), ``LSTMBias``
+(the forget gate's bias), ``Mixed`` (by name pattern) and ``Load`` (from
+a ``.params`` file or a dict) complete the JAX package's set.
 """
 from __future__ import annotations
 
 import json
 import math
+import re
 from typing import Dict
 
 import torch
@@ -25,7 +28,8 @@ from . import random as _random
 from .base import MXNetError
 
 __all__ = ["InitDesc", "Initializer", "Zero", "One", "Constant", "Uniform",
-           "Normal", "Xavier", "MSRAPrelu", "register", "create"]
+           "Normal", "Xavier", "MSRAPrelu", "Orthogonal", "Bilinear",
+           "LSTMBias", "Mixed", "Load", "register", "create"]
 
 _REGISTRY: Dict[str, type] = {}
 
@@ -214,6 +218,115 @@ class MSRAPrelu(Xavier):
     def __init__(self, factor_type="avg", slope=0.25):
         super().__init__("gaussian", factor_type, 2.0 / (1 + slope ** 2))
         self._kwargs = {"factor_type": factor_type, "slope": slope}
+
+
+@register("orthogonal")
+class Orthogonal(Initializer):
+    """``scale`` times the orthonormal factor (U or V of an SVD) of a
+    random ``(shape[0], prod(shape[1:]))`` matrix, uniform in [-1, 1] or
+    normal (``rand_type``)."""
+
+    def __init__(self, scale=1.414, rand_type="uniform"):
+        super().__init__(scale=scale, rand_type=rand_type)
+        self.scale = scale
+        self.rand_type = rand_type
+
+    def _init_weight(self, name, arr):
+        nout, nin = arr.shape[0], math.prod(arr.shape[1:])
+        gen = _random.generator(arr.device)
+        if self.rand_type == "uniform":
+            tmp = torch.empty((nout, nin), device=arr.device).uniform_(
+                -1.0, 1.0, generator=gen)
+        else:
+            tmp = torch.randn((nout, nin), device=arr.device, generator=gen)
+        u, _, v = torch.linalg.svd(tmp, full_matrices=False)
+        q = u if tuple(u.shape) == (nout, nin) else v
+        _fill(arr, self.scale * q.reshape(arr.shape))
+
+
+@register("bilinear")
+class Bilinear(Initializer):
+    """The bilinear-interpolation kernel of a transposed convolution that
+    upsamples by ``ceil(kernel / 2)``."""
+
+    def _init_weight(self, name, arr):
+        shape = tuple(arr.shape)
+        f = math.ceil(shape[3] / 2.0)
+        c = (2 * f - 1 - f % 2) / (2.0 * f)
+        x = torch.arange(shape[3], dtype=torch.float32)
+        y = torch.arange(shape[2], dtype=torch.float32)
+        k = (1 - torch.abs(y[:, None] / f - c)) * \
+            (1 - torch.abs(x[None, :] / f - c))
+        _fill(arr, k.expand(shape).to(arr.device))
+
+
+@register("lstmbias")
+class LSTMBias(Initializer):
+    """Zeros, except ``forget_bias`` on the forget gate's quarter (the
+    second) of an LSTM's stacked bias."""
+
+    def __init__(self, forget_bias=1.0):
+        super().__init__(forget_bias=forget_bias)
+        self.forget_bias = forget_bias
+
+    def _init_weight(self, name, arr):
+        b = torch.zeros(arr.shape, dtype=torch.float32)
+        n = arr.shape[0] // 4
+        b[n:2 * n] = self.forget_bias
+        _fill(arr, b.to(arr.device))
+
+
+@register("mixed")
+class Mixed(Initializer):
+    """The initializer of the first of ``patterns`` (regular expressions,
+    ``re.match``) that a parameter's name matches; no match raises."""
+
+    def __init__(self, patterns, initializers):
+        super().__init__()
+        self.map = list(zip([re.compile(p) for p in patterns],
+                            [create(i) for i in initializers]))
+
+    def __call__(self, name, arr):
+        for pat, init in self.map:
+            if pat.match(str(name)):
+                init(name, arr)
+                return
+        raise ValueError(f"parameter {name} did not match any pattern")
+
+
+class Load(Initializer):
+    """Values by name from a ``.params`` file (or a ``{name: array}``
+    dict; ``arg:``/``aux:`` prefixes dropped), ``default_init`` for a name
+    it lacks; a shape that differs raises."""
+
+    def __init__(self, param, default_init=None, verbose=False):
+        super().__init__()
+        if isinstance(param, str):
+            from .ndarray import serialization
+            param = serialization.load(param, device="cpu")
+        self.param = {}
+        for name, arr in dict(param).items():
+            if name.startswith(("arg:", "aux:")):
+                name = name[4:]
+            self.param[name] = torch.as_tensor(getattr(arr, "_data", arr))
+        self.default_init = default_init
+        self.verbose = verbose
+
+    def __call__(self, name, arr):
+        arr = getattr(arr, "_data", arr)
+        key = str(name)
+        if key in self.param:
+            src = self.param[key]
+            if tuple(arr.shape) != tuple(src.shape):
+                raise MXNetError(f"Parameter {key}: shape mismatch "
+                                 f"({tuple(arr.shape)} vs "
+                                 f"{tuple(src.shape)})")
+            _fill(arr, src.to(device=arr.device, dtype=arr.dtype))
+        elif self.default_init is None:
+            raise MXNetError(f"Cannot Initialize {key}: not found in loaded "
+                             "params and no default_init")
+        else:
+            create(self.default_init)(name, arr)
 
 
 def create(name, **kwargs) -> Initializer:

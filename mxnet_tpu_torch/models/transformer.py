@@ -62,9 +62,9 @@ class MultiHeadAttention(HybridBlock):
         self._head_dim = units // num_heads
         self.causal = causal
         self.attention = flash_attention
-        self.qkv = Dense(3 * units, units, use_bias, flatten=False,
+        self.qkv = Dense(3 * units, use_bias=use_bias, flatten=False, in_units=units,
                          device=dev, dtype=dtype)
-        self.proj = Dense(units, units, use_bias, flatten=False,
+        self.proj = Dense(units, use_bias=use_bias, flatten=False, in_units=units,
                           device=dev, dtype=dtype)
         self.drop = Dropout(dropout, device=dev)
 
@@ -97,12 +97,12 @@ class TransformerEncoderLayer(HybridBlock):
         self._pre_norm = pre_norm
         self.attn = MultiHeadAttention(units, num_heads, dropout,
                                        causal=causal, device=dev, dtype=dtype)
-        self.ln1 = LayerNorm(units, device=dev, dtype=dtype)
-        self.ln2 = LayerNorm(units, device=dev, dtype=dtype)
-        self.ffn1 = Dense(hidden_size, units, flatten=False, device=dev,
+        self.ln1 = LayerNorm(in_channels=units, device=dev, dtype=dtype)
+        self.ln2 = LayerNorm(in_channels=units, device=dev, dtype=dtype)
+        self.ffn1 = Dense(hidden_size, flatten=False, in_units=units, device=dev,
                           dtype=dtype)
         self.act = GELU()
-        self.ffn2 = Dense(units, hidden_size, flatten=False, device=dev,
+        self.ffn2 = Dense(units, flatten=False, in_units=hidden_size, device=dev,
                           dtype=dtype)
         self.drop = Dropout(dropout, device=dev)
 
@@ -140,8 +140,8 @@ class TransformerLM(HybridBlock):
                 num_experts=num_experts,
                 num_experts_per_tok=num_experts_per_tok, causal=causal,
                 device=dev, dtype=dtype))
-        self.ln_f = LayerNorm(units, device=dev, dtype=dtype)
-        self.head = Dense(vocab_size, units, flatten=False, device=dev,
+        self.ln_f = LayerNorm(in_channels=units, device=dev, dtype=dtype)
+        self.head = Dense(vocab_size, flatten=False, in_units=units, device=dev,
                           dtype=dtype)
 
     def forward(self, tokens):

@@ -68,7 +68,7 @@ WAITING = {
         "linalg_inverse", "linalg_makediag", "linalg_maketrian",
         "linalg_potrf", "linalg_potri", "linalg_slogdet", "linalg_sumlogdiag",
         "linalg_syevd", "linalg_syrk", "linalg_trmm", "linalg_trsm",),
-    ("CTC waits with the other Gluon losses (ROADMAP Queue A item 2)"): (
+    ("CTC waits with gluon.rnn (ROADMAP Queue A item 9)"): (
         "CTCLoss", "_contrib_CTCLoss", "_contrib_ctc_loss", "ctc_loss",),
     ("the graph optimizer's ops wait with the graph optimizer (ROADMAP "
      "Queue A item 5)"): (

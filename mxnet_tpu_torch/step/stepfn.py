@@ -62,6 +62,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 import torch
+from torch.nn.parameter import UninitializedParameter
 from torch import nn
 
 from .. import optimizer as opt_mod
@@ -252,6 +253,22 @@ class StepFunction:
         self._fb = graph_forward_backward(sym, list(self._trainable))
         self._ensure_states()
 
+    def _resolve_deferred(self, x):
+        """Resolve deferred parameter shapes before the first step, by one
+        forward of the first sample outside recording and training (as
+        the JAX package's fused step does), on the device their
+        ``initialize`` chose."""
+        pending = [p for p in self._net.parameters()
+                   if isinstance(p, UninitializedParameter)]
+        if not pending:
+            return
+        param = pending[0].__dict__.get("_mx_param")
+        dev = param._deferred_init[1] if param is not None and \
+            param._deferred_init else x.device
+        from .. import autograd
+        with autograd.pause():
+            self._net(x[:1].to(dev))
+
     def _resolve_block_params(self):
         from ..gluon.parameter import collect_params
         plist = list(collect_params(self._net).items())
@@ -375,6 +392,9 @@ class StepFunction:
             roots.append(self._loss_fn)
         for root in roots:
             for m in root.modules():
+                make = getattr(m, "_generator", None)
+                if callable(make):
+                    make(device)   # a Dropout makes its own at first use
                 for v in vars(m).values():
                     if isinstance(v, torch.Generator) \
                             and v.device == device and id(v) not in seen:
@@ -462,6 +482,8 @@ class StepFunction:
         from ..telemetry import metrics as _metrics
         t0 = time.perf_counter()
         inputs = [_raw(a) for a in (x,) + labels]
+        if self._plist is None and not self._symbol_mode:
+            self._resolve_deferred(inputs[0])
         self._prepare()
         device = self._device()
         if batch_size is None:

@@ -136,8 +136,8 @@ def _jax_loop():
 def _port_loop():
     x, y, weights = _data()
     net = HybridSequential()
-    net.add(Dense(HID, IN, activation="relu", device="cpu"),
-            Dense(OUT, HID, device="cpu"))
+    net.add(Dense(HID, activation="relu", in_units=IN, device="cpu"),
+            Dense(OUT, in_units=HID, device="cpu"))
     params = collect_params(net)
     with torch.no_grad():
         for n, p in params.items():

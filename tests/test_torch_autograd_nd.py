@@ -31,7 +31,6 @@ from mxnet_tpu import nd as jnd
 
 import mxnet_tpu_torch as mx
 from mxnet_tpu_torch import autograd, gluon, metric, nd
-from mxnet_tpu_torch.gluon.parameter import make_param
 
 from test_torch_resnet_train import keep_zeros
 
@@ -265,9 +264,9 @@ class _JLeNet(jgluon.HybridBlock):
 class _TLeNet(gluon.HybridBlock):
     def __init__(self):
         super().__init__()
-        for k, s in _SHAPES.items():
-            setattr(self, k, make_param(k, s, torch.device("cpu"),
-                                        torch.float32))
+        with self.name_scope():
+            for k, s in _SHAPES.items():
+                setattr(self, k, self.params.get(k, shape=s))
 
     def hybrid_forward(self, F, x, c1_weight, c1_bias, fc_weight, fc_bias):
         return _lenet_body(F, x, c1_weight, c1_bias, fc_weight, fc_bias)
@@ -320,9 +319,9 @@ def test_user_hybrid_block_trains_as_in_the_jax_package():
         getattr(jnet, k).set_data(jnd.array(v))
     jloss, jacc = _train(jnd, jag, jgluon, jmetric, jnet, batches)
     tnet = _TLeNet()
-    with torch.no_grad():
-        for k, v in w.items():
-            getattr(tnet, k).copy_(torch.from_numpy(v))
+    tnet.initialize(ctx=mx.cpu())
+    for k, v in w.items():
+        getattr(tnet, k).set_data(torch.from_numpy(v))
     with mx.cpu():
         tloss, tacc = _train(nd, autograd, gluon, metric, tnet, batches)
         out = tnet(nd.array(batches[0][0]))
@@ -332,13 +331,14 @@ def test_user_hybrid_block_trains_as_in_the_jax_package():
     assert tacc == jacc
     for k in _SHAPES:
         np.testing.assert_allclose(
-            getattr(tnet, k).detach().numpy(),
+            getattr(tnet, k).data().asnumpy(),
             np.asarray(getattr(jnet, k).data().asnumpy()), rtol=1e-4,
             atol=RTOL / 10)
 
 
 def test_block_keeps_torch_in_torch_out():
     tnet = _TLeNet()
+    tnet.initialize(ctx=mx.cpu())
     x = torch.rand(2, 1, 12, 12)
     out = tnet(x)
     assert isinstance(out, torch.Tensor) and out.shape == (2, 10)

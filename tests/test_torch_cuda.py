@@ -660,6 +660,119 @@ def test_batch_norm_on_the_card_matches_the_cpu(dtype):
         torch.testing.assert_close(a.cpu(), b, rtol=1e-5, atol=1e-5)
 
 
+def _deferred_net(mx):
+    """Dense, Conv2D and BatchNorm built without input sizes."""
+    from mxnet_tpu_torch.gluon import nn
+    net = nn.HybridSequential(prefix="deferred_")
+    with net.name_scope():
+        net.add(nn.Conv2D(8, 3, padding=1), nn.BatchNorm(),
+                nn.Activation("relu"), nn.Conv2D(8, 3, groups=8),
+                nn.BatchNorm(), nn.GlobalAvgPool2D(), nn.Dense(16),
+                nn.Dense(4))
+    return net
+
+
+def test_deferred_shapes_resolve_on_the_card():
+    """Built without sizes, initialized on gpu(0): the first forward makes
+    every parameter on cuda:0 with the CPU build's shapes and names."""
+    _need_cuda()
+    import mxnet_tpu_torch as mx
+    from torch.nn.parameter import UninitializedParameter
+    nets = {}
+    for ctx in (mx.cpu(), mx.gpu(0)):
+        net = _deferred_net(mx)
+        net.initialize(mx.init.Xavier(), ctx=ctx)
+        # every weight waits for the input; a Dense bias's shape is known
+        waiting = {n for n, p in net.collect_params().items()
+                   if isinstance(p.tensor, UninitializedParameter)}
+        assert {n for n in net.collect_params()
+                if n.endswith(("weight", "gamma", "beta", "mean", "var"))
+                } <= waiting
+        net(torch.zeros(2, 3, 6, 6, device=ctx.torch_device))
+        assert not any(isinstance(p, UninitializedParameter)
+                       for p in net.parameters())
+        nets[ctx.device_type] = net
+    gpu = nets["gpu"].collect_params()
+    assert {n: p.shape for n, p in gpu.items()} == \
+        {n: p.shape for n, p in nets["cpu"].collect_params().items()}
+    assert all(p.tensor.device == torch.device("cuda", 0)
+               for p in gpu.values())
+
+
+def test_cast_before_the_first_forward_keeps_batchnorm_fp32_on_the_card():
+    _need_cuda()
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon import nn
+    net = _deferred_net(mx)
+    net.initialize(ctx=mx.gpu(0))
+    net.cast("float16")
+    out = net(torch.zeros(2, 3, 6, 6, device="cuda", dtype=torch.float16))
+    assert out.dtype == torch.float16
+    for m in net.modules():
+        for p in m.parameters(recurse=False):
+            want = torch.float32 if isinstance(m, nn.BatchNorm) \
+                else torch.float16
+            assert p.dtype == want, m.prefix
+
+
+def test_fused_step_of_a_deferred_net_with_dropout_captures_its_masks():
+    """A net built without sizes or a device (its Dropout makes its
+    generator at first use) through ``fuse_step`` before the first
+    forward: the first step resolves the shapes and registers the
+    generator with the graph, so replays draw new masks."""
+    _need_cuda()
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import gluon
+    from mxnet_tpu_torch.gluon import nn
+    net = nn.HybridSequential(prefix="drop_")
+    with net.name_scope():
+        net.add(nn.Dense(32, activation="relu"), nn.Dropout(0.5),
+                nn.Dense(4))
+    net.initialize(mx.init.Xavier(), ctx=mx.gpu(0))
+    trainer = gluon.Trainer(net.collect_params(), "sgd",
+                            {"learning_rate": 0.1})
+    fused = trainer.fuse_step(net, gluon.loss.SoftmaxCrossEntropyLoss())
+    x = torch.randn(8, 10, device="cuda")
+    y = torch.randint(0, 4, (8,), device="cuda").float()
+    losses = [float(fused.step(x, y).mean()) for _ in range(3)]
+    assert net[1]._gen is not None and net[1]._gen.device.type == "cuda"
+    assert fused.cache_info()["programs"] == 1
+    assert all(np.isfinite(losses)) and len(set(losses)) == 3
+
+
+def test_trainer_made_before_the_first_forward_launches_b1_once_a_step():
+    """The Trainer takes the deferred net's parameters before they exist;
+    after the first forward each fp16 step is one B1 launch, and the
+    weights move."""
+    _need_cuda()
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, gluon
+    from mxnet_tpu_torch.opt import kernels
+    net = _deferred_net(mx)
+    net.initialize(mx.init.Xavier(), ctx=mx.gpu(0))
+    net.cast("float16")
+    trainer = gluon.Trainer(net.collect_params(), "sgd", {
+        "learning_rate": 0.1, "momentum": 0.9, "multi_precision": True})
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    x = torch.randn(4, 3, 6, 6, device="cuda").half()
+    y = torch.tensor([0., 1., 2., 3.], device="cuda")
+    before = None
+    for step in range(3):
+        kernels.LAUNCHES.reset()
+        with autograd.record():
+            loss = loss_fn(net(x), y)
+        autograd.backward(loss * 8.0)
+        if before is None:
+            before = {n: p.tensor.detach().clone()
+                      for n, p in net.collect_params().items()}
+        trainer.step(4 * 8.0)
+        assert kernels.LAUNCHES.count == 1, step
+    moved = [not torch.equal(p.tensor, before[n])
+             for n, p in net.collect_params().items()
+             if p.grad_req != "null"]
+    assert all(moved)
+
+
 def test_trainer_steps_narrow_fp16_resnet_through_b1():
     """A narrow ResNetV1 (BottleneckV1, one block per stage, 16-256
     channels) cast to fp16, BatchNorm fp32: record -> backward ->
@@ -671,7 +784,7 @@ def test_trainer_steps_narrow_fp16_resnet_through_b1():
     torch.backends.cudnn.deterministic = True
     from mxnet_tpu_torch import autograd
     from mxnet_tpu_torch import random as mx_random
-    from mxnet_tpu_torch.gluon import Trainer
+    from mxnet_tpu_torch.gluon import Trainer, collect_params
     from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
     from mxnet_tpu_torch.gluon.model_zoo import vision
     from mxnet_tpu_torch.initializer import Xavier
@@ -692,12 +805,12 @@ def test_trainer_steps_narrow_fp16_resnet_through_b1():
     y = torch.from_numpy(rng.randint(0, 10, 8).astype("float32")).cuda()
     loss_fn = SoftmaxCrossEntropyLoss()
     net, ref = build(), build()
-    params = net.collect_params()
+    params = collect_params(net)
     n16 = sum(p.dtype == torch.float16 for p in params.values())
     assert n16 == 27
     trainer = Trainer(params, "sgd", {"learning_rate": 0.05, "momentum": 0.9,
                                       "wd": 1e-4, "multi_precision": True})
-    ref_params = {n: p for n, p in ref.collect_params().items()
+    ref_params = {n: p for n, p in collect_params(ref).items()
                   if p.requires_grad}
     ref_state = {n: (p.detach().float(), torch.zeros_like(p, dtype=torch.float32))
                  for n, p in ref_params.items()}
@@ -1313,10 +1426,10 @@ def _bn_mlp_cuda(rate=0.2, lr=None):
     from mxnet_tpu_torch.gluon.nn import (BatchNorm, Dense, Dropout,
                                           HybridSequential)
     torch.manual_seed(0)
-    net = HybridSequential(Dense(32, 10, activation="relu", device="cuda"),
+    net = HybridSequential(Dense(32, activation="relu", in_units=10, device="cuda"),
                            BatchNorm(in_channels=32, device="cuda"),
                            Dropout(rate, device="cuda"),
-                           Dense(4, 32, device="cuda"))
+                           Dense(4, in_units=32, device="cuda"))
     net[2].manual_seed(7)
     return net
 

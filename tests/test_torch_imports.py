@@ -60,7 +60,15 @@ SLICE_MODULES = [
     # slice 15: the fused training step
     "mxnet_tpu_torch.step", "mxnet_tpu_torch.step.stepfn",
     "mxnet_tpu_torch.step.buckets", "mxnet_tpu_torch.step.cache",
-    "mxnet_tpu_torch.engine", "mxnet_tpu_torch.passes.steplint"]
+    "mxnet_tpu_torch.engine", "mxnet_tpu_torch.passes.steplint",
+    # slice 16: parameters, layers, losses, gluon.data, the zoo families
+    "mxnet_tpu_torch.gluon.nn.basic_layers", "mxnet_tpu_torch.gluon.utils",
+    "mxnet_tpu_torch.gluon.data", "mxnet_tpu_torch.gluon.data.dataset",
+    "mxnet_tpu_torch.gluon.data.sampler",
+    "mxnet_tpu_torch.gluon.data.dataloader",
+    "mxnet_tpu_torch.gluon.data.vision",
+    "mxnet_tpu_torch.gluon.data.vision.transforms",
+    "mxnet_tpu_torch.gluon.data.vision.datasets"]
 
 _PROBE = r"""
 import importlib, pkgutil, sys
@@ -142,12 +150,15 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
                                       prefill_buckets=[8]),
                  lambda: BERTModel(num_layers=1),
                  lambda: BERTModel(num_layers=1, dtype=torch.float16),
-                 lambda: Dropout(0.1),
+                 lambda: Dropout(0.1, device="cuda"),
                  lambda: TransformerLM(100, num_layers=1),
-                 lambda: resnet50_v1(),
-                 lambda: Conv2D(8, 3, in_channels=3),
-                 lambda: BatchNorm(in_channels=8),
-                 lambda: Dense(4, 8),
+                 lambda: resnet50_v1(device="cuda"),
+                 lambda: resnet50_v1().initialize(),
+                 lambda: Conv2D(8, 3, in_channels=3).initialize(),
+                 lambda: Conv2D(8, 3).initialize(),
+                 lambda: BatchNorm(in_channels=8).initialize(),
+                 lambda: Dense(4, in_units=8).initialize(),
+                 lambda: Dense(4).collect_params().initialize(),
                  lambda: generator(),
                  lambda: load_frombuffer(b""),
                  lambda: resolve_device(None),
@@ -160,3 +171,25 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
         with pytest.raises(MXNetError, match="CUDA is not available"):
             make()
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_initialize_takes_the_current_context_and_raises_without_cuda():
+    """A model built without a device is made where ``initialize`` says:
+    its ``ctx``, else the current context, which is ``gpu(0)`` (raising
+    here) outside a ``with mx.cpu():`` scope; a deferred parameter keeps
+    that device for its first forward."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has a GPU: the default device is valid")
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import MXNetError
+    from mxnet_tpu_torch.gluon import nn
+    from mxnet_tpu_torch.gluon.model_zoo import get_model
+    net = get_model("mobilenetv2_0.25", classes=4)
+    with pytest.raises(MXNetError, match="CUDA is not available"):
+        net.initialize()
+    with mx.cpu():
+        net.initialize()
+    dense = nn.Dense(3)
+    dense.initialize(ctx=mx.cpu())
+    out = dense(torch.ones(2, 5))
+    assert out.shape == (2, 3) and dense.weight.device.type == "cpu"

@@ -97,10 +97,10 @@ def _bert(dropout=0.1):
 
 def _bn_mlp():
     torch.manual_seed(0)
-    net = HybridSequential(Dense(32, 10, activation="relu", device="cpu"),
+    net = HybridSequential(Dense(32, activation="relu", in_units=10, device="cpu"),
                            BatchNorm(in_channels=32, device="cpu"),
                            Dropout(0.2, device="cpu"),
-                           Dense(4, 32, device="cpu"))
+                           Dense(4, in_units=32, device="cpu"))
     for i, d in enumerate(m for m in net.modules() if isinstance(m, Dropout)):
         d.manual_seed(100 + i)
     return net
@@ -405,7 +405,7 @@ def _jax_net():
 
 def _port_net():
     torch.manual_seed(0)
-    return HybridSequential(Dense(4, 10, flatten=False, device="cpu"))
+    return HybridSequential(Dense(4, flatten=False, in_units=10, device="cpu"))
 
 
 def _refusals(pkg_net, Step, TrainerCls, loss_cls, kv):
@@ -466,8 +466,8 @@ def test_other_refusals():
     with pytest.raises(MXNetError, match="item 6"):
         tr.fuse_step(net, torch_loss.L2Loss(), shard_plan=object())
     # weight tying: one parameter under two names
-    shared = HybridSequential(Dense(10, 10, device="cpu"),
-                              Dense(10, 10, device="cpu"))
+    shared = HybridSequential(Dense(10, in_units=10, device="cpu"),
+                              Dense(10, in_units=10, device="cpu"))
     shared[1].weight = shared[0].weight
     fused = StepFunction(shared, torch_loss.L2Loss(), optimizer="sgd")
     with pytest.raises(MXNetError, match="shared"):

@@ -225,7 +225,7 @@ def test_layer_norm_and_gelu_match_jax_ops():
     g = rng.randn(C).astype("float32")
     b = rng.randn(C).astype("float32")
     want = nd.LayerNorm(nd.array(x), nd.array(g), nd.array(b)).asnumpy()
-    ln = torch_nn.LayerNorm(C, device="cpu")
+    ln = torch_nn.LayerNorm(in_channels=C, device="cpu")
     with torch.no_grad():
         ln.weight.copy_(torch.from_numpy(g))
         ln.bias.copy_(torch.from_numpy(b))
