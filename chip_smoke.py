@@ -243,6 +243,29 @@ end, failing on the first phase that fails:
     This path reaches no TPU kernel either (the JAX package's prefill is
     dense einsums and its paged attention ``lax.scan`` code), so the
     kernels line is unchanged.
+21. recurrent networks (after the zoo phases, TF32 off): ``[rnn_lm]`` —
+    ``word_lm.py``'s tied LSTM LM at Zaremba et al.'s medium widths (2 x
+    650, dropout 0.5, 35 steps, batch 20, vocabulary 10,000) trained with
+    clipped SGD for 1 + 8 steps: the first loss within 5% of ln(10,000),
+    the loss falling, the tied weight updated once a step, states (2, 20,
+    650), the profiler's ``aten::_cudnn_rnn`` once per layer (dropout runs
+    the layers one call each) and no per-step op, then the card against
+    the CPU at batch 2 (fp64 within 1e-9, fp32 within 3x the CPU's own
+    error); step ms, tokens/s, busy share, peak memory, top kernels and
+    the weight-copy time. ``[rnn_ctc]`` — a 5-layer bidirectional LSTM of
+    250 under ``CTCLoss`` at 32 utterances of 150-600 frames: the loss
+    falling, padded frames' logit gradients 0, one cuDNN RNN call for the
+    five layers and torch's CTC kernels in the trace, fp64 card against
+    CPU within 1e-9. ``[rnn_bucketing]`` — ``lstm_bucketing.py``'s
+    defaults through ``mx.rnn`` and ``BucketingModule.fit``: an executor
+    per bucket, one storage per parameter across them, perplexity
+    falling, a ``FusedRNNCell`` against its ``unfuse()`` stack and its
+    checkpoint round trip bit-equal. ``[gluon_contrib]`` — every contrib
+    layer and cell on the card against the CPU, ``SparseEmbedding``'s
+    row-sparse gradient and lazy update, ``DeformableConvolution`` with
+    zero offsets against ``Conv2D``, ``Estimator.fit`` with a checkpoint
+    and early stopping. No TPU kernel lies on this path (the JAX package
+    runs RNNs and CTC as ``lax.scan``), so the kernels line is unchanged.
 
 The script prints its own wall time. The last three lines are the card
 (``nvidia-smi``), ``{"kernels": [...]}`` (B2/B3/B4's
@@ -256,6 +279,7 @@ from __future__ import annotations
 import ctypes
 import gc
 import json
+import math
 import os
 import re
 import shutil
@@ -400,6 +424,55 @@ ZOO_PHASES = (("zoo_inception3", "inceptionv3", 299, 32),
 ZOO_STEPS, ZOO_LR, ZOO_LABELS, ZOO_WORKERS = 9, 0.05, 10, 4
 ZOO_MEAN, ZOO_STD = (0.485, 0.456, 0.406), (0.229, 0.224, 0.225)
 ZOO_EXPORT_TOL, ZOO_CHECK_B, ZOO_CHECK_LR = 1e-2, 4, 1e-3
+# [rnn_lm]: a word LM at Zaremba et al. 2014's medium widths (arXiv:
+# 1409.2329 section 4: 2 x 650 LSTM, dropout 0.5 on the non-recurrent
+# connections, 35 unrolled steps, batch 20, weights uniform in [-0.05,
+# 0.05], SGD at 1.0, gradients clipped at a global norm of 5), built as
+# examples/rnn/word_lm.py builds it (the decoder tied to the embedding),
+# on Zipf-drawn streams of a 10,000-word vocabulary (PTB's size) from SEED:
+# one warm step and RNN_LM_STEPS more, the states carried and detached.
+# The card-vs-CPU check: RNN_LM_CHECK_STEPS steps at batch RNN_LM_CHECK_B
+# with dropout 0; fp64 within RNN_LM_FP64_TOL (fp64 rounding over the
+# ~1e4 operations behind each value is ~1e-12 of values ~10), fp32 within
+# RNN_ERR_RATIO times the CPU's own fp32 error ([resnet_check]'s rule)
+RNN_LM = dict(vocab=10_000, width=650, layers=2, dropout=0.5, bptt=35,
+              batch=20, init=0.05, lr=1.0, clip=5.0)
+RNN_LM_STEPS = 8
+RNN_LM_CHECK_B, RNN_LM_CHECK_STEPS, RNN_LM_FP64_TOL = 2, 2, 1e-9
+RNN_ERR_RATIO = 3.0
+# [rnn_ctc]: an acoustic model at Graves et al. 2013's CTC-5L-250H widths
+# (arXiv:1303.5778: 5 bidirectional LSTM layers of 250, 123 input
+# features, 61 phones and the blank), built as
+# examples/speech_recognition/lstm_ctc.py builds it, under CTCLoss with
+# frame and label lengths: 32 utterances of 150-600 frames (TIMIT's range
+# at 10 ms), zero-padded, 20-75 phones each, SGD at 1e-4 with momentum
+# 0.9 (the paper's), CTC_STEPS steps; frames are each phone's template
+# plus noise, from SEED. The card-vs-CPU check runs the trained weights in
+# fp64 on CTC_CHECK_B utterances that span the timed range (the longest,
+# 600 frames with 75 phones; the shortest, 150 with 20; two drawn between):
+# losses and logit gradients within CTC_FP64_TOL of the largest magnitude
+# (fp64 rounding of ~1e5-term sums, ~1e-12)
+CTC = dict(features=123, hidden=250, layers=5, phones=62, batch=32,
+           frames=(150, 600), labels=(20, 75), lr=1e-4, momentum=0.9)
+CTC_STEPS, CTC_CHECK_B, CTC_FP64_TOL = 9, 4, 1e-9
+# [rnn_bucketing]: upstream MXNet's example/rnn/bucketing/
+# lstm_bucketing.py defaults (2 LSTM layers of 200, embedding 200,
+# buckets 10-60, batch 32, SGD at 0.01, wd 1e-5, Perplexity ignoring 0)
+# through the port's mx.rnn and BucketingModule, one epoch of
+# BUCKETING["sentences"] Zipf-drawn sentences of 5-60 words from SEED
+# (every bucket at least twice). FUSED_TOL: a FusedRNNCell (cuDNN) against
+# its unfuse() stack (per-step products) on the same fp32 weights U(-0.07,
+# 0.07) at the largest bucket: each gate sums 400 products of magnitude
+# <= 0.07, whose two orders differ by ~sqrt(400) * 2^-24 * 28 ~ 3e-5 at
+# most in practice, carried through 60 steps whose state map contracts
+# (forget gates ~0.5): 1e-4 on outputs in (-1, 1)
+BUCKETING = dict(layers=2, hidden=200, embed=200, vocab=10_000,
+                 buckets=(10, 20, 30, 40, 50, 60), batch=32, lr=0.01,
+                 wd=1e-5, sentences=640)
+FUSED_TOL = 1e-4
+# [gluon_contrib]: (rtol, atol) for the layers that sum (the products,
+# convolutions and normalizations); the others within 1e-5 / 1e-6
+CONTRIB_SUMS = (1e-4, 1e-5)
 # [train_bert_adamw_fp16]: BERT-base fp16 (dropout 0.1, 8 x 512 tokens)
 # with BERT's optimizer (Devlin et al. 2018, appendix A.2: Adam with
 # decoupled weight decay 0.01, beta2 0.999; epsilon 1e-6 as in
@@ -2846,7 +2919,8 @@ ND_SUMS = {
     "UpSampling", "_random_pdf_dirichlet", "multi_all_finite", "gamma",
     "gammaln", "_random_pdf_gamma", "_random_pdf_poisson",
     "_random_pdf_negative_binomial",
-    "_random_pdf_generalized_negative_binomial", "erfinv"}
+    "_random_pdf_generalized_negative_binomial", "erfinv", "RNN", "CTCLoss",
+    "_contrib_DeformableConvolution"}
 ND_SAMPLERS = ("_random_", "_sample_", "_shuffle")
 ND_ATTN = (8, HEADS, 512, 512, HEAD_DIM)
 ND_ATTN_COUNTS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
@@ -2953,6 +3027,18 @@ def _nd_inputs(name, info, rs):
                                     {"shape": (4,)}),
         "_sample_negative_binomial": lambda: ([I(3, hi=5) + 1, T(3)],
                                               {"shape": (4,)}),
+        # an LSTM of 4 over 3 inputs: 144 parameters
+        "RNN": lambda: ([T(5, 2, 3), T(144, lo=-0.1, hi=0.1),
+                         np.zeros((1, 2, 4), np.float32),
+                         np.zeros((1, 2, 4), np.float32)],
+                        {"state_size": 4, "num_layers": 1, "mode": "lstm",
+                         "state_outputs": True}),
+        "CTCLoss": lambda: ([T(6, 2, 5), arr([[1, 2], [2, 3]], np.float32)],
+                            {}),
+        "_contrib_DeformableConvolution": lambda: (
+            [T(1, 2, 6, 6), np.zeros((1, 18, 4, 4), np.float32),
+             T(3, 2, 3, 3)], {"kernel": (3, 3), "num_filter": 3,
+                              "no_bias": True}),
     }
     if name in cases:
         return cases[name]()
@@ -5885,6 +5971,901 @@ def phase_zoo_all(card):
     return out
 
 
+def _profiled_ops(step):
+    """One more ``step()`` under ``torch.profiler``: (wall ms, {host op
+    name: calls}, [[kernel, device ms, launches], ...] largest first)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    ops, kernels = {}, []
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            us = getattr(e, "self_device_time_total", None)
+            if us is None:
+                us = e.self_cuda_time_total
+            kernels.append([e.key[:80], us / 1e3, e.count])
+        else:
+            ops[e.key] = ops.get(e.key, 0) + e.count
+    kernels.sort(key=lambda r: -r[1])
+    return wall, ops, kernels
+
+
+# ops a recurrence computed step by step would issue (torch's native
+# loop, a cell per time step)
+_PER_STEP_OPS = ("aten::lstm_cell", "aten::_thnn_fused_lstm_cell",
+                 "aten::gru_cell", "aten::_thnn_fused_gru_cell",
+                 "aten::rnn_tanh_cell", "aten::rnn_relu_cell")
+_MATMUL_OPS = ("aten::mm", "aten::addmm", "aten::bmm", "aten::matmul")
+
+
+def _rnn_profile_checks(tag, ops, kernels, rnn_calls, steps_per_call):
+    """cuDNN's RNN ran ``rnn_calls`` times forward and backward, no
+    per-step cell op ran, fewer products than one per time step were
+    issued, and the device ran cuDNN's RNN kernels."""
+    faults = []
+    fwd = ops.get("aten::_cudnn_rnn", 0)
+    bwd = ops.get("aten::_cudnn_rnn_backward", 0)
+    if fwd != rnn_calls or bwd != rnn_calls:
+        faults.append(f"aten::_cudnn_rnn {fwd} / backward {bwd} calls, "
+                      f"expected {rnn_calls}")
+    cells = {k: v for k, v in ops.items() if k in _PER_STEP_OPS}
+    if cells:
+        faults.append(f"per-step cell ops ran: {cells}")
+    mm = sum(v for k, v in ops.items() if k in _MATMUL_OPS)
+    if mm >= steps_per_call:
+        faults.append(f"{mm} matrix products, as many as the "
+                      f"{steps_per_call} time steps")
+    if not any("rnn" in r[0].lower() or "lstm" in r[0].lower()
+               for r in kernels):
+        faults.append("no cuDNN RNN kernel in the device trace")
+    if faults:
+        raise SystemExit(f"chip_smoke: {tag}: " + "; ".join(faults))
+    return {"cudnn_rnn_forward_calls": fwd,
+            "cudnn_rnn_backward_calls": bwd, "matrix_product_ops": mm,
+            "per_step_cell_ops": 0}
+
+
+def _word_lm(vocab, width, layers, dropout):
+    """``examples/rnn/word_lm.py``'s model as upstream MXNet's
+    ``word_lm/model.py`` builds it: embedding -> dropout -> LSTM (dropout
+    between layers) -> dropout -> a decoder tied to the embedding through
+    ``params=``."""
+    from mxnet_tpu_torch import gluon
+    from mxnet_tpu_torch.gluon import nn, rnn
+
+    class RNNModel(gluon.Block):
+        def __init__(self, **kwargs):
+            super().__init__(**kwargs)
+            with self.name_scope():
+                self.drop = nn.Dropout(dropout)
+                self.encoder = nn.Embedding(vocab, width)
+                self.rnn = rnn.LSTM(width, num_layers=layers,
+                                    dropout=dropout, input_size=width)
+                self.decoder = nn.Dense(vocab, flatten=False,
+                                        in_units=width,
+                                        params=self.encoder.params)
+
+        def begin_state(self, batch_size):
+            return self.rnn.begin_state(batch_size=batch_size)
+
+        def forward(self, x, state):
+            emb = self.drop(self.encoder(x))
+            out, state = self.rnn(emb, state)
+            return self.decoder(self.drop(out)), state
+
+    return RNNModel()
+
+
+def _lm_tokens(steps, batch, bptt, vocab, seed=SEED):
+    """``batch`` Zipf-drawn (exponent 1) token streams of ``steps * bptt +
+    1`` tokens, time-major: (T, batch) int32."""
+    rs = np.random.RandomState(seed)
+    cdf = _zipf_cdf(vocab, 1.0)
+    return _zipf_draws(rs, cdf, (steps * bptt + 1, batch)).astype(np.int32)
+
+
+def _lm_step(net, trainer, params, loss_fn, x, y, state, cfg, events=None):
+    """One truncated-BPTT step of ``word_lm.py``: the loss, the clip's norm
+    and the new (detached next time) states."""
+    from mxnet_tpu_torch import autograd, gluon
+    state = [s.detach() for s in state]
+    if events:
+        events[0].record()
+    with autograd.record():
+        out, state = net(x, state)
+        loss = loss_fn(out.reshape((-1, cfg["vocab"])), y.reshape((-1,)))
+    if events:
+        events[1].record()
+    loss.backward()
+    if events:
+        events[2].record()
+    grads = [p.grad() for p in params.values()]
+    norm = gluon.utils.clip_global_norm(
+        grads, cfg["clip"] * cfg["bptt"] * x.shape[1])
+    trainer.step(x.shape[0] * x.shape[1])
+    if events:
+        events[3].record()
+    return loss, norm, state
+
+
+def _lm_check_run(init, tokens, device, dtype, cfg):
+    """RNN_LM_CHECK_STEPS steps at batch RNN_LM_CHECK_B, dropout 0, from
+    the weights ``init``: (losses, final states, final weights) as fp64
+    CPU tensors."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import gluon, nd
+    ctx = mx.gpu(0) if device == "cuda" else mx.cpu()
+    with ctx:
+        net = _word_lm(cfg["vocab"], cfg["width"], cfg["layers"], 0.0)
+        net.initialize(ctx=ctx)
+        net.cast(dtype)
+        b, T = tokens.shape[1], cfg["bptt"]
+        state = [s.astype(dtype) for s in net.begin_state(b)]
+        net.load_state_dict({k: torch.from_numpy(v).to(getattr(torch, dtype))
+                             for k, v in init.items()})
+        params = net.collect_params()
+        trainer = gluon.Trainer(params, "sgd", {"learning_rate": cfg["lr"]})
+        loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+        losses = []
+        for i in range(RNN_LM_CHECK_STEPS):
+            x = nd.array(tokens[i * T:(i + 1) * T], ctx=ctx)
+            y = nd.array(tokens[i * T + 1:(i + 1) * T + 1], ctx=ctx)
+            loss, _, state = _lm_step(net, trainer, params, loss_fn, x, y,
+                                      state, cfg)
+            losses.append(loss._data.detach().double().mean().cpu())
+    weights = {k: v.detach().double().cpu()
+               for k, v in net.state_dict().items()}
+    return (torch.stack(losses), [s._data.detach().double().cpu()
+                                  for s in state], weights)
+
+
+def _errs(got, ref):
+    """Max abs differences of (losses, states, weights) triples."""
+    def m(a, b):
+        return max(float((x - z).abs().max()) for x, z in zip(a, b))
+    return {"loss": float((got[0] - ref[0]).abs().max()),
+            "states": m(got[1], ref[1]),
+            "weights": m(list(got[2].values()), list(ref[2].values()))}
+
+
+def _weight_copy_ms(net, x):
+    """The LSTM layer's forward on per-layer weights (cuDNN copies them
+    into its own buffer on every call) against ``torch.nn.LSTM`` with the
+    same values flattened once (a yardstick, used nowhere in the port), in
+    predict mode at the phase's shape; and the bytes copied."""
+    lstm = net.rnn
+    ref = torch.nn.LSTM(lstm._hidden_size, lstm._hidden_size,
+                        num_layers=lstm._num_layers).cuda()
+    with torch.no_grad():
+        for i in range(lstm._num_layers):
+            for name, ours in (("weight_ih", "i2h_weight"),
+                               ("weight_hh", "h2h_weight"),
+                               ("bias_ih", "i2h_bias"),
+                               ("bias_hh", "h2h_bias")):
+                getattr(ref, f"{name}_l{i}").copy_(
+                    getattr(lstm, f"l{i}_{ours}"))
+    ref.eval()
+    ref.flatten_parameters()
+    n = lstm._num_layers
+    h0 = torch.zeros(n, x.shape[1], lstm._hidden_size, device="cuda")
+    emb = net.encoder(x._data)
+    with torch.no_grad():
+        ours_ms = cuda_ms(lambda: lstm(emb, [h0, h0]))
+        flat_ms = cuda_ms(lambda: ref(emb, (h0, h0)))
+        diff = (lstm(emb, [h0, h0])[0] - ref(emb, (h0, h0))[0]).abs().max()
+    nbytes = sum(p.numel() * p.element_size() for p in ref.parameters())
+    return {"per_layer_weights_forward_ms": ours_ms,
+            "flattened_weights_forward_ms": flat_ms,
+            "weight_copy_ms_estimate": ours_ms - flat_ms,
+            "weight_bytes": nbytes,
+            "max_abs_diff_to_flattened": float(diff)}
+
+
+def phase_rnn_lm(card):
+    """[rnn_lm]: see RNN_LM; each check fatal."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import gluon, nd
+    cfg = RNN_LM
+    V, W, T, B = cfg["vocab"], cfg["width"], cfg["bptt"], cfg["batch"]
+    t0 = time.perf_counter()
+    torch.manual_seed(SEED)
+    mx.random.seed(SEED)
+    tokens = _lm_tokens(RNN_LM_STEPS + 1, B, T, V)
+    gpu = mx.gpu(0)
+    net = _word_lm(V, W, cfg["layers"], cfg["dropout"])
+    net.initialize(mx.init.Uniform(cfg["init"]), ctx=gpu)
+    params = net.collect_params()
+    tied = net.encoder.weight
+    if net.decoder.weight is not tied or \
+            sum(p.tensor is tied for p in params.values()) != 1:
+        raise SystemExit("chip_smoke: rnn_lm: the decoder's weight is not "
+                         "the embedding's, once")
+    trainer = gluon.Trainer(params, "sgd", {"learning_rate": cfg["lr"]})
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    with gpu:
+        state = net.begin_state(B)
+        batches = [(nd.array(tokens[i * T:(i + 1) * T], ctx=gpu),
+                    nd.array(tokens[i * T + 1:(i + 1) * T + 1], ctx=gpu))
+                   for i in range(RNN_LM_STEPS + 1)]
+    feed = iter(batches)
+    norms, tied_faults, held = [], [], {}
+
+    def step(events=None):
+        nonlocal state
+        x, y = next(feed)
+        before = tied.detach().clone()
+        loss, norm, state = _lm_step(net, trainer, params, loss_fn, x, y,
+                                     state, cfg, events)
+        norms.append(norm)
+        # the update SGD makes from the clipped gradient, applied once: the
+        # new weight within 1% of the largest step of before - lr * g / BT
+        # (fp32 rounding of the weight is ~1e-9 here; a second update
+        # would be off by a whole step)
+        g = held.pop("grad", None)
+        if g is not None:
+            d = cfg["lr"] * g.double() / (B * T)
+            err = (tied.detach().double() - (before.double() - d)).abs()
+            if not float(err.max()) <= 0.01 * float(d.abs().max()):
+                tied_faults.append(len(norms))
+        return loss._data.detach().float().mean()
+
+    # the tied weight's clipped gradient, read just before the update
+    step_fn = trainer.step
+
+    def traced_step(batch_size, **kw):
+        held["grad"] = tied.grad.detach().clone()
+        return step_fn(batch_size, **kw)
+    trainer.step = traced_step
+    want = dict.fromkeys(_train_counters(), 0)
+    losses, walls, parts, totals, peak = _run_steps(
+        "rnn_lm", RNN_LM_STEPS + 1, step, [], want)
+    trainer.step = step_fn
+    faults = []
+    if abs(losses[0] - math.log(V)) > 0.05 * math.log(V):
+        faults.append(f"first loss {losses[0]} not within 5% of ln({V})")
+    if tied_faults:
+        faults.append(f"the tied weight's update at steps {tied_faults} is "
+                      "not one SGD update of its clipped gradient")
+    if [tuple(s.shape) for s in state] != [(cfg["layers"], B, W)] * 2:
+        faults.append(f"states {[s.shape for s in state]}")
+    if not all(s._data.device == torch.device("cuda", 0) for s in state):
+        faults.append("a state is not on cuda:0")
+    if faults:
+        raise SystemExit("chip_smoke: rnn_lm: " + "; ".join(faults))
+    x, y = batches[-1]
+    feed = iter([(x, y)])
+    wall, ops, kernels = _profiled_ops(step)
+    # dropout between the layers: one cuDNN call per layer
+    profile = _rnn_profile_checks("rnn_lm", ops, kernels, cfg["layers"], T)
+    kernel_ms = sum(r[1] for r in kernels)
+    dtod = sum(r[1] for r in kernels if "DtoD" in r[0])
+    copy = _weight_copy_ms(net, x)
+    steady = range(1, len(walls))
+    wall_ms = float(np.median([walls[i] for i in steady]))
+    del net, trainer, params, batches, state, tied
+    gc.collect()
+    torch.cuda.empty_cache()
+    check = phase_rnn_lm_check(cfg, tokens)
+    summary = {
+        "card": card, "config": cfg, "steps": RNN_LM_STEPS + 1,
+        "losses": losses, "ln_vocab": math.log(V),
+        "clip_norms": [float(n) for n in norms],
+        "step_wall_ms_median": wall_ms, "step_wall_ms": walls,
+        "tokens_per_s": B * T / (wall_ms / 1e3),
+        "forward_ms": float(np.median([parts[i][0] for i in steady])),
+        "backward_ms": float(np.median([parts[i][1] for i in steady])),
+        "clip_and_optimizer_ms": float(np.median([parts[i][2]
+                                                  for i in steady])),
+        "profiled_step_wall_ms": wall, "profiled_kernel_ms": kernel_ms,
+        "device_busy_share": kernel_ms / wall,
+        "dtod_memcpy_ms_in_profiled_step": dtod,
+        "top_kernels_ms": kernels[:10], "profile": profile,
+        "weight_copy": copy, "peak_memory_bytes": peak,
+        "launches": totals, "card_vs_cpu": check,
+        "phase_s": time.perf_counter() - t0}
+    log("[rnn_lm] " + json.dumps(summary))
+    return summary
+
+
+def phase_rnn_lm_check(cfg, tokens):
+    """The card against the CPU at batch RNN_LM_CHECK_B over
+    RNN_LM_CHECK_STEPS steps, dropout 0 (the two devices' generators draw
+    different masks), from one set of numpy-drawn weights: in fp64 the
+    losses, states and weights within RNN_LM_FP64_TOL; in fp32 the card's
+    error against the CPU's fp64 at most RNN_ERR_RATIO times the CPU's own
+    fp32 error (ties at 0 pass)."""
+    rs = np.random.RandomState(SEED + 1)
+    V, W, L = cfg["vocab"], cfg["width"], cfg["layers"]
+    shapes = {"encoder.weight": (V, W), "decoder.weight": (V, W),
+              "decoder.bias": (V,)}
+    for i in range(L):
+        shapes.update({f"rnn.l{i}_i2h_weight": (4 * W, W),
+                       f"rnn.l{i}_h2h_weight": (4 * W, W),
+                       f"rnn.l{i}_i2h_bias": (4 * W,),
+                       f"rnn.l{i}_h2h_bias": (4 * W,)})
+    init = {k: rs.uniform(-cfg["init"], cfg["init"], s).astype(np.float64)
+            for k, s in shapes.items()}
+    init["decoder.weight"] = init["encoder.weight"]
+    toks = tokens[:, :RNN_LM_CHECK_B]
+    runs = {(d, t): _lm_check_run(init, toks, d, t, cfg)
+            for d in ("cpu", "cuda") for t in ("float64", "float32")}
+    ref = runs[("cpu", "float64")]
+    e64 = _errs(runs[("cuda", "float64")], ref)
+    cpu32 = _errs(runs[("cpu", "float32")], ref)
+    card32 = _errs(runs[("cuda", "float32")], ref)
+    faults = [f"fp64 {k} {v} > {RNN_LM_FP64_TOL}" for k, v in e64.items()
+              if v > RNN_LM_FP64_TOL]
+    faults += [f"fp32 {k}: card {card32[k]} > {RNN_ERR_RATIO} x CPU "
+               f"{cpu32[k]}" for k in card32
+               if card32[k] > RNN_ERR_RATIO * cpu32[k]]
+    out = {"batch": RNN_LM_CHECK_B, "steps": RNN_LM_CHECK_STEPS,
+           "fp64_max_abs_err": e64, "fp64_tol": RNN_LM_FP64_TOL,
+           "fp32_card_err_vs_cpu64": card32,
+           "fp32_cpu_err_vs_cpu64": cpu32, "ratio_limit": RNN_ERR_RATIO,
+           "losses_cpu64": ref[0].tolist()}
+    if faults:
+        raise SystemExit("chip_smoke: rnn_lm check: " + "; ".join(faults)
+                         + f" ({json.dumps(out)})")
+    return out
+
+
+def _ctc_batch(templates, rs, batch, lengths=None, label_counts=None):
+    """``batch`` utterances: label sequences of CTC["labels"] phones from
+    1..phones-1 (no phone twice in a row), each phone over an equal run of
+    frames (at least two, so every utterance aligns), frames its phone's
+    template plus noise, zero-padded to the longest. ``lengths`` and
+    ``label_counts`` fix the frame and phone counts, else they are drawn;
+    returns (x (N, T,
+    features) on the card, labels (N, L) padded with 0, frame lengths,
+    label lengths)."""
+    lo, hi = CTC["frames"]
+    llo, lhi = CTC["labels"]
+    phones = CTC["phones"]
+    if lengths is None:
+        lengths = rs.randint(lo, hi + 1, batch)
+    if label_counts is None:
+        label_counts = rs.randint(llo, lhi + 1, batch)
+    labs = [min(int(m), n // 2) for n, m in zip(lengths, label_counts)]
+    T, L = int(max(lengths)), int(max(labs))
+    idx = np.zeros((batch, T), np.int64)  # 0: the padding template
+    labels = np.zeros((batch, L), np.float32)
+    for b, (n, m) in enumerate(zip(lengths, labs)):
+        seq = [rs.randint(1, phones)]
+        while len(seq) < m:
+            p = rs.randint(1, phones)
+            if p != seq[-1]:
+                seq.append(p)
+        labels[b, :m] = seq
+        idx[b, :n] = np.asarray(seq)[np.arange(n) * m // n]
+    g = torch.Generator(device="cuda").manual_seed(int(rs.randint(2 ** 31)))
+    x = templates[torch.from_numpy(idx).cuda()]
+    x = x + 0.5 * torch.randn(x.shape, generator=g, device="cuda")
+    x = x * torch.from_numpy(idx > 0).cuda()[..., None]
+    return x, labels, np.asarray(lengths, np.float32), \
+        np.asarray(labs, np.float32)
+
+
+def _ctc_net(ctx):
+    from mxnet_tpu_torch import gluon
+    from mxnet_tpu_torch.gluon import nn, rnn
+
+    class AcousticModel(gluon.HybridBlock):
+        """``examples/speech_recognition/lstm_ctc.py``'s model at Graves
+        et al. 2013's CTC-5L-250H widths."""
+
+        def __init__(self, **kwargs):
+            super().__init__(**kwargs)
+            with self.name_scope():
+                self.lstm = rnn.LSTM(CTC["hidden"],
+                                     num_layers=CTC["layers"],
+                                     bidirectional=True, layout="NTC")
+                self.out = nn.Dense(CTC["phones"], flatten=False)
+
+        def hybrid_forward(self, F, x):
+            return self.out(self.lstm(x))
+
+    net = AcousticModel()
+    net.initialize(ctx=ctx)
+    return net
+
+
+def _ctc_loss_grad(net, x, labels, plen, llen, ctx):
+    """The CTC losses of ``net`` on ``x`` (an NDArray) and their gradient
+    with respect to the logits (fp64 CPU tensors)."""
+    from mxnet_tpu_torch import autograd, gluon, nd
+    ctc = gluon.loss.CTCLoss(layout="NTC")
+    with autograd.record():
+        logits = net(x)
+        logits._data.retain_grad()
+        loss = ctc(logits, nd.array(labels, ctx=ctx),
+                   nd.array(plen, ctx=ctx), nd.array(llen, ctx=ctx))
+    loss.backward()
+    return loss._data.detach().double().cpu(), \
+        logits._data.grad.detach().double().cpu()
+
+
+def phase_rnn_ctc(card):
+    """[rnn_ctc]: see CTC; each check fatal."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, gluon, nd
+    t0 = time.perf_counter()
+    torch.manual_seed(SEED)
+    gpu = mx.gpu(0)
+    rs = np.random.RandomState(SEED)
+    templates = torch.from_numpy(
+        rs.randn(CTC["phones"], CTC["features"]).astype(np.float32)).cuda()
+    templates[0] = 0
+    net = _ctc_net(gpu)
+    params = net.collect_params()
+    trainer = gluon.Trainer(params, "sgd", {"learning_rate": CTC["lr"],
+                                            "momentum": CTC["momentum"]})
+    ctc = gluon.loss.CTCLoss(layout="NTC")
+    batches = [_ctc_batch(templates, rs, CTC["batch"])
+               for _ in range(CTC_STEPS)]
+    feed = iter(batches)
+    pad_grad = []
+
+    def step(events=None):
+        x, labels, plen, llen = next(feed)
+        with gpu:
+            xs, ys = nd.array(x, ctx=gpu), nd.array(labels, ctx=gpu)
+            pl, ll = nd.array(plen, ctx=gpu), nd.array(llen, ctx=gpu)
+        if events:
+            events[0].record()
+        with autograd.record():
+            logits = net(xs)
+            logits._data.retain_grad()
+            loss = ctc(logits, ys, pl, ll)
+        if events:
+            events[1].record()
+        loss.backward()
+        if events:
+            events[2].record()
+        g = logits._data.grad
+        frame = torch.arange(g.shape[1], device=g.device)
+        padded = frame[None, :] >= pl._data[:, None]
+        pad_grad.append(g[padded].abs().max() if padded.any()
+                        else g.new_zeros(()))
+        trainer.step(xs.shape[0])
+        if events:
+            events[3].record()
+        return loss._data.detach().float().mean()
+
+    want = dict.fromkeys(_train_counters(), 0)
+    losses, walls, parts, totals, peak = _run_steps(
+        "rnn_ctc", CTC_STEPS, step, [], want)
+    pad = [float(v) for v in pad_grad]
+    if any(v != 0.0 for v in pad):
+        raise SystemExit(f"chip_smoke: rnn_ctc: padded frames' logit "
+                         f"gradients {pad}, not 0")
+    feed = iter(batches[-1:])
+    wall, ops, kernels = _profiled_ops(step)
+    T = int(batches[-1][0].shape[1])
+    # no dropout: one cuDNN call runs the five bidirectional layers
+    profile = _rnn_profile_checks("rnn_ctc", ops, kernels, 1, T)
+    ctc_kernels = [r for r in kernels if "ctc" in r[0].lower()]
+    if not ctc_kernels:
+        raise SystemExit("chip_smoke: rnn_ctc: no CTC kernel in the trace")
+    kernel_ms = sum(r[1] for r in kernels)
+    steady = range(1, len(walls))
+    wall_ms = float(np.median([walls[i] for i in steady]))
+    check = phase_rnn_ctc_check(net, templates, rs)
+    summary = {
+        "card": card, "config": CTC, "steps": CTC_STEPS,
+        "frames": [int(b[0].shape[1]) for b in batches],
+        "losses": losses, "step_wall_ms_median": wall_ms,
+        "step_wall_ms": walls,
+        "utterances_per_s": CTC["batch"] / (wall_ms / 1e3),
+        "forward_ms": float(np.median([parts[i][0] for i in steady])),
+        "backward_ms": float(np.median([parts[i][1] for i in steady])),
+        "optimizer_ms": float(np.median([parts[i][2] for i in steady])),
+        "padded_frame_logit_grad_max": pad,
+        "profiled_step_wall_ms": wall, "profiled_kernel_ms": kernel_ms,
+        "device_busy_share": kernel_ms / wall, "profile": profile,
+        "ctc_kernels_ms": ctc_kernels, "top_kernels_ms": kernels[:10],
+        "peak_memory_bytes": peak, "launches": totals,
+        "card_vs_cpu_fp64": check, "phase_s": time.perf_counter() - t0}
+    log("[rnn_ctc] " + json.dumps(summary))
+    del net, trainer, params, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return summary
+
+
+def phase_rnn_ctc_check(net, templates, rs):
+    """The trained model's weights in fp64 on the card and the CPU, on
+    CTC_CHECK_B utterances across the timed range (the longest frame and
+    phone counts, the shortest, and the rest drawn): the losses and their
+    gradients with respect to the logits, each within CTC_FP64_TOL of the
+    largest magnitude."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ndarray.ndarray import _wrap
+    (lo, hi), (llo, lhi) = CTC["frames"], CTC["labels"]
+    extra = CTC_CHECK_B - 2
+    x, labels, plen, llen = _ctc_batch(
+        templates, rs, CTC_CHECK_B,
+        lengths=np.r_[hi, lo, rs.randint(lo, hi + 1, extra)],
+        label_counts=np.r_[lhi, llo, rs.randint(llo, lhi + 1, extra)])
+    state = {k: v.detach().double().cpu() for k, v in net.state_dict().items()}
+    out = {}
+    for dev, ctx in (("cuda", mx.gpu(0)), ("cpu", mx.cpu())):
+        with ctx:
+            m = _ctc_net(ctx)
+            with mx.autograd.pause():
+                m(x[:, :2].to(dev))
+            m.cast("float64")
+            m.load_state_dict({k: v.to(dev) for k, v in state.items()})
+            out[dev] = _ctc_loss_grad(m, _wrap(x.double().to(dev)), labels,
+                                      plen, llen, ctx)
+    errs = {}
+    for i, name in enumerate(("loss", "logit_grad")):
+        a, b = out["cuda"][i], out["cpu"][i]
+        errs[name] = float((a - b).abs().max() / b.abs().max())
+    res = {"batch": CTC_CHECK_B, "frames": plen.tolist(),
+           "label_lengths": llen.tolist(),
+           "scaled_max_abs_err": errs, "tol": CTC_FP64_TOL,
+           "losses_cpu": out["cpu"][0].tolist()}
+    if any(v > CTC_FP64_TOL for v in errs.values()):
+        raise SystemExit(f"chip_smoke: rnn_ctc check: {json.dumps(res)}")
+    return res
+
+
+def _bucket_sentences():
+    """BUCKETING["sentences"] sentences of 5-60 Zipf-drawn word ids (as
+    words, for ``encode_sentences``)."""
+    rs = np.random.RandomState(SEED)
+    cdf = _zipf_cdf(BUCKETING["vocab"] - 1, 1.0)
+    return [[f"w{i}" for i in _zipf_draws(rs, cdf, rs.randint(5, 61))]
+            for _ in range(BUCKETING["sentences"])]
+
+
+def _bucket_sym_gen(cell, cfg):
+    from mxnet_tpu_torch import sym
+
+    def sym_gen(seq_len):
+        data, label = sym.var("data"), sym.var("softmax_label")
+        emb = sym.Embedding(data, input_dim=cfg["vocab"],
+                            output_dim=cfg["embed"], name="embed")
+        cell.reset()
+        out, _ = cell.unroll(seq_len, inputs=emb, merge_outputs=True)
+        pred = sym.FullyConnected(
+            sym.Reshape(out, shape=(-1, cfg["hidden"])),
+            num_hidden=cfg["vocab"], name="pred")
+        return (sym.SoftmaxOutput(pred, sym.Reshape(label, shape=(-1,)),
+                                  name="softmax", use_ignore=True,
+                                  ignore_label=0),
+                ("data",), ("softmax_label",))
+    return sym_gen
+
+
+def phase_rnn_bucketing(card):
+    """[rnn_bucketing]: see BUCKETING; each check fatal."""
+    import mxnet_tpu_torch as mx
+    t0 = time.perf_counter()
+    cfg = BUCKETING
+    mx.random.seed(SEED)
+    enc, vocab = mx.rnn.encode_sentences(_bucket_sentences(),
+                                         invalid_label=0, start_label=1)
+    it = mx.rnn.BucketSentenceIter(enc, cfg["batch"],
+                                   buckets=list(cfg["buckets"]),
+                                   invalid_label=0, seed=SEED)
+    cell = mx.rnn.SequentialRNNCell()
+    for i in range(cfg["layers"]):
+        cell.add(mx.rnn.LSTMCell(cfg["hidden"], prefix=f"lstm_l{i}_"))
+    mod = mx.mod.BucketingModule(_bucket_sym_gen(cell, cfg),
+                                 default_bucket_key=it.default_bucket_key,
+                                 context=mx.gpu(0))
+    ppl, walls = [], []
+    last = [time.perf_counter()]
+
+    def on_batch(param):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        walls.append((now - last[0]) * 1e3)
+        last[0] = now
+        ppl.append(param.eval_metric.get()[1])
+        param.eval_metric.reset()
+
+    metric = mx.metric.Perplexity(ignore_label=0)
+    mod.fit(it, num_epoch=1, eval_metric=metric, optimizer="sgd",
+            optimizer_params={"learning_rate": cfg["lr"], "wd": cfg["wd"]},
+            initializer=mx.init.Xavier(factor_type="in", magnitude=2.34),
+            batch_end_callback=on_batch, epoch_end_callback=None)
+    faults = []
+    keys = sorted(mod._buckets)
+    if keys != sorted(cfg["buckets"]):
+        faults.append(f"buckets bound {keys}")
+    execs = [m._exec_group.execs[0] for m in mod._buckets.values()]
+    if len({id(e) for e in execs}) != len(keys):
+        faults.append("fewer executors than buckets")
+    names = mod._buckets[it.default_bucket_key]._param_names
+    for n in names:
+        if len({e.arg_dict[n]._data.data_ptr() for e in execs}) != 1 or \
+                len({id(e.grad_dict[n]) for e in execs}) != 1:
+            faults.append(f"{n} is not one storage across the buckets")
+    if not all(np.isfinite(ppl)) or not \
+            np.mean(ppl[-3:]) < np.mean(ppl[:3]):
+        faults.append(f"perplexity not finite and falling: {ppl}")
+    if faults:
+        raise SystemExit("chip_smoke: rnn_bucketing: " + "; ".join(faults))
+    fused = phase_rnn_fused_check(cfg)
+    summary = {"card": card, "config": cfg, "vocab_words": len(vocab),
+               "buckets_bound": keys, "batches": len(ppl),
+               "perplexity_by_batch": ppl,
+               "step_wall_ms_median": float(np.median(walls[1:])),
+               "step_wall_ms": walls, "parameters": names,
+               "fused": fused, "phase_s": time.perf_counter() - t0}
+    log("[rnn_bucketing] " + json.dumps(summary))
+    return summary
+
+
+def phase_rnn_fused_check(cfg):
+    """A FusedRNNCell (one ``RNN`` node, cuDNN) against its ``unfuse()``
+    stack on the card, the same weights, at the largest bucket: outputs
+    within FUSED_TOL; then ``save_rnn_checkpoint`` and
+    ``load_rnn_checkpoint`` bit-equal."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import sym
+    gpu = mx.gpu(0)
+    T, N = max(cfg["buckets"]), cfg["batch"]
+    fused = mx.rnn.FusedRNNCell(cfg["hidden"], num_layers=cfg["layers"],
+                                mode="lstm", prefix="lstm_")
+
+    def graph(cell):
+        data = sym.var("data")
+        emb = sym.Embedding(data, input_dim=cfg["vocab"],
+                            output_dim=cfg["embed"], name="embed")
+        out, _ = cell.unroll(T, inputs=emb, merge_outputs=True)
+        return out
+
+    fs = graph(fused)
+    rs = np.random.RandomState(SEED)
+    with gpu:
+        ex = fs.simple_bind(gpu, data=(N, T), grad_req="null")
+        args = {}
+        for k, v in ex.arg_dict.items():
+            a = rs.randint(1, cfg["vocab"], v.shape) if k == "data" \
+                else rs.uniform(-0.07, 0.07, v.shape)
+            args[k] = mx.nd.array(a.astype(np.float32), ctx=gpu)
+            v._data = args[k]._data.clone()
+        out_f = ex.forward()[0]._data
+        us = graph(fused.unfuse())
+        unpacked = fused.unpack_weights(args)
+        ex2 = us.bind(gpu, unpacked)
+        out_u = ex2.forward()[0]._data
+        tmp = tempfile.mkdtemp()
+        try:
+            prefix = os.path.join(tmp, "fused")
+            mx.rnn.save_rnn_checkpoint(fused, prefix, 1, fs, args, {})
+            _, loaded, _ = mx.rnn.load_rnn_checkpoint(fused, prefix, 1)
+        finally:
+            shutil.rmtree(tmp)
+    err = float((out_f - out_u).abs().max())
+    same = sorted(loaded) == sorted(args) and all(
+        torch.equal(loaded[k]._data.cpu(), args[k]._data.cpu())
+        for k in args)
+    res = {"shape": [N, T], "fused_vs_unfused_max_abs": err,
+           "tol": FUSED_TOL, "checkpoint_round_trip_bit_equal": same,
+           "unfused_arguments": sorted(unpacked)}
+    if err > FUSED_TOL or not same:
+        raise SystemExit(f"chip_smoke: rnn_bucketing fused check: "
+                         f"{json.dumps(res)}")
+    return res
+
+
+def _contrib_cases():
+    """name -> (build(gluon), input shape, forward(block, x) or None for
+    the call, whether it sums, whether it runs in training mode (not where
+    a mask would be drawn: the two devices' generators differ))."""
+    def step_twice(cell, x):
+        states = cell.begin_state(batch_size=x.shape[0])
+        out, states = cell(x, states)
+        out2, states = cell(x, states)
+        return [out, out2] + list(states)
+
+    def unroll(cell, x):
+        out, states = cell.unroll(3, x, merge_outputs=True)
+        return [out] + list(states)
+
+    def conc(g, cls):
+        c = cls(axis=1)
+        c.add(g.nn.Dense(4, flatten=False), g.contrib.nn.Identity(),
+              g.nn.Dense(3, flatten=False))
+        return c
+
+    cases = {
+        "HybridConcurrent": (lambda g: conc(g, g.contrib.nn.HybridConcurrent),
+                             (8, 5), None, True, True),
+        "Concurrent": (lambda g: conc(g, g.contrib.nn.Concurrent), (8, 5),
+                       None, True, True),
+        "Identity": (lambda g: g.contrib.nn.Identity(), (4, 7), None, False,
+                     True),
+        "SyncBatchNorm": (lambda g: g.contrib.nn.SyncBatchNorm(),
+                          (8, 3, 9, 9), None, True, True),
+        "PixelShuffle1D": (lambda g: g.contrib.nn.PixelShuffle1D(3),
+                           (2, 6, 8), None, False, True),
+        "PixelShuffle2D": (lambda g: g.contrib.nn.PixelShuffle2D((2, 3)),
+                           (2, 12, 4, 5), None, False, True),
+        "PixelShuffle3D": (lambda g: g.contrib.nn.PixelShuffle3D(2),
+                           (1, 16, 2, 3, 4), None, False, True),
+        "VariationalDropoutCell": (lambda g: g.contrib.rnn.
+                                   VariationalDropoutCell(g.rnn.LSTMCell(
+                                       16), drop_inputs=0.3), (4, 3, 8),
+                                   unroll, True, False),
+        "LSTMPCell": (lambda g: g.contrib.rnn.LSTMPCell(16, 6), (4, 3, 5),
+                      unroll, True, True),
+        "DeformableConvolution": (lambda g: g.contrib.cnn.
+                                  DeformableConvolution(
+                                      6, kernel_size=3, padding=1,
+                                      offset_weight_initializer="uniform"),
+                                  (2, 4, 9, 9), None, True, True),
+    }
+    for dims, shape in ((1, (2, 4, 10)), (2, (2, 4, 8, 8)),
+                        (3, (1, 4, 4, 4, 4))):
+        for kind in ("RNN", "LSTM", "GRU"):
+            name = f"Conv{dims}D{kind}Cell"
+            cases[name] = ((lambda n, s: lambda g: getattr(g.contrib.rnn, n)(
+                s[1:], 5, 3, 3, i2h_pad=1))(name, shape), shape, step_twice,
+                True, True)
+    return cases
+
+
+def phase_gluon_contrib(card):
+    """[gluon_contrib]: each contrib layer on the card against the CPU on
+    the same fp32 inputs and weights (in training mode but where a mask
+    would be drawn), rtol 1e-5 / atol 1e-6, or CONTRIB_SUMS where the
+    layer sums; SparseEmbedding's row-sparse gradient and its lazy
+    update; DeformableConvolution with zero offsets against Conv2D;
+    Estimator.fit with CheckpointHandler and EarlyStoppingHandler."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, gluon, nd
+    t0 = time.perf_counter()
+    gpu, cpu = mx.gpu(0), mx.cpu()
+    rows, faults = [], []
+    for name, (build, shape, fwd, sums, train) in _contrib_cases().items():
+        fwd = fwd or (lambda b, x: b(x))
+        x = np.random.RandomState(SEED).rand(*shape).astype(np.float32)
+        outs = {}
+        state = None
+        for ctx in (cpu, gpu):
+            with ctx:
+                torch.manual_seed(SEED)
+                b = build(gluon)
+                b.initialize(mx.init.Uniform(0.3), ctx=ctx)
+                with autograd.pause():
+                    fwd(b, nd.array(x, ctx=ctx))
+                if state is None:
+                    state = {k: v.detach().cpu()
+                             for k, v in b.state_dict().items()}
+                else:
+                    b.load_state_dict(state)
+                with autograd.record(train_mode=train):
+                    out = fwd(b, nd.array(x, ctx=ctx))
+                outs[ctx.device_type] = [o.asnumpy() for o in (
+                    out if isinstance(out, list) else [out])]
+        rtol, atol = CONTRIB_SUMS if sums else (1e-5, 1e-6)
+        pairs = list(zip(outs["gpu"], outs["cpu"]))
+        err = max(float(np.max(np.abs(a - c))) for a, c in pairs)
+        # |card - cpu| <= atol + rtol * |cpu| elementwise
+        excess = max(float(np.max(np.abs(a - c) - rtol * np.abs(c)))
+                     for a, c in pairs)
+        rows.append({"layer": name, "max_abs_err": err, "rtol": rtol,
+                     "atol": atol, "passes": excess <= atol})
+        if excess > atol:
+            faults.append(f"{name}: card against CPU off by {err}, past "
+                          f"rtol {rtol} / atol {atol}")
+    # SparseEmbedding: the same rows' gradient, the lazy update's rows
+    tok = np.array([[1, 2], [3, 1]], np.int32)
+    grads, table = {}, None
+    for ctx in (cpu, gpu):
+        with ctx:
+            emb = gluon.contrib.nn.SparseEmbedding(10, 4)
+            emb.initialize(mx.init.Uniform(0.3), ctx=ctx)
+            if table is None:
+                table = emb.weight.data().asnumpy()
+            emb.weight.set_data(table)
+            with autograd.record():
+                loss = (emb(nd.array(tok, ctx=ctx, dtype="int32")) ** 2).sum()
+            loss.backward()
+            g = emb.weight.grad()
+            before = emb.weight.data().asnumpy()
+            gluon.Trainer(emb.collect_params(), "sgd",
+                          {"learning_rate": 0.1, "wd": 0.1}).step(1)
+            moved = np.abs(emb.weight.data().asnumpy() - before).sum(1) > 0
+            grads[ctx.device_type] = (g.stype, g.asnumpy(), moved.tolist())
+    if grads["gpu"][0] != "row_sparse" or grads["gpu"][2] != \
+            [False, True, True, True] + [False] * 6 or not np.allclose(
+                grads["gpu"][1], grads["cpu"][1], rtol=1e-5, atol=1e-6):
+        faults.append(f"SparseEmbedding: {grads['gpu'][0]}, rows moved "
+                      f"{grads['gpu'][2]}")
+    # zero offsets: the plain convolution
+    with gpu:
+        layer = gluon.contrib.cnn.DeformableConvolution(5, kernel_size=3,
+                                                        padding=1)
+        layer.initialize(ctx=gpu)
+        xd = nd.array(np.random.RandomState(1).rand(2, 4, 7, 7)
+                      .astype(np.float32), ctx=gpu)
+        dout = layer(xd)
+        ref = nd.Convolution(xd, layer.weight, layer.bias, kernel=(3, 3),
+                             pad=(1, 1), num_filter=5)
+        zero_err = float((dout - ref).abs().max().asscalar())
+    if zero_err > CONTRIB_SUMS[1] + CONTRIB_SUMS[0] * float(
+            ref.abs().max().asscalar()):
+        faults.append(f"DeformableConvolution with zero offsets off "
+                      f"Conv2D by {zero_err}")
+    est = _contrib_estimator(gpu)
+    if est["stopped_epoch"] != 2 or est["checkpoints"] != [
+            "model-best.params", "model-epoch1.params",
+            "model-epoch2.params"] or not est["parameters_on_card"]:
+        faults.append(f"Estimator: {est}")
+    summary = {"card": card, "card_vs_cpu": rows,
+               "sparse_embedding_rows_moved": grads["gpu"][2],
+               "deformable_zero_offsets_vs_conv2d": zero_err,
+               "estimator": est, "phase_s": time.perf_counter() - t0}
+    log("[gluon_contrib] " + json.dumps(summary))
+    if faults:
+        raise SystemExit("chip_smoke: gluon_contrib: " + "; ".join(faults))
+    return summary
+
+
+def _contrib_estimator(gpu):
+    """Estimator.fit of a HybridConcurrent net for at most 3 epochs, a
+    CheckpointHandler each epoch and an EarlyStoppingHandler on a metric
+    that cannot improve in its mode after the first epoch."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import gluon, nd
+    from mxnet_tpu_torch.gluon.contrib import estimator as est_mod
+    rs = np.random.RandomState(SEED)
+    x = rs.rand(64, 8).astype(np.float32)
+    y = (x.sum(1) > 4).astype(np.float32)
+    tmp = tempfile.mkdtemp()
+    try:
+        with gpu:
+            net = gluon.nn.HybridSequential()
+            branches = gluon.contrib.nn.HybridConcurrent(axis=1)
+            branches.add(gluon.nn.Dense(8, activation="relu"),
+                         gluon.contrib.nn.Identity())
+            net.add(branches, gluon.nn.Dense(2))
+            net.initialize(ctx=gpu)
+            loader = gluon.data.DataLoader(gluon.data.ArrayDataset(
+                nd.array(x, ctx=gpu), nd.array(y, ctx=gpu)), batch_size=16)
+            est = est_mod.Estimator(net, gluon.loss.SoftmaxCrossEntropyLoss(),
+                                    train_metrics=[mx.metric.Accuracy()])
+            ckpt = est_mod.CheckpointHandler(tmp, monitor=est.loss_metric)
+            stop = est_mod.EarlyStoppingHandler(monitor=est.loss_metric,
+                                                mode="max", patience=1)
+            est.fit(loader, epochs=3, event_handlers=[ckpt, stop])
+        on_card = all(p.device == torch.device("cuda", 0)
+                      for p in net.parameters())
+        return {"stopped_epoch": stop.stopped_epoch,
+                "checkpoints": sorted(os.listdir(tmp)),
+                "loss": est.loss_metric.get()[1],
+                "parameters_on_card": on_card}
+    finally:
+        shutil.rmtree(tmp)
+
+
+def phase_rnn_all(card):
+    """The four phases of the recurrent slice, TF32 off."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out = {"rnn_lm": phase_rnn_lm(card), "rnn_ctc": phase_rnn_ctc(card),
+           "rnn_bucketing": phase_rnn_bucketing(card),
+           "gluon_contrib": phase_gluon_contrib(card)}
+    log(f"[rnn] the four recurrent-slice phases took "
+        f"{time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def phase_decode(card, peaks):
     """The autoregressive serving slice: every decode phase on one
     parameter tree, the engines of each closed before the next."""
@@ -6006,6 +6987,7 @@ def main():
     phase_sparse_embedding(card)
     phase_sparse_params(card, linear)
     zoo = phase_zoo_all(card)
+    phase_rnn_all(card)
     phase_decode(card, peaks)
     enc32, enc16 = enc["launches"], enc["fp16"]
     nd_attn = {r["dtype"]: r["launches"] for r in nd_run["attention"]}

@@ -13,7 +13,8 @@ flash-attention forward and backward, mixed-precision SGD) live in
 (NDArray and the op corpus), ``mx.autograd``, ``mx.gluon``,
 ``mx.metric``, ``mx.random``, ``mx.initializer``, ``mx.optimizer``,
 ``mx.lr_scheduler``, ``mx.sym`` (Symbol and its op corpus), ``mx.mod``
-(Module, BucketingModule, SequentialModule), ``mx.io``, ``mx.model``,
+(Module, BucketingModule, SequentialModule), ``mx.rnn`` (the symbolic
+recurrent cells), ``mx.io``, ``mx.model``,
 ``mx.callback``, ``mx.name``, ``mx.AttrScope``, and ``mx.cpu()`` /
 ``mx.gpu(i)``.
 """
@@ -22,6 +23,7 @@ from . import metric, ndarray, random  # noqa: F401
 from . import attribute, name, symbol  # noqa: F401
 from . import callback, executor, executor_manager, io, model  # noqa: F401
 from . import module  # noqa: F401
+from . import rnn  # noqa: F401
 from . import gluon  # noqa: F401
 from .attribute import AttrScope  # noqa: F401
 from .base import MXNetError  # noqa: F401
@@ -39,4 +41,4 @@ __all__ = ["MXNetError", "resolve_device", "Context", "cpu", "gpu",
            "gluon", "metric", "random", "initializer", "optimizer",
            "lr_scheduler", "sym", "symbol", "mod", "module", "io", "model",
            "callback", "executor", "executor_manager", "name", "attribute",
-           "AttrScope", "init"]
+           "rnn", "AttrScope", "init"]

@@ -10,6 +10,17 @@ layer's (BatchNorm, LayerNorm, InstanceNorm, GroupNorm) ``gamma``/``beta``
 and are carried like any parameter. A model built without input sizes
 takes weights once a forward resolved its shapes.
 
+The recurrent layers and cells keep the JAX package's names too: a
+Gluon ``RNN``/``LSTM``/``GRU``'s per-gate ``l0_i2h_weight`` ...
+``r1_h2h_bias``, a cell's ``i2h_*``/``h2h_*``, ``LSTMPCell``'s
+``h2r_weight``. A symbolic graph (``mx.rnn``'s cells under ``Module``)
+takes its arguments by their graph names (``lstm_l0_i2h_weight``): give
+:func:`params_from_mxnet_tpu` the port's ``Symbol`` as the model, and
+its :class:`~mxnet_tpu_torch.rnn.rnn_cell.FusedRNNCell` cells as
+``cells``, whose flat ``<prefix>parameters`` vector is packed from the
+JAX package's unfused names for that cell (the JAX package's fused cell
+is a stack of unfused cells).
+
 The serving LM stack (``parallel/pipeline_lm.py``) is a nested dict in
 both packages, with the same keys and layouts:
 :func:`pipeline_lm_from_mxnet_tpu` carries it across.
@@ -58,14 +69,23 @@ def params_to_mxnet_tpu(model: nn.Module) -> Dict[str, np.ndarray]:
 
 
 def params_from_mxnet_tpu(named: Mapping[str, np.ndarray],
-                          model: nn.Module) -> Dict[str, torch.Tensor]:
+                          model, cells=()) -> Dict[str, torch.Tensor]:
     """A state dict for ``model`` from the JAX package's ``{name: array}``.
 
     Every shape is checked against ``model``; a parameter missing on
     either side raises, and so does one whose deferred shape is not
     resolved yet (run one forward, or ``load_parameters``, first). The
     tensors are CPU copies in the model's dtypes:
-    ``model.load_state_dict(result)`` moves them to its device."""
+    ``model.load_state_dict(result)`` moves them to its device.
+
+    ``model`` may instead be a ``Symbol``: the result is then
+    ``{argument or aux name: tensor}`` for the names ``named`` gives
+    (after packing each of ``cells``' flat vector, see the module's
+    docstring), for ``Module.set_params`` or an executor; a name the
+    graph lacks raises."""
+    from .symbol.symbol import Symbol
+    if isinstance(model, Symbol):
+        return _symbol_args(named, model, cells)
     pending = [n for n, p in model.named_parameters()
                if isinstance(p, UninitializedParameter)]
     if pending:
@@ -89,6 +109,25 @@ def params_from_mxnet_tpu(named: Mapping[str, np.ndarray],
         raise MXNetError(f"no value given for {len(missing)} parameter(s): "
                          f"{missing[:8]}")
     return out
+
+
+def _symbol_args(named, sym, cells) -> Dict[str, torch.Tensor]:
+    from .rnn.rnn_cell import FusedRNNCell
+    arrays = {k: np.asarray(v) for k, v in named.items()}
+    for cell in cells:
+        if not isinstance(cell, FusedRNNCell):
+            raise MXNetError(f"cells: {type(cell).__name__} is not a "
+                             "FusedRNNCell")
+        first = arrays[f"{cell._prefix}l0_i2h_weight"]
+        keys = [k for k, _, _ in cell._slices(first.shape[1])]
+        arrays[f"{cell._prefix}parameters"] = np.concatenate(
+            [arrays.pop(k).reshape(-1) for k in keys])
+    known = set(sym.list_arguments()) | set(sym.list_auxiliary_states())
+    extra = sorted(set(arrays) - known)
+    if extra:
+        raise MXNetError(f"{len(extra)} name(s) the graph lacks: "
+                         f"{extra[:8]}")
+    return {k: torch.from_numpy(np.array(v)) for k, v in arrays.items()}
 
 
 def _flat_tree(tree: Mapping, prefix=()) -> Dict[tuple, object]:

@@ -165,7 +165,14 @@ class _BlockScope:
     is ``<hint><n>_`` by a count per hint; one made inside a parent's
     ``name_scope()`` is the parent's prefix plus its own prefix, or plus
     ``<hint><n>_`` by the parent scope's count. An empty prefix makes a
-    block whose ``name_scope()`` does nothing."""
+    block whose ``name_scope()`` does nothing.
+
+    A block's :class:`ParameterDict` names its parameters: given
+    ``params=`` (another block's ``params``), it takes that dict's prefix
+    and shares its parameters, so that ``Dense(..., params=
+    embedding.params)`` holds the embedding's weight (a tied decoder);
+    otherwise it is the parent's dict's prefix plus the block's own, and
+    shares what the parent's dict shares."""
 
     _current = threading.local()
 
@@ -175,7 +182,8 @@ class _BlockScope:
         self._old_scope = None
 
     @staticmethod
-    def create(prefix, hint) -> str:
+    def create(prefix, params, hint):
+        """``(prefix, ParameterDict)`` of a new block."""
         current = getattr(_BlockScope._current, "value", None)
         if current is None:
             if prefix is None:
@@ -183,12 +191,19 @@ class _BlockScope:
                 count = counts.get(hint, 0)
                 counts[hint] = count + 1
                 prefix = f"{hint}{count}_"
-            return prefix
+            if params is None:
+                return prefix, ParameterDict(prefix)
+            return prefix, ParameterDict(params.prefix, params)
         if prefix is None:
             count = current._counter.get(hint, 0)
             current._counter[hint] = count + 1
             prefix = f"{hint}{count}_"
-        return current._block.prefix + prefix
+        if params is None:
+            parent = current._block.params
+            params = ParameterDict(parent.prefix + prefix, parent._shared)
+        else:
+            params = ParameterDict(params.prefix, params)
+        return current._block.prefix + prefix, params
 
     def __enter__(self):
         if not self._block._empty_prefix:
@@ -245,8 +260,8 @@ class Block(nn.Module):
     def __init__(self, *args, prefix=None, params=None, **kwargs):
         super().__init__(*args, **kwargs)
         self._empty_prefix = prefix == ""
-        self._prefix = _BlockScope.create(prefix, self._alias())
-        self._params = ParameterDict(self._prefix, shared=params)
+        self._prefix, self._params = _BlockScope.create(prefix, params,
+                                                        self._alias())
         self._scope = _BlockScope(self)
 
     def _alias(self) -> str:
@@ -294,8 +309,20 @@ class Block(nn.Module):
         :meth:`param_name` names it) and return its tensor, to be assigned
         as the attribute. With ``device`` and a known shape it holds
         construction-time values there; otherwise it waits for
-        ``initialize`` (and, with a 0 in ``shape``, the first forward)."""
-        p = Parameter(self.param_name(attr), grad_req=grad_req, shape=shape,
+        ``initialize`` (and, with a 0 in ``shape``, the first forward).
+        A parameter of that name that the block's ``params`` share (see
+        :class:`_BlockScope`) is returned instead, its unknown dimensions
+        filled from ``shape``."""
+        renames = getattr(self, "_JAX_NAMES", None) or {}
+        name = self._params.prefix + renames.get(attr, attr)
+        shared = self._params._get_impl(name)
+        if shared is not None:
+            old = shared.shape
+            if old is not None and len(old) == len(shape):
+                shape = tuple(n or o for o, n in zip(old, shape))
+            shared.shape = shape
+            return shared.tensor
+        p = Parameter(name, grad_req=grad_req, shape=shape,
                       dtype=as_dtype(dtype), init=init,
                       allow_deferred_init=allow_deferred_init,
                       differentiable=differentiable, **kwargs)

@@ -1,0 +1,12 @@
+"""Gluon's Estimator: a fit loop with event handlers
+(``mxnet_tpu/gluon/contrib/estimator/``)."""
+from .estimator import Estimator
+from .event_handler import (BatchBegin, BatchEnd, CheckpointHandler,
+                            EarlyStoppingHandler, EpochBegin, EpochEnd,
+                            LoggingHandler, MetricHandler, StoppingHandler,
+                            TrainBegin, TrainEnd, ValidationHandler)
+
+__all__ = ["Estimator", "TrainBegin", "TrainEnd", "EpochBegin", "EpochEnd",
+           "BatchBegin", "BatchEnd", "StoppingHandler", "MetricHandler",
+           "ValidationHandler", "LoggingHandler", "CheckpointHandler",
+           "EarlyStoppingHandler"]

@@ -8,13 +8,14 @@ Counterpart of ``mxnet_tpu/gluon/loss.py``'s ``Loss``, ``L2Loss``,
 ``sample_weight`` broadcast against the elementwise loss) and batch-axis
 handling: most losses are per sample, the mean over every axis but
 ``batch_axis`` (``TripletLoss`` sums there; ``PoissonNLLLoss`` returns the
-mean over everything, as in the JAX package). ``CTCLoss`` waits with
-``gluon.rnn`` (ROADMAP Queue A). A
-loss is a ``HybridBlock``, so it takes NDArrays (and returns one) as well
-as tensors. Sparse labels go through ``pick``
-(:func:`mxnet_tpu_torch.ops.tensor.pick`), as in the JAX package: a label
-in ``[-n, -1]`` wraps and any other out-of-range label gives a NaN loss,
-on the device, where a bare gather would raise.
+mean over everything, as in the JAX package), and ``CTCLoss``
+(:func:`~mxnet_tpu_torch.ops.ctc.ctc_loss`, with the JAX package's
+conventions: the blank at 0, label lengths the count of labels > 0
+unless given). A loss is a ``HybridBlock``, so it takes NDArrays (and
+returns one) as well as tensors. Sparse labels go through ``pick``
+(:func:`mxnet_tpu_torch.ops.tensor.pick`), as in the JAX package: a
+label in ``[-n, -1]`` wraps and any other out-of-range label gives a NaN
+loss, on the device, where a bare gather would raise.
 """
 from __future__ import annotations
 
@@ -23,6 +24,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..ops.ctc import ctc_loss
 from ..ops.tensor import pick
 from .block import HybridBlock
 
@@ -30,7 +32,7 @@ __all__ = ["Loss", "L2Loss", "L1Loss", "SigmoidBinaryCrossEntropyLoss",
            "SigmoidBCELoss", "SoftmaxCrossEntropyLoss", "SoftmaxCELoss",
            "KLDivLoss", "HuberLoss", "HingeLoss", "SquaredHingeLoss",
            "LogisticLoss", "TripletLoss", "PoissonNLLLoss",
-           "CosineEmbeddingLoss"]
+           "CosineEmbeddingLoss", "CTCLoss"]
 
 
 def _apply_weighting(loss, weight=None, sample_weight=None):
@@ -291,4 +293,33 @@ class CosineEmbeddingLoss(Loss):
         label = label.reshape(-1)
         loss = torch.where(label == 1, 1.0 - cos,
                            torch.relu(cos - self._margin))
+        return _apply_weighting(loss, self._weight, sample_weight)
+
+
+class CTCLoss(Loss):
+    """Connectionist temporal classification: ``pred`` (N, T, C) in
+    ``layout="NTC"`` or (T, N, C), ``label`` (N, L) in
+    ``label_layout="NT"`` or (L, N); ``pred_lengths`` and
+    ``label_lengths`` are optional (N,) arrays. Returns the (N,) losses,
+    weighted."""
+
+    def __init__(self, layout="NTC", label_layout="NT", weight=None,
+                 prefix=None, params=None):
+        assert layout in ("NTC", "TNC")
+        assert label_layout in ("NT", "TN")
+        self._layout = layout
+        self._label_layout = label_layout
+        super().__init__(weight, label_layout.find("N"), prefix=prefix,
+                         params=params)
+
+    def forward(self, pred, label, pred_lengths=None, label_lengths=None,
+                sample_weight=None):
+        if self._layout == "NTC":
+            pred = pred.transpose(0, 1)
+        if self._batch_axis == 1:
+            label = label.transpose(0, 1)
+        lengths = [t for t in (pred_lengths, label_lengths) if t is not None]
+        loss = ctc_loss(pred, label, *lengths,
+                        use_data_lengths=pred_lengths is not None,
+                        use_label_lengths=label_lengths is not None)
         return _apply_weighting(loss, self._weight, sample_weight)

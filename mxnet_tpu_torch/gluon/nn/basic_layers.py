@@ -37,7 +37,7 @@ from ..parameter import JAX_NAMES
 __all__ = ["Sequential", "HybridSequential", "Dense", "Activation",
            "Dropout", "BatchNorm", "InstanceNorm", "LayerNorm", "GroupNorm",
            "Embedding", "Flatten", "Lambda", "HybridLambda", "LeakyReLU",
-           "PReLU", "ELU", "SELU", "Swish", "GELU", "gelu"]
+           "PReLU", "ELU", "SELU", "Swish", "GELU", "gelu", "MaskSource"]
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
@@ -160,27 +160,16 @@ class Flatten(HybridBlock):
         return F.Flatten(x)
 
 
-class Dropout(HybridBlock):
-    """Dropout with rate ``rate``, active exactly when
-    ``autograd.is_training()`` (inside ``autograd.record()``), as the JAX
-    package's ``F.Dropout`` is; elsewhere, serving included, the identity.
-    ``axes`` share one mask along those axes (the JAX package's variational
-    dropout).
+class MaskSource:
+    """A block's own ``torch.Generator`` for its random masks (Dropout's,
+    a recurrent layer's between its layers, the random cells'), seeded
+    from torch's global generator when the block is made (so
+    ``torch.manual_seed`` fixes them) and made on the device of the first
+    tensor it serves, or on ``device`` where given; :meth:`manual_seed`
+    restarts it, so that two runs draw the same masks. The fused step
+    finds it through :meth:`_generator`."""
 
-    Kept elements are scaled by ``1 / (1 - rate)``. Masks come from the
-    layer's own ``torch.Generator`` on the input's device (made at the
-    first forward, or on ``device`` where given), seeded from torch's
-    global generator at construction (so ``torch.manual_seed`` fixes
-    them); :meth:`manual_seed` restarts it, so that two runs draw the same
-    masks."""
-
-    def __init__(self, rate: float = 0.0, axes=(), prefix=None, params=None,
-                 device=None):
-        super().__init__(prefix=prefix, params=params)
-        if not 0.0 <= rate < 1.0:
-            raise ValueError(f"dropout rate {rate} not in [0, 1)")
-        self.rate = rate
-        self._axes = tuple(axes)
+    def _init_masks(self, device=None):
         self._gen = None
         self.manual_seed(int(torch.randint(0, 2 ** 62, ()).item()))
         if device is not None:
@@ -197,16 +186,40 @@ class Dropout(HybridBlock):
             self._gen.manual_seed(self._seed)
         return self._gen
 
+    def _keep(self, p, shape, device) -> torch.Tensor:
+        """A boolean mask of ``shape`` on ``device``, True with
+        probability ``1 - p``."""
+        gen = self._generator(device)
+        if gen.device != device:
+            raise MXNetError(f"{type(self).__name__}: input on {device}, "
+                             f"the block's generator on {gen.device}")
+        return torch.rand(shape, generator=gen, device=device) >= p
+
+
+class Dropout(HybridBlock, MaskSource):
+    """Dropout with rate ``rate``, active exactly when
+    ``autograd.is_training()`` (inside ``autograd.record()``), as the JAX
+    package's ``F.Dropout`` is; elsewhere, serving included, the identity.
+    ``axes`` share one mask along those axes (the JAX package's variational
+    dropout).
+
+    Kept elements are scaled by ``1 / (1 - rate)``. Masks come from the
+    layer's own generator (:class:`MaskSource`)."""
+
+    def __init__(self, rate: float = 0.0, axes=(), prefix=None, params=None,
+                 device=None):
+        super().__init__(prefix=prefix, params=params)
+        if not 0.0 <= rate < 1.0:
+            raise ValueError(f"dropout rate {rate} not in [0, 1)")
+        self.rate = rate
+        self._axes = tuple(axes)
+        self._init_masks(device)
+
     def forward(self, x):
         if self.rate == 0.0 or not autograd.is_training():
             return x
-        gen = self._generator(x.device)
-        if x.device != gen.device:
-            raise MXNetError(f"Dropout: input on {x.device}, the layer's "
-                             f"generator on {gen.device}")
         shape = [1 if i in self._axes else s for i, s in enumerate(x.shape)]
-        keep = torch.rand(shape, generator=gen, device=x.device) \
-            >= self.rate
+        keep = self._keep(self.rate, shape, x.device)
         return x * keep.to(x.dtype) * (1.0 / (1.0 - self.rate))
 
     def _trace(self, F, x):

@@ -71,6 +71,15 @@ class DeferredInitializationError(MXNetError):
     resolved its shape."""
 
 
+def row_sparse_grad(grad):
+    """A torch sparse gradient as a ``RowSparseNDArray``, for the
+    optimizers' lazy updates; a dense one as it is."""
+    if not grad.is_sparse:
+        return grad
+    from ..ndarray.sparse_ops import SparseCotangent
+    return SparseCotangent.from_coo(grad).to_rowsparse()
+
+
 def _is_uninit(t) -> bool:
     return isinstance(t, UninitializedParameter)
 
@@ -283,7 +292,8 @@ class Parameter:
 
     def grad(self, ctx=None):
         """The gradient as an NDArray over the tensor's ``.grad`` (zeros
-        where no backward wrote one yet)."""
+        where no backward wrote one yet); a sparse one (``contrib.nn.
+        SparseEmbedding``'s weight) as a ``RowSparseNDArray``."""
         self._check_initialized()
         t = self._tensor
         if not t.requires_grad:
@@ -292,6 +302,8 @@ class Parameter:
                 f"because grad_req='null'")
         if t.grad is None:
             t.grad = torch.zeros_like(t)
+        if t.grad.is_sparse:
+            return row_sparse_grad(t.grad)
         return _wrap(t.grad)
 
     def list_grad(self):

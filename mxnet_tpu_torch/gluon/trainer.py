@@ -18,12 +18,16 @@ keep the optimizer and its states in a file (the path without a
 kvstore). ``fuse_step`` makes the whole step one captured program
 (:mod:`mxnet_tpu_torch.step`).
 
-A sparse gradient (a torch sparse tensor on a parameter) stays out of
-the aggregated path: the list-form ``Updater`` updates it on its own,
-densified with the storage-fallback warning, as the JAX package's
-``_bucketable`` keeps row_sparse gradients out of its coalesced exchange
+A sparse gradient (a torch sparse tensor on a parameter, as
+``contrib.nn.SparseEmbedding`` leaves on its weight) goes to the
+optimizer as a ``RowSparseNDArray`` and stays out of the aggregated
+path: the list-form ``Updater`` updates it on its own, by the
+optimizer's lazy row-wise update where it has one (else densified with
+the storage-fallback warning), as the JAX package's ``_bucketable``
+keeps row_sparse gradients out of its coalesced exchange
 (``mxnet_tpu/gluon/trainer.py:211-217``). A Gluon parameter's gradient
-is dense, ``Embedding(sparse_grad=True)``'s too, as in the JAX package.
+is otherwise dense, ``Embedding(sparse_grad=True)``'s too, as in the JAX
+package.
 
 A gradient is consumed by the step that applies it (``.grad`` is set to
 None afterwards), so a parameter that the last backward did not reach is
@@ -51,7 +55,7 @@ from torch import nn
 from .. import optimizer as opt_mod
 from .. import telemetry
 from ..base import MXNetError
-from .parameter import Parameter
+from .parameter import Parameter, row_sparse_grad
 
 __all__ = ["Trainer"]
 
@@ -167,12 +171,13 @@ class Trainer:
             live.append((i, p))
         updater = self._updaters[0]
         with torch.no_grad():
+            grads = [row_sparse_grad(p.grad) for _, p in live]
             if len(live) > 1 and updater.aggregate_updates:
-                updater([i for i, _ in live], [p.grad for _, p in live],
+                updater([i for i, _ in live], grads,
                         [p.data for _, p in live])
             else:
-                for i, p in live:
-                    updater(i, p.grad, p.data)
+                for (i, p), g in zip(live, grads):
+                    updater(i, g, p.data)
             for _, p in live:
                 if getattr(p, "grad_req", "write") != "add":
                     p.grad = None

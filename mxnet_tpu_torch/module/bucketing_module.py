@@ -1,8 +1,11 @@
 """BucketingModule: one Module per bucket key, the parameters shared.
 
 Counterpart of ``mxnet_tpu/module/bucketing_module.py``: each bucket's
-Module is bound at its key's shapes; switching buckets carries the newest
-parameters across (a version count says which module holds stale ones).
+Module is bound at its key's shapes and shares the default bucket's
+arrays (``Module.bind(..., shared_module=...)``, as upstream MXNet's
+executors share them): one storage per parameter, its gradient and each
+aux state, so an update in any bucket is every bucket's. As upstream, a
+new bucket is bound only once the parameters are initialized.
 ``save_checkpoint`` writes the shared parameters, one symbol file per
 bucket and a JSON manifest of the keys.
 """
@@ -35,14 +38,6 @@ class BucketingModule(BaseModule):
         self._monitor = None
         self._grad_req = None
         self._preload_params = None  # set by BucketingModule.load
-        # monotonically increasing parameter version: each bucket module
-        # records the version it last received, so switch_bucket knows
-        # exactly when a module's device params are stale. The
-        # _params_dirty flag alone cannot carry this — get_params()
-        # clears it after syncing only the CURRENT bucket, leaving other
-        # buckets stale with no record (params-shared executors make
-        # this moot in MXNet; here params are copied on switch)
-        self._param_version = 0
 
     def _gen_symbol(self, key):
         sym, data_names, label_names = self._sym_gen(key)
@@ -95,11 +90,6 @@ class BucketingModule(BaseModule):
                                       allow_extra=allow_extra)
         self._params_dirty = False
         self.params_initialized = True
-        # a fresh param install is a new version — other bucket modules
-        # must refresh on their next switch (set_params routes here with
-        # force_init, so this also covers external param injection)
-        self._param_version += 1
-        self._curr_module._bucket_param_version = self._param_version
 
     def bind(self, data_shapes, label_shapes=None, for_training=True,
              inputs_need_grad=False, force_rebind=False, shared_module=None,
@@ -140,15 +130,16 @@ class BucketingModule(BaseModule):
             module.params_initialized = True
             module._exec_group.set_params(arg_params, aux_params,
                                           allow_extra=True)
-            module._bucket_param_version = self._param_version
             self.params_initialized = True
             self._preload_params = None
 
     def switch_bucket(self, bucket_key, data_shapes, label_shapes=None):
         """Make ``bucket_key``'s module the current one, binding it at
-        first sight."""
+        first sight on the default bucket's arrays."""
         assert self.binded
         if bucket_key not in self._buckets:
+            assert self.params_initialized, \
+                "initialize the parameters before binding another bucket"
             sym, dnames, lnames = self._gen_symbol(bucket_key)
             module = Module(sym, dnames, lnames, logger=self.logger,
                             context=self._ctx,
@@ -159,7 +150,8 @@ class BucketingModule(BaseModule):
             module.bind(data_shapes, label_shapes,
                         self._curr_module.for_training,
                         self._curr_module.inputs_need_grad,
-                        force_rebind=False, grad_req=self._grad_req)
+                        force_rebind=False, grad_req=self._grad_req,
+                        shared_module=self._buckets[self._default_bucket_key])
             if self._monitor is not None:
                 module.install_monitor(self._monitor)
             if self._curr_module.optimizer_initialized:
@@ -170,16 +162,6 @@ class BucketingModule(BaseModule):
             if not module.optimizer_initialized and \
                     self._curr_module.optimizer_initialized:
                 module.borrow_optimizer(self._curr_module)
-        if self.params_initialized and \
-                getattr(module, "_bucket_param_version", -1) != \
-                self._param_version:
-            # this module last saw an older parameter version: refresh
-            # from the current (freshest) module BEFORE switching
-            arg_params, aux_params = self.get_params()
-            module.init_params(arg_params=arg_params,
-                               aux_params=aux_params, allow_missing=True,
-                               force_init=True, allow_extra=True)
-            module._bucket_param_version = self._param_version
         self._curr_module = module
         self._curr_bucket_key = bucket_key
 
@@ -214,9 +196,7 @@ class BucketingModule(BaseModule):
 
     def update(self):
         self._params_dirty = True
-        self._param_version += 1
         self._curr_module.update()
-        self._curr_module._bucket_param_version = self._param_version
 
     def get_outputs(self, merge_multi_context=True):
         return self._curr_module.get_outputs(merge_multi_context)

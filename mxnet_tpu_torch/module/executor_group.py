@@ -77,6 +77,27 @@ class DataParallelExecutorGroup:
             grad_req = {n: self._grad_req_for(n) for n in self.arg_names}
             self.execs.append(self.symbol.simple_bind(
                 ctx, grad_req=grad_req, **shapes))
+        if shared_group is not None:
+            self._share_arrays(shared_group)
+
+    def _share_arrays(self, shared_group):
+        """Bind this group's parameters, their gradients and the aux states
+        to ``shared_group``'s arrays (the same NDArray objects), as a
+        BucketingModule's buckets share one storage per parameter."""
+        for e, s in zip(self.execs, shared_group.execs):
+            for n in self.param_names:
+                if n not in s.arg_dict:
+                    continue
+                if tuple(s.arg_dict[n].shape) != tuple(e.arg_dict[n].shape):
+                    raise MXNetError(
+                        f"shared parameter {n}: shape {s.arg_dict[n].shape} "
+                        f"!= {e.arg_dict[n].shape}")
+                e.arg_dict[n] = s.arg_dict[n]
+                if n in e.grad_dict and n in s.grad_dict:
+                    e.grad_dict[n] = s.grad_dict[n]
+            for n in self.aux_names:
+                if n in s.aux_dict:
+                    e.aux_dict[n] = s.aux_dict[n]
 
     # -- arrays ---------------------------------------------------------------
     @property

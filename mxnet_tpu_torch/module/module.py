@@ -159,14 +159,24 @@ class Module(BaseModule):
         self._label_shapes = [l if isinstance(l, DataDesc) else DataDesc(*l)
                               for l in (label_shapes or [])]
 
+        shared_group = None
+        if shared_module is not None:
+            assert shared_module.binded and \
+                shared_module.params_initialized
+            shared_group = shared_module._exec_group
         self._exec_group = DataParallelExecutorGroup(
             self._symbol, self._context, self._work_load_list,
             self._data_shapes, self._label_shapes, self._param_names,
-            for_training, inputs_need_grad, shared_group=None,
+            for_training, inputs_need_grad, shared_group=shared_group,
             logger=self.logger, fixed_param_names=self._fixed_param_names,
             grad_req=grad_req, state_names=self._state_names)
 
-        if self._arg_params is None:
+        if shared_module is not None:
+            # the shared module's arrays are this module's parameters
+            self.params_initialized = True
+            self._arg_params = shared_module._arg_params
+            self._aux_params = shared_module._aux_params
+        elif self._arg_params is None:
             ex = self._exec_group.execs[0]
             ctx = self._context[0]
             self._arg_params = {n: nd_zeros(ex.arg_dict[n].shape, ctx,

@@ -1,7 +1,7 @@
 """Registered stubs: every op of the JAX package's registry that the
 port has not ported yet raises ``NotImplementedError`` naming the ROADMAP
 item it waits for, so that a missing op never surfaces as an
-``AttributeError`` (``nd.RNN``, ``nd.linalg_gemm``, ...).
+``AttributeError`` (``nd.linalg_gemm``, ...).
 """
 from __future__ import annotations
 
@@ -13,10 +13,10 @@ __all__ = ["WAITING"]
 WAITING = {
     ("the detection and graph-sampling ops wait with contrib/ (ROADMAP "
      "Queue A item 9)"): (
-        "DeformableConvolution", "DeformablePSROIPooling",
+        "DeformablePSROIPooling",
         "MultiBoxDetection", "MultiBoxPrior", "MultiBoxTarget",
         "MultiProposal", "PSROIPooling", "Proposal", "RROIAlign",
-        "_contrib_DeformableConvolution", "_contrib_DeformablePSROIPooling",
+        "_contrib_DeformablePSROIPooling",
         "_contrib_MultiBoxDetection", "_contrib_MultiBoxPrior",
         "_contrib_MultiBoxTarget", "_contrib_MultiProposal",
         "_contrib_PSROIPooling", "_contrib_Proposal", "_contrib_RROIAlign",
@@ -68,16 +68,13 @@ WAITING = {
         "linalg_inverse", "linalg_makediag", "linalg_maketrian",
         "linalg_potrf", "linalg_potri", "linalg_slogdet", "linalg_sumlogdiag",
         "linalg_syevd", "linalg_syrk", "linalg_trmm", "linalg_trsm",),
-    ("CTC waits with gluon.rnn (ROADMAP Queue A item 9)"): (
-        "CTCLoss", "_contrib_CTCLoss", "_contrib_ctc_loss", "ctc_loss",),
     ("the graph optimizer's ops wait with the graph optimizer (ROADMAP "
      "Queue A item 5)"): (
         "_fused_group", "_nhwc_conv", "_nhwc_pool", "_subgraph_xla",),
     ("the MoE ops wait with distribution (ROADMAP Queue A item 6)"): (
         "_moe_ffn", "_moe_load_balance_loss",),
-    ("numpy/, rnn/ and their ops wait with the edges (ROADMAP Queue A "
-     "item 9)"): (
-        "RNN", "_np__random_shuffle", "_np_broadcast_to", "_np_copy",
+    ("numpy/ and its ops wait with the edges (ROADMAP Queue A item 9)"): (
+        "_np__random_shuffle", "_np_broadcast_to", "_np_copy",
         "_np_dot", "_np_max", "_np_mean", "_np_min", "_np_ones_like",
         "_np_prod", "_np_repeat", "_np_reshape", "_np_squeeze", "_np_sum",
         "_np_transpose", "_np_zeros_like", "_npi_abs", "_npi_add_scalar",
@@ -94,13 +91,13 @@ WAITING = {
         "_npi_not_equal_scalar", "_npi_ones", "_npi_power_scalar",
         "_npi_prod", "_npi_randint", "_npi_random_normal",
         "_npi_random_randint", "_npi_random_uniform", "_npi_reshape",
-        "_npi_rmod_scalar", "_npi_rnn_param_concat", "_npi_rpower_scalar",
+        "_npi_rmod_scalar", "_npi_rpower_scalar",
         "_npi_rsubtract_scalar", "_npi_rtrue_divide_scalar", "_npi_slice",
         "_npi_split", "_npi_stack", "_npi_std", "_npi_subtract_scalar",
         "_npi_sum", "_npi_swapaxes", "_npi_tensordot",
         "_npi_tensordot_int_axes", "_npi_tile", "_npi_true_divide",
         "_npi_true_divide_scalar", "_npi_uniform", "_npi_var", "_npi_zeros",
-        "_npx_rnn", "_rnn_param_concat",),
+        ),
 }
 for _waits, _names in WAITING.items():
     for _name in _names:

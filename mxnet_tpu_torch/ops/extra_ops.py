@@ -381,3 +381,74 @@ def group_adagrad_update(weight, grad, history, lr=0.01, rescale_grad=1.0,
     else:
         new_hist = history + torch.square(g)
     return weight - lr * g / (torch.sqrt(new_hist) + epsilon), new_hist
+
+
+# -- deformable convolution ---------------------------------------------------
+
+def _bilinear_at(img, y, x):
+    """``img`` (N, G, C, H, W) sampled bilinearly at the fractional
+    positions ``y``, ``x`` (N, G, ...): (N, G, C, ...). A read past an edge
+    takes the clamped pixel, and a position outside (-1, H) x (-1, W) gives
+    0, as in the JAX package."""
+    N, G, C, H, W = img.shape
+    y0 = torch.floor(y)
+    x0 = torch.floor(x)
+    wy, wx = y - y0, x - x0
+    y0i = y0.long().clamp(0, H - 1)
+    y1i = (y0i + 1).clamp(0, H - 1)
+    x0i = x0.long().clamp(0, W - 1)
+    x1i = (x0i + 1).clamp(0, W - 1)
+    flat = img.reshape(N, G, C, H * W)
+    pts = y.shape[2:]
+
+    def at(yi, xi):
+        idx = (yi * W + xi).reshape(N, G, 1, -1).expand(N, G, C, -1)
+        return torch.gather(flat, 3, idx).reshape((N, G, C) + pts)
+
+    valid = ((y > -1) & (y < H) & (x > -1) & (x < W)).to(img.dtype)
+    wy, wx, valid = wy[:, :, None], wx[:, :, None], valid[:, :, None]
+    out = (at(y0i, x0i) * (1 - wy) * (1 - wx) + at(y0i, x1i) * (1 - wy) * wx
+           + at(y1i, x0i) * wy * (1 - wx) + at(y1i, x1i) * wy * wx)
+    return out * valid
+
+
+@register_op("_contrib_DeformableConvolution",
+             aliases=["DeformableConvolution"],
+             input_names=("data", "offset", "weight", "bias"))
+def deformable_convolution(data, offset, weight, *bias, kernel=(3, 3),
+                           stride=(1, 1), dilate=(1, 1), pad=(0, 0),
+                           num_filter=0, num_group=1, num_deformable_group=1,
+                           workspace=1024, no_bias=False, layout=None):
+    """Deformable convolution v1 (Dai et al. 2017): the zero-padded input
+    sampled bilinearly at each kernel tap moved by its offset (``offset``
+    is (N, 2 * num_deformable_group * kh * kw, Ho, Wo), (dy, dx) per tap),
+    then one (grouped) matrix product with ``weight``."""
+    kh, kw = kernel
+    sh, sw = stride
+    dh, dw = dilate
+    ph, pw = pad
+    N, C, H, W = data.shape
+    DG, ng = int(num_deformable_group), int(num_group)
+    K = kh * kw
+    Ho = (H + 2 * ph - dh * (kh - 1) - 1) // sh + 1
+    Wo = (W + 2 * pw - dw * (kw - 1) - 1) // sw + 1
+    xpad = torch.nn.functional.pad(data, (pw, pw, ph, ph))
+    off = offset.reshape(N, DG, K, 2, Ho, Wo)
+    dev = data.device
+    ky = (torch.arange(K, device=dev) // kw) * dh
+    kx = (torch.arange(K, device=dev) % kw) * dw
+    oy = torch.arange(Ho, device=dev) * sh
+    ox = torch.arange(Wo, device=dev) * sw
+    y = (oy[None, :, None] + ky[:, None, None]).to(data.dtype) \
+        + off[:, :, :, 0]
+    x = (ox[None, None, :] + kx[:, None, None]).to(data.dtype) \
+        + off[:, :, :, 1]
+    img = xpad.reshape(N, DG, C // DG, xpad.shape[2], xpad.shape[3])
+    cols = _bilinear_at(img, y, x)  # (N, DG, C/DG, K, Ho, Wo)
+    F_ = weight.shape[0]
+    cols = cols.reshape(N, ng, (C // ng) * K, Ho * Wo)
+    wmat = weight.reshape(ng, F_ // ng, (C // ng) * K)
+    out = torch.einsum("gfk,ngkp->ngfp", wmat, cols).reshape(N, F_, Ho, Wo)
+    if bias and not no_bias:
+        out = out + bias[0].reshape(1, -1, 1, 1)
+    return out

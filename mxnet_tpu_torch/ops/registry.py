@@ -104,6 +104,15 @@ class OpInfo:
         self.param_names = [n for n in self.arg_names if n in self.defaults
                             and not n.startswith("_")]
 
+    def inputs_for(self, params) -> List[str]:
+        """The op's declared input names for a call with ``params``
+        (``input_names`` may be a callable of the params, as
+        ``visible_outputs`` may)."""
+        names = self.input_names
+        if callable(names):
+            names = names(params)
+        return list(names or [])
+
 
 _OPS: Dict[str, OpInfo] = {}
 

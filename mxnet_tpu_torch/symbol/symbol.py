@@ -505,8 +505,8 @@ def _make_node(op_name: str, inputs: List[Tuple[_Node, int]], params: dict,
     name = name or _auto_name(op_name)
     from ..attribute import AttrScope
     attrs = AttrScope.current().get(attrs)
-    if info.input_names:
-        expected = list(info.input_names)
+    expected = info.inputs_for(params)
+    if expected:
         if params.get("no_bias") and "bias" in expected:
             expected.remove("bias")
         while len(inputs) < len(expected):
@@ -545,14 +545,15 @@ def make_symbol_function(op_name: str) -> Callable:
                     params[param_names[pi]] = a
                     pi += 1
         kw_syms = {k: v for k, v in kwargs.items() if isinstance(v, Symbol)}
-        if kw_syms:
-            order = info.input_names or list(kw_syms)
-            inputs.extend(kw_syms[k]._entry() for k in order if k in kw_syms)
-            if info.input_names:
-                inputs.extend(v._entry() for k, v in kw_syms.items()
-                              if k not in info.input_names)
         params.update({k: v for k, v in kwargs.items()
                        if not isinstance(v, Symbol)})
+        if kw_syms:
+            names = info.inputs_for(params)
+            inputs.extend(kw_syms[k]._entry() for k in names or kw_syms
+                          if k in kw_syms)
+            if names:
+                inputs.extend(v._entry() for k, v in kw_syms.items()
+                              if k not in names)
         return _make_node(op_name, inputs, params, name=name,
                           attrs=dict(attr) if attr else None)
 
@@ -681,11 +682,32 @@ def _cond_shapes(node, in_shapes):
     return _sub_shapes(p["__then__"], dict(zip(p["in_names"], in_shapes)))
 
 
+def _rnn_shapes(node, in_shapes):
+    p = node.params
+    T, N, _ = in_shapes[0]
+    H = int(p["state_size"])
+    ndir = 2 if _bool(p.get("bidirectional", False)) else 1
+    state = (int(p.get("num_layers", 1)) * ndir, N, H)
+    return [(T, N, ndir * H), state, state]
+
+
+def _ctc_shapes(node, in_shapes):
+    return [(in_shapes[0][1],)]
+
+
+def _bool(v) -> bool:
+    from ..ops.registry import parse_bool_param
+    return parse_bool_param(v)
+
+
 # op -> rule(node, input shapes) -> output shapes, for the ops whose
 # result shape cannot come from a run on meta tensors: an index input
 # (Embedding), a kernel wrapper (_fused_attention), a loop or branch the
-# data decides (the control-flow nodes)
+# data decides (the control-flow nodes), a library call with no meta
+# kernel (RNN, CTCLoss)
 SHAPE_RULES: Dict[str, Callable] = {
+    "RNN": _rnn_shapes,
+    "CTCLoss": _ctc_shapes,
     "_fused_attention": _attention_shapes,
     "Embedding": _take_rows_shapes,
     "_contrib_SparseEmbedding": _take_rows_shapes,
@@ -815,5 +837,16 @@ def _solve_param_shapes(node: _Node, in_shapes, shapes):
         setvar(1, data_shape)
     elif op == "Embedding":
         setvar(1, (int(p.get("input_dim")), int(p.get("output_dim"))))
+    elif op == "RNN" and len(data_shape) == 3:
+        from ..ops.rnn import rnn_param_size
+        H = int(p["state_size"])
+        layers = int(p.get("num_layers", 1))
+        bidir = _bool(p.get("bidirectional", False))
+        mode = p.get("mode", "lstm")
+        setvar(1, (rnn_param_size(mode, layers, data_shape[2], H, bidir),))
+        state = (layers * (2 if bidir else 1), data_shape[1], H)
+        setvar(2, state)
+        if mode == "lstm":
+            setvar(3, state)
     elif op == "LeakyReLU" and p.get("act_type") == "prelu":
         setvar(1, (data_shape[1],))

@@ -1661,3 +1661,66 @@ def test_eager_sync_surfaces_a_device_error_at_its_op(sync, where):
                          timeout=300)
     assert run.stdout.strip().splitlines()[-1:] == [where], \
         (run.stdout, run.stderr[-2000:])
+
+
+@pytest.mark.parametrize("mode", ["lstm", "gru", "rnn_tanh"])
+def test_rnn_op_on_the_card_matches_the_cpu(mode):
+    """The fused RNN op (two bidirectional layers) through cuDNN against
+    torch's CPU loop, fp64: outputs, final states and the gradients of the
+    data, the flat parameters and the states within 1e-10 of the largest
+    magnitude; the profiler sees ``aten::_cudnn_rnn``."""
+    _need_cuda()
+    from torch.profiler import ProfilerActivity, profile
+
+    from mxnet_tpu_torch.ops import rnn as ops_rnn
+    g = torch.Generator().manual_seed(0)
+    T, B, I, H, L = 7, 3, 5, 6, 2
+    n = ops_rnn.rnn_param_size(mode, L, I, H, True)
+    host = [torch.randn(T, B, I, generator=g, dtype=torch.float64),
+            0.3 * torch.randn(n, generator=g, dtype=torch.float64),
+            torch.randn(2 * L, B, H, generator=g, dtype=torch.float64),
+            torch.randn(2 * L, B, H, generator=g, dtype=torch.float64)]
+    lstm = mode == "lstm"
+    kw = dict(state_size=H, num_layers=L, mode=mode, bidirectional=True)
+
+    def run(dev):
+        args = [a.to(dev).requires_grad_(True) for a in host[:3 + lstm]]
+        outs = ops_rnn.rnn(*args, **kw)[:3 if lstm else 2]
+        sum((o * o).sum() for o in outs).backward()
+        return [o.detach().cpu() for o in outs], [a.grad.cpu() for a in args]
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        card = run("cuda")
+    cpu = run("cpu")
+    assert any(e.key == "aten::_cudnn_rnn" for e in prof.key_averages())
+    for a, b in zip(card[0] + card[1], cpu[0] + cpu[1]):
+        assert float((a - b).abs().max()) <= 1e-10 * float(b.abs().max())
+
+
+def test_ctc_loss_on_the_card_matches_the_cpu():
+    """``CTCLoss`` with frame and label lengths and a row no alignment
+    fits, fp64, card against CPU: losses and gradients within 1e-10 of the
+    largest magnitude, the impossible row's loss 1e30 and its gradient 0,
+    frames past a row's length with a gradient of exactly 0."""
+    _need_cuda()
+    from mxnet_tpu_torch.ops import ctc as ops_ctc
+    g = torch.Generator().manual_seed(1)
+    data = torch.randn(12, 4, 6, generator=g, dtype=torch.float64)
+    labels = torch.tensor([[1, 2, 3], [4, 4, 0], [2, 5, 1], [1, 2, 3]])
+    lengths = [torch.tensor([12, 9, 6, 2]), torch.tensor([3, 2, 3, 3])]
+
+    def run(dev):
+        x = data.to(dev).requires_grad_(True)
+        loss = ops_ctc.ctc_loss(x, labels.to(dev),
+                                *[v.to(dev) for v in lengths],
+                                use_data_lengths=True, use_label_lengths=True)
+        loss.sum().backward()
+        return loss.detach().cpu(), x.grad.cpu()
+
+    (lc, gc), (lh, gh) = run("cuda"), run("cpu")
+    assert float(lc[3]) == float(lh[3]) == ops_ctc.IMPOSSIBLE_LOSS
+    assert not gc[:, 3].any()
+    assert float((lc[:3] - lh[:3]).abs().max()) <= 1e-10 * float(
+        lh[:3].abs().max())
+    assert float((gc - gh).abs().max()) <= 1e-10 * float(gh.abs().max())
+    assert not gc[9:, 1].any() and not gc[6:, 2].any()

@@ -7,12 +7,13 @@ under ``with mx.cpu():``. Every loss a backward starts from
 (``NDArray.backward`` and ``autograd.backward``) is recorded: there must
 be at least one and all must be finite.
 
-All fifteen run: none needs a module this slice leaves out. Of the other
-Gluon scripts, those with ``gluon.rnn`` or ``CTCLoss``
-(``bi_lstm_sort``, ``captcha``, ``ctc``, ``multivariate_time_series``,
-``named_entity_recognition``, ``rnn``, ``speech_recognition``) wait for
-ROADMAP Queue A item 9's ``gluon.rnn`` (with ``CTCLoss``), and the rest are driven
-elsewhere or wait for the slices ROADMAP names.
+All twenty-two run: none needs a module the port leaves out. Seven of
+them are recurrent: ``bi_lstm_sort``, ``named_entity_recognition`` and
+``multivariate_time_series`` take ``gluon.rnn``'s LSTM and GRU layers,
+``rnn/word_lm.py`` a tied LSTM language model (its ``params=`` sharing),
+``ctc`` and ``speech_recognition`` an LSTM under ``CTCLoss`` and
+``captcha`` a convolutional net under ``nd.CTCLoss``. The other Gluon
+scripts are driven elsewhere or wait for the slices ROADMAP names.
 
 ``stochastic_depth/sd_resnet.py`` skips residual blocks at random, so a
 step's backward does not reach every parameter. The JAX package's
@@ -55,6 +56,16 @@ SCRIPTS = {
     "fcn_xs/fcn_seg.py": ["--steps", "2", "--batch-size", "2"],
     "neural_style/neural_style.py": ["--steps", "2", "--size", "16"],
     "multi_task/multitask.py": ["--steps", "2", "--batch-size", "8"],
+    "bi_lstm_sort/sort_lstm.py": ["--steps", "2", "--batch-size", "8"],
+    "captcha/cnn_ctc.py": ["--steps", "2", "--batch", "4"],
+    "ctc/ctc_train.py": ["--steps", "2", "--batch-size", "4"],
+    "multivariate_time_series/lstnet.py": ["--steps", "2",
+                                           "--batch-size", "8"],
+    "named_entity_recognition/ner.py": ["--steps", "2", "--batch-size", "8"],
+    # two steps: 22 rows of the built-in corpus in bptt windows of 8
+    "rnn/word_lm.py": ["--epochs", "1", "--batch-size", "64", "--bptt", "8",
+                       "--embed-size", "8", "--hidden", "8"],
+    "speech_recognition/lstm_ctc.py": ["--steps", "2", "--batch", "4"],
 }
 
 # scripts whose steps leave some parameters without a gradient

@@ -68,7 +68,25 @@ SLICE_MODULES = [
     "mxnet_tpu_torch.gluon.data.dataloader",
     "mxnet_tpu_torch.gluon.data.vision",
     "mxnet_tpu_torch.gluon.data.vision.transforms",
-    "mxnet_tpu_torch.gluon.data.vision.datasets"]
+    "mxnet_tpu_torch.gluon.data.vision.datasets",
+    # slice 17: recurrent networks and the rest of gluon.contrib
+    "mxnet_tpu_torch.ops.rnn", "mxnet_tpu_torch.ops.ctc",
+    "mxnet_tpu_torch.gluon.rnn", "mxnet_tpu_torch.gluon.rnn.rnn_layer",
+    "mxnet_tpu_torch.gluon.rnn.rnn_cell", "mxnet_tpu_torch.gluon.contrib",
+    "mxnet_tpu_torch.gluon.contrib.nn",
+    "mxnet_tpu_torch.gluon.contrib.nn.basic_layers",
+    "mxnet_tpu_torch.gluon.contrib.rnn",
+    "mxnet_tpu_torch.gluon.contrib.rnn.rnn_cell",
+    "mxnet_tpu_torch.gluon.contrib.rnn.conv_rnn_cell",
+    "mxnet_tpu_torch.gluon.contrib.cnn",
+    "mxnet_tpu_torch.gluon.contrib.cnn.conv_layers",
+    "mxnet_tpu_torch.gluon.contrib.data",
+    "mxnet_tpu_torch.gluon.contrib.data.sampler",
+    "mxnet_tpu_torch.gluon.contrib.estimator",
+    "mxnet_tpu_torch.gluon.contrib.estimator.estimator",
+    "mxnet_tpu_torch.gluon.contrib.estimator.event_handler",
+    "mxnet_tpu_torch.rnn", "mxnet_tpu_torch.rnn.rnn_cell",
+    "mxnet_tpu_torch.rnn.rnn", "mxnet_tpu_torch.rnn.io"]
 
 _PROBE = r"""
 import importlib, pkgutil, sys

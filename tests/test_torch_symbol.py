@@ -182,11 +182,14 @@ def test_contradictory_shapes_raise_in_both(shapes):
 
 def test_shape_rules_name_the_ops_that_cannot_run_on_meta_tensors():
     """Embedding's index input, the kernel wrapper behind
-    _fused_attention and the control-flow nodes have rules of their own;
-    each gives what the JAX package infers, and a contradiction raises."""
+    _fused_attention, the control-flow nodes and the library calls of RNN
+    and CTCLoss have rules of their own; each gives what the JAX package
+    infers, and a contradiction raises. The JAX package leaves an RNN's
+    parameter vector and states unknown; the port infers them from the
+    data's shape (what ``mx.rnn.FusedRNNCell`` needs to bind)."""
     assert set(SHAPE_RULES) == {"_fused_attention", "Embedding",
                                 "_contrib_SparseEmbedding", "_foreach",
-                                "_while_loop", "_cond"}
+                                "_while_loop", "_cond", "RNN", "CTCLoss"}
     for pkg, S in ((jmx, jsym), (mx, sym)):
         emb = S.Embedding(S.var("data"), input_dim=11, output_dim=6,
                           name="emb")
@@ -198,6 +201,16 @@ def test_shape_rules_name_the_ops_that_cannot_run_on_meta_tensors():
                                v=(2, 3, 9, 4))[1] == [(2, 3, 7, 4)]
         with pytest.raises(pkg.base.MXNetError):
             att.infer_shape(q=(2, 3, 7, 8), k=(2, 3, 9, 6), v=(2, 3, 9, 4))
+        ctc = S.CTCLoss(S.var("x"), S.var("y"), name="ctc")
+        assert ctc.infer_shape(x=(7, 3, 5), y=(3, 2)) == (
+            [(7, 3, 5), (3, 2)], [(3,)], [])
+    rnn = sym.RNN(data=sym.var("data"), parameters=sym.var("p"),
+                  state=sym.var("h"), state_cell=sym.var("c"), state_size=4,
+                  num_layers=2, mode="lstm", bidirectional=True,
+                  state_outputs=True, name="rnn")
+    assert rnn.infer_shape(data=(5, 3, 6)) == (
+        [(5, 3, 6), (832,), (4, 3, 4), (4, 3, 4)],
+        [(5, 3, 8), (4, 3, 4), (4, 3, 4)], [])
 
 
 def test_names_prefix_and_attr_scope():
