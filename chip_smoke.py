@@ -266,6 +266,27 @@ end, failing on the first phase that fails:
     zero offsets against ``Conv2D``, ``Estimator.fit`` with a checkpoint
     and early stopping. No TPU kernel lies on this path (the JAX package
     runs RNNs and CTC as ``lax.scan``), so the kernels line is unchanged.
+22. the image input pipeline (after the recurrent phases, torch on one CPU
+    thread): ``[image_rec]`` — a ``.rec`` file of 2,560 synthetic JPEGs
+    (sides 300-500, quality 90, mean 90-130 KB) written with the port's
+    ``recordio``, read by ``mx.io.ImageRecordIter`` on the native pipeline
+    (its codec reported; a Python pipeline fails the phase) with ImageNet
+    training's augmentation at batch 256 on every usable core: one epoch
+    to the card alone (images/s), bit-equal to ``ctx=cpu``'s batches, each
+    label read back once, the deterministic pass within 1 count of a numpy
+    resize/crop/normalise of the same decoded pixels; then
+    ``[train_resnet50]``'s fp16 net fed by it for 1 + 8 steps (one B1
+    launch a step, the loss falling, statistics moving) beside steps on a
+    batch held on the card: fed and resident step ms, the host's wait for
+    a batch, busy shares, peak memory. ``[image_dataset]`` — the same file
+    as ``ImageRecordDataset`` with Gluon transforms under
+    ``DataLoader(thread_pool=True)``: the loader's images/s, each label
+    once, 3 steps of the same net. ``[image_serve]`` — the net in fp16
+    through ``ServingEngine`` over rungs 1-64, 64 requests of 1-8 images
+    from 4 clients: requests/s, p50/p99, images/s, 0 signatures after
+    warmup, every response within 1e-2 of the largest logit of a direct
+    forward, a bias step seen by the next response. B1's entry in the
+    kernels line counts the two phases' launches.
 
 The script prints its own wall time. The last three lines are the card
 (``nvidia-smi``), ``{"kernels": [...]}`` (B2/B3/B4's
@@ -473,6 +494,63 @@ FUSED_TOL = 1e-4
 # [gluon_contrib]: (rtol, atol) for the layers that sum (the products,
 # convolutions and normalizations); the others within 1e-5 / 1e-6
 CONTRIB_SUMS = (1e-4, 1e-5)
+# [image_rec]: a .rec file of IMAGE_RECORDS synthetic JPEGs from SEED at
+# ImageNet-like sizes (sides IMAGE_SIDES, quality 90): a smooth random field
+# (a random grid every IMAGE_CELL pixels, bilinear) plus uniform noise of
+# +-IMAGE_NOISE counts, which puts the mean file in IMAGE_KB (ImageNet
+# train's JPEGs average ~110 KB); class k of IMAGE_CLASSES brightens the
+# k-th horizontal band, so the loss can fall on fresh batches; each label
+# is [class, record index]. ImageRecordIter as ImageNet training reads it
+# (resize the shorter side to 256, random 224 crop, mirror, the ImageNet
+# mean/std) feeds [train_resnet50]'s fp16 net for 1 + 8 steps at the rate
+# IMAGE_LR (momentum, wd and loss scale as [train_resnet50]'s; its 0.1,
+# warmed up over 2 steps, took the loss from 7.7 to 109 in 9 steps on
+# these fresh batches on an H100 80GB HBM3 at 700 W, and 0.01 from 7.7 to
+# 2.9 by step 3, then up to 5.3), then IMAGE_RESIDENT_STEPS
+# steps on a batch held on the card, for the fed step's distance to the
+# device-resident one. The iterator is reset after the first step, whose
+# ~15 s of cuDNN autotuning would let the pipeline decode ~7 batches
+# ahead (its ready window and the staging queue) and hide its rate. Each
+# decode thread builds a whole batch, so after the reset the first
+# batches still arrive together: the fed rate is also reported over the
+# whole fed window (steps 1-8, the cold start included). The deterministic pass
+# (centre crop, no mirror) is held to a numpy resize/crop/normalise of the
+# same decoded pixels within IMAGE_DET_COUNTS count over the std: the
+# pipeline's bilinear weights and its +0.5 rounding to uint8 are float32
+# as numpy's, so only the order of four products can differ
+IMAGE_RECORDS, IMAGE_SIDES, IMAGE_QUALITY = 2560, (300, 500), 90
+IMAGE_CELL, IMAGE_NOISE, IMAGE_CLASSES = 12, 44, 10
+IMAGE_KB = (90.0, 130.0)
+IMAGE_MEAN, IMAGE_STD = (123.68, 116.779, 103.939), (58.393, 57.12, 57.375)
+IMAGE_RESIZE, IMAGE_STEPS, IMAGE_RESIDENT_STEPS = 256, 9, 3
+IMAGE_LR = 0.005
+IMAGE_DET_N, IMAGE_DET_COUNTS = 16, 1.0
+# The pipeline's codec (nvJPEG on the card) against OpenCV's libjpeg-turbo,
+# an independent decoder, on the first IMAGE_CODEC_N records. The two
+# upsample 4:2:0 chroma differently, and these images' chroma is noisy:
+# over all 2,560 records (NVIDIA H100 80GB HBM3, 700 W; nvJPEG of CUDA
+# 12.8, OpenCV 4.13) the RGB pixels differed by at most 61 counts (55 over
+# the first 128) and by 6.07 on average, the same pixels re-encoded 4:4:4
+# (no upsampling) by at most 4, the one-channel output (luma: no chroma)
+# by at most 1. The limits are those maxima and that mean with 30% over
+# (6 and 2 for the small ones); R and B swapped differ by 39.3 on average,
+# which the mean limit must stay under
+IMAGE_CODEC_N = 128
+IMAGE_CODEC_MAX, IMAGE_CODEC_MEAN = 80, 8.0
+IMAGE_CODEC_444_MAX, IMAGE_CODEC_LUMA_MAX = 6, 2
+# [image_dataset]: ImageRecordDataset under DataLoader(thread_pool=True)
+# feeds the same net IMAGE_DATASET_STEPS steps
+IMAGE_DATASET_STEPS = 3
+# [image_serve]: the trained net in fp16 over batch rungs 1-64, closed loop:
+# IMAGE_SERVE_REQUESTS requests of 1-8 images from IMAGE_SERVE_CLIENTS
+# clients; each response within ZOO_EXPORT_TOL of the largest logit of a
+# direct forward of the same images (fp16 logits ~10 carry ~1e-2 of
+# rounding, and cuDNN picks other algorithms per batch size); a bias step
+# of IMAGE_BIAS_STEP on the classifier shows in the next response within
+# the same limit
+IMAGE_SERVE_RUNGS = "1,2,4,8,16,32,64"
+IMAGE_SERVE_REQUESTS, IMAGE_SERVE_CLIENTS = 64, 4
+IMAGE_BIAS_STEP = 1.0
 # [train_bert_adamw_fp16]: BERT-base fp16 (dropout 0.1, 8 x 512 tokens)
 # with BERT's optimizer (Devlin et al. 2018, appendix A.2: Adam with
 # decoupled weight decay 0.01, beta2 0.999; epsilon 1e-6 as in
@@ -2920,18 +2998,21 @@ ND_SUMS = {
     "gammaln", "_random_pdf_gamma", "_random_pdf_poisson",
     "_random_pdf_negative_binomial",
     "_random_pdf_generalized_negative_binomial", "erfinv", "RNN", "CTCLoss",
-    "_contrib_DeformableConvolution"}
-ND_SAMPLERS = ("_random_", "_sample_", "_shuffle")
+    "_contrib_DeformableConvolution", "_cvimresize", "_image_resize"}
+# the random image ops draw as the samplers do: held by shape, dtype and
+# finiteness
+ND_SAMPLERS = ("_random_", "_sample_", "_shuffle", "_image_random_")
 ND_ATTN = (8, HEADS, 512, 512, HEAD_DIM)
 ND_ATTN_COUNTS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
                   "fwd_tensor_core", "dq_tensor_core", "dkv_tensor_core",
                   "split_bf16x3")
 
 
-def _nd_inputs(name, info, rs):
+def _nd_inputs(name, info, rs, tmp):
     """Inputs and params for op ``name`` as numpy arrays: the curated
     cases of ``tests/test_op_sweep.py::CASES`` for the ops that need them
-    (copied here, as this script imports nothing of the tests), else
+    (copied here, as this script imports nothing of the tests), a JPEG for
+    the decode ops (``_cvimread``'s file written under ``tmp``), else
     (2, 3, 4) tensors, one per required input."""
     def T(*s, lo=0.1, hi=0.9):
         return rs.uniform(lo, hi, s).astype(np.float32)
@@ -3040,6 +3121,30 @@ def _nd_inputs(name, info, rs):
              T(3, 2, 3, 3)], {"kernel": (3, 3), "num_filter": 3,
                               "no_bias": True}),
     }
+    if name in ("_cvimdecode", "_cvimread"):
+        import cv2
+        jpeg = cv2.imencode(".jpg", (T(13, 17, 3) * 255).astype(np.uint8))[1]
+        if name == "_cvimdecode":
+            return [jpeg.reshape(-1)], {}
+        path = os.path.join(tmp, "image.jpg")
+        with open(path, "wb") as f:
+            f.write(jpeg.tobytes())
+        return [], {"filename": path}
+    # the image ops on HWC images (the sweep's cases)
+    image_params = {
+        "_cvimresize": {"w": 8, "h": 6},
+        "_image_adjust_lighting": {"alpha": (0.1,) * 3},
+        "_image_random_flip_left_right": {},
+        "_image_random_flip_top_bottom": {},
+        "_image_random_brightness": {"min_factor": 0.5, "max_factor": 1.5},
+        "_image_random_contrast": {"min_factor": 0.5, "max_factor": 1.5},
+        "_image_random_saturation": {"min_factor": 0.5, "max_factor": 1.5},
+        "_image_random_hue": {"min_factor": 0.8, "max_factor": 1.2},
+        "_image_random_color_jitter": {"brightness": 0.2, "contrast": 0.2,
+                                       "saturation": 0.2, "hue": 0.1},
+        "_image_random_lighting": {"alpha_std": 0.05}}
+    if name in image_params:
+        return [T(6, 6, 3)], dict(image_params[name])
     if name in cases:
         return cases[name]()
     if name.startswith("_random_") and not name.startswith("_random_pdf") \
@@ -3080,9 +3185,11 @@ def _nd_sweep():
             torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    tmp = tempfile.mkdtemp()
     for info in sorted(seen.values(), key=lambda i: i.name):
         name = info.name
-        args, params = _nd_inputs(name, info, np.random.RandomState(SEED))
+        args, params = _nd_inputs(name, info, np.random.RandomState(SEED),
+                                  tmp)
         outs = {}
         for ctx in (mx.cpu(), mx.gpu(0)):
             mx.random.seed(SEED)
@@ -3115,6 +3222,7 @@ def _nd_sweep():
                      "tol": None if sampler else [rtol, atol]})
         if not ok:
             bad.append(rows[-1])
+    shutil.rmtree(tmp)
     torch.backends.cuda.matmul.allow_tf32, \
         torch.backends.cudnn.allow_tf32 = tf32
     if bad:
@@ -6866,6 +6974,528 @@ def phase_rnn_all(card):
     return out
 
 
+# -- the image input pipeline and image serving (slice 18) ----------------------
+
+def _image_jpeg(i):
+    """Record ``i``'s JPEG (see IMAGE_RECORDS) and its class."""
+    import cv2
+    rng = np.random.default_rng([SEED, i])
+    h, w = (int(v) for v in rng.integers(IMAGE_SIDES[0], IMAGE_SIDES[1] + 1,
+                                         size=2))
+    coarse = rng.integers(0, 256, (h // IMAGE_CELL + 2, w // IMAGE_CELL + 2,
+                                   3), dtype=np.uint8)
+    img = cv2.resize(coarse, (w, h), interpolation=cv2.INTER_LINEAR) \
+        .astype(np.int16)
+    img += rng.integers(-IMAGE_NOISE, IMAGE_NOISE + 1, img.shape,
+                        dtype=np.int16)
+    cls = i % IMAGE_CLASSES
+    band = h // IMAGE_CLASSES
+    img[cls * band:(cls + 1) * band] += 40
+    ok, buf = cv2.imencode(".jpg", np.clip(img, 0, 255).astype(np.uint8),
+                           [cv2.IMWRITE_JPEG_QUALITY, IMAGE_QUALITY])
+    if not ok:
+        raise SystemExit("chip_smoke: image_rec: OpenCV could not encode")
+    return buf.tobytes(), cls
+
+
+def _image_file(directory, cores):
+    """The .rec/.idx pair of IMAGE_RECORDS images, written with the port's
+    recordio (encoded on ``cores`` threads); its path and mean JPEG KB."""
+    import concurrent.futures
+    from mxnet_tpu_torch import recordio
+    path = os.path.join(directory, "images.rec")
+    w = recordio.MXIndexedRecordIO(os.path.join(directory, "images.idx"),
+                                   path, "w")
+    sizes = []
+    with concurrent.futures.ThreadPoolExecutor(cores) as pool:
+        for i, (jpeg, cls) in enumerate(pool.map(_image_jpeg,
+                                                 range(IMAGE_RECORDS))):
+            sizes.append(len(jpeg))
+            w.write_idx(i, recordio.pack(
+                recordio.IRHeader(0, [float(cls), float(i)], i, 0), jpeg))
+    w.close()
+    return path, float(np.mean(sizes)) / 1e3
+
+
+def _np_resize(src, dw, dh):
+    """The pipeline's bilinear resize (half-pixel centres, edges clamped,
+    +0.5 then truncation to uint8) written in numpy, in float32."""
+    sh, sw = src.shape[:2]
+
+    def axis(n_out, n_in):
+        f = (np.arange(n_out, dtype=np.float32) + np.float32(0.5)) \
+            * np.float32(n_in / n_out) - np.float32(0.5)
+        i0 = np.clip(f.astype(np.int32), 0, n_in - 1)
+        i1 = np.minimum(n_in - 1, i0 + 1)
+        return i0, i1, np.clip(f - i0, 0, 1).astype(np.float32)
+    y0, y1, wy = axis(dh, sh)
+    x0, x1, wx = axis(dw, sw)
+    s = src.astype(np.float32)
+    wy, wx = wy[:, None, None], wx[None, :, None]
+    v = (s[y0][:, x0] * (1 - wy) * (1 - wx) + s[y0][:, x1] * (1 - wy) * wx
+         + s[y1][:, x0] * wy * (1 - wx) + s[y1][:, x1] * wy * wx)
+    return (v + np.float32(0.5)).astype(np.uint8)
+
+
+def _plain_pass(jpeg):
+    """One image as the deterministic pass makes it, in numpy: the
+    pipeline's codec, the shorter side to IMAGE_RESIZE, the centre 224,
+    (v - mean) / std, CHW."""
+    from mxnet_tpu_torch import native
+    img = native.decode(jpeg)
+    h, w = img.shape[:2]
+    if w < h:
+        nw, nh = IMAGE_RESIZE, h * IMAGE_RESIZE // w
+    else:
+        nw, nh = w * IMAGE_RESIZE // h, IMAGE_RESIZE
+    img = _np_resize(img, nw, nh)
+    y0, x0 = (nh - RESNET_SIZE) // 2, (nw - RESNET_SIZE) // 2
+    crop = img[y0:y0 + RESNET_SIZE, x0:x0 + RESNET_SIZE].astype(np.float32)
+    out = (crop - np.asarray(IMAGE_MEAN, np.float32)) \
+        / np.asarray(IMAGE_STD, np.float32)
+    return out.transpose(2, 0, 1)
+
+
+def _codec_check(path, n=IMAGE_CODEC_N):
+    """The native codec against OpenCV's on records 0..n-1 of ``path``
+    (see IMAGE_CODEC_N): the largest and mean absolute differences, in
+    counts, as stored (4:2:0), re-encoded 4:4:4 and in one channel, and
+    what a swap of R and B would give. Fatal past the limits."""
+    import cv2
+    from mxnet_tpu_torch import native, recordio
+    rec = recordio.MXIndexedRecordIO(path[:-4] + ".idx", path, "r")
+    jpegs = [recordio.unpack(rec.read_idx(i))[1] for i in range(n)]
+    rec.close()
+
+    def cv(buf, flag=cv2.IMREAD_COLOR):
+        img = cv2.imdecode(np.frombuffer(buf, np.uint8), flag)
+        return (img[:, :, ::-1] if img.ndim == 3 else img[:, :, None]) \
+            .astype(np.int16)
+
+    def gap(pairs):
+        d = [np.abs(a - b) for a, b in pairs]
+        return {"max_counts": int(max(int(x.max()) for x in d)),
+                "mean_counts": float(sum(float(x.sum()) for x in d)
+                                     / sum(x.size for x in d))}
+    rgb = [(native.decode(j).astype(np.int16), cv(j)) for j in jpegs]
+    if any(a.shape != b.shape for a, b in rgb):
+        raise SystemExit("chip_smoke: image_rec: the codec's image shapes "
+                         "differ from OpenCV's")
+    re444 = [cv2.imencode(".jpg", np.ascontiguousarray(b[:, :, ::-1])
+                          .astype(np.uint8),
+                          [cv2.IMWRITE_JPEG_QUALITY, IMAGE_QUALITY,
+                           cv2.IMWRITE_JPEG_SAMPLING_FACTOR,
+                           cv2.IMWRITE_JPEG_SAMPLING_FACTOR_444])[1]
+             .tobytes() for _, b in rgb]
+    out = {"codec": native.codec(), "images": n, "rgb_420": gap(rgb),
+           "rgb_444": gap([(native.decode(j).astype(np.int16), cv(j))
+                           for j in re444]),
+           "luma": gap([(native.decode(j, 1).astype(np.int16),
+                         cv(j, cv2.IMREAD_GRAYSCALE)) for j in jpegs]),
+           "rgb_420_with_r_and_b_swapped": gap([(a[:, :, ::-1], b)
+                                                for a, b in rgb])}
+    faults = []
+    if out["rgb_420"]["max_counts"] > IMAGE_CODEC_MAX \
+            or out["rgb_420"]["mean_counts"] > IMAGE_CODEC_MEAN:
+        faults.append("RGB")
+    if out["rgb_444"]["max_counts"] > IMAGE_CODEC_444_MAX:
+        faults.append("RGB 4:4:4")
+    if out["luma"]["max_counts"] > IMAGE_CODEC_LUMA_MAX:
+        faults.append("luma")
+    if out["rgb_420_with_r_and_b_swapped"]["mean_counts"] \
+            <= IMAGE_CODEC_MEAN:
+        faults.append("a swap of R and B would pass the mean limit")
+    log(f"[image_rec] codec check: {json.dumps(out)} (limits: max "
+        f"{IMAGE_CODEC_MAX}, mean {IMAGE_CODEC_MEAN}, 4:4:4 max "
+        f"{IMAGE_CODEC_444_MAX}, luma max {IMAGE_CODEC_LUMA_MAX})")
+    if faults:
+        raise SystemExit(f"chip_smoke: image_rec: {out['codec']} disagrees "
+                         f"with OpenCV: {', '.join(faults)}")
+    return out
+
+
+def _image_iter_args(path, cores, **kw):
+    args = dict(path_imgrec=path, data_shape=(3, RESNET_SIZE, RESNET_SIZE),
+                batch_size=RESNET_B, label_width=2, resize=IMAGE_RESIZE,
+                rand_crop=True, rand_mirror=True, shuffle=True,
+                mean_r=IMAGE_MEAN[0], mean_g=IMAGE_MEAN[1],
+                mean_b=IMAGE_MEAN[2], std_r=IMAGE_STD[0],
+                std_g=IMAGE_STD[1], std_b=IMAGE_STD[2],
+                preprocess_threads=cores, seed=SEED)
+    args.update(kw)
+    return args
+
+
+def _index_check(tag, indices):
+    """Every record index once: each label read back is the one written."""
+    got = sorted(int(v) for v in torch.cat(indices).tolist())
+    if got != list(range(IMAGE_RECORDS)):
+        raise SystemExit(f"chip_smoke: {tag}: the labels read back are not "
+                         f"the {IMAGE_RECORDS} written ({len(got)} read)")
+
+
+def _pipeline_epochs(args):
+    """ImageRecordIter(**args) alone on the card: one epoch (its batches
+    kept), a reset, and the next epoch. The iterator, the kept batches,
+    and the times: the first epoch, the reset, the reset to the next
+    epoch's first batch, and that epoch's rate."""
+    import mxnet_tpu_torch as mx
+    with mx.gpu(0):
+        it = mx.io.ImageRecordIter(**args)
+    if it.backend != "native":
+        raise SystemExit(f"chip_smoke: image_rec: the {it.backend} pipeline "
+                         f"ran ({it.reason}), not the native one")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    kept = [(b.data[0]._data, b.label[0]._data, b.pad) for b in it]
+    torch.cuda.synchronize()
+    times = {"pipeline_s": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    it.reset()
+    times["reset_ms"] = (time.perf_counter() - t0) * 1e3
+    first = it.next()
+    torch.cuda.synchronize()
+    times["reset_to_first_batch_ms"] = (time.perf_counter() - t0) * 1e3
+    n = first.data[0].shape[0] - first.pad \
+        + sum(b.data[0].shape[0] - b.pad for b in it)
+    torch.cuda.synchronize()
+    times["second_epoch_images_per_s"] = n / (time.perf_counter() - t0)
+    return it, kept, times
+
+
+def phase_image_rec(card, path, cores):
+    """[image_rec]: see IMAGE_RECORDS; each check fatal. Returns the
+    trained net, its trainer, the launch totals and the summary."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import gluon, native
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    gpu = mx.gpu(0)
+    args = _image_iter_args(path, cores)
+    # the pipeline alone, one epoch to the card, each batch kept for the
+    # comparison with the CPU run below, then the epoch's end
+    it, kept, epochs = _pipeline_epochs(args)
+    pipeline_s = epochs["pipeline_s"]
+    _index_check("image_rec", [lab[:, 1] for _, lab, _ in kept])
+    with mx.cpu():
+        cpu_it = mx.io.ImageRecordIter(**args)
+    same = [torch.equal(x.cpu(), c.data[0]._data)
+            and torch.equal(y.cpu(), c.label[0]._data) and pad == c.pad
+            for (x, y, pad), c in zip(kept, cpu_it)]
+    if len(same) != IMAGE_RECORDS // RESNET_B or not all(same):
+        raise SystemExit(f"chip_smoke: image_rec: the batches on cuda:0 "
+                         f"differ from ctx=cpu's: {same}")
+    failures = it.decode_failures + cpu_it.decode_failures
+    del kept, cpu_it, it
+    # the deterministic pass against numpy on the same decoded pixels
+    with gpu:
+        det = mx.io.ImageRecordIter(**_image_iter_args(
+            path, cores, batch_size=IMAGE_DET_N, rand_crop=False,
+            rand_mirror=False, shuffle=False))
+    first = det.next()
+    failures += det.decode_failures
+    det_x = first.data[0]._data.cpu().numpy()
+    rec = mx.recordio.MXIndexedRecordIO(path[:-4] + ".idx", path, "r")
+    plain = np.stack([_plain_pass(mx.recordio.unpack(rec.read_idx(i))[1])
+                      for i in range(IMAGE_DET_N)])
+    rec.close()
+    det_counts = float((np.abs(det_x - plain)
+                        * np.asarray(IMAGE_STD)[None, :, None, None]).max())
+    log(f"[image_rec] {IMAGE_RECORDS} records, native pipeline "
+        f"({native.codec()}), {cores} threads: one epoch to cuda:0 in "
+        f"{pipeline_s:.3f} s ({IMAGE_RECORDS / pipeline_s:.1f} images/s); "
+        f"cuda:0 batches bit-equal to ctx=cpu's; deterministic pass vs "
+        f"numpy {det_counts:.4f} counts (limit {IMAGE_DET_COUNTS})")
+    if det_counts > IMAGE_DET_COUNTS + 1e-3:
+        raise SystemExit("chip_smoke: image_rec: the deterministic pass "
+                         "disagrees with numpy")
+    log(f"[image_rec] the epoch's end: reset {epochs['reset_ms']:.2f} ms, "
+        f"the next epoch's first batch "
+        f"{epochs['reset_to_first_batch_ms']:.2f} ms after it, that epoch "
+        f"{epochs['second_epoch_images_per_s']:.1f} images/s")
+    codec_gap = _codec_check(path)
+
+    # training fed by the iterator
+    t_build = time.perf_counter()
+    net = _seeded_resnet50("cuda", "float16")
+    params = _params_of(net)
+    init_state = {k: v.detach().clone() for k, v in net.state_dict().items()}
+    stat_names = [n for n in params if n.endswith(("running_mean",
+                                                   "running_var"))]
+    trainer = gluon.Trainer(params, "sgd", {
+        "learning_rate": IMAGE_LR, "momentum": RESNET_MOMENTUM,
+        "wd": RESNET_WD, "multi_precision": True})
+    loss_fn = SoftmaxCrossEntropyLoss()
+    trainable = [p for p in params.values() if p.requires_grad]
+    with gpu:
+        feed = mx.io.ImageRecordIter(**args)
+    build_s = time.perf_counter() - t_build
+    waits, grad_max, missing, last = [], [], [], {}
+
+    def update():
+        grad_max.append(torch.stack(torch._foreach_norm(
+            [p.grad for p in trainable], float("inf"))).float().max())
+        trainer.step(RESNET_B * RESNET_LOSS_SCALE)
+    checked = _checked(update, params, missing)
+
+    def step(events=None):
+        t0 = time.perf_counter()
+        batch = feed.next()
+        waits.append((time.perf_counter() - t0) * 1e3)
+        last["x"] = batch.data[0]._data.half()
+        last["y"] = batch.label[0]._data[:, 0].contiguous()
+        return _train_step(net, loss_fn, last["x"], last["y"], checked,
+                           events, RESNET_LOSS_SCALE)
+
+    want = dict.fromkeys(_train_counters(), 0)
+    want["mp_sgd"] = 1
+    def after(i):
+        if i == 0:  # drop what was decoded during the warm-up step
+            feed.reset()
+    losses, walls, parts, totals, peak = _run_steps(
+        "image_rec", IMAGE_STEPS, step, missing, want, after)
+    kernel_ms, ours, top = profiled_step(step)
+    failures += feed.decode_failures
+    max_grad = [g.item() for g in grad_max]
+    faults = []
+    if failures:
+        faults.append(f"{failures} records did not decode")
+    if not all(np.isfinite(max_grad)):
+        faults.append(f"a gradient held inf or NaN: {max_grad}")
+    if not all(params[n].dtype == torch.float32
+               and not torch.equal(params[n].detach(), init_state[n])
+               for n in stat_names):
+        faults.append("a running statistic did not move or is not fp32")
+    if ours["mp_sgd"] <= 0:
+        faults.append("the profiler found no device time for mp_sgd")
+    if faults:
+        raise SystemExit("chip_smoke: image_rec: " + "; ".join(faults))
+    steady = range(1, len(walls))
+    wall_ms = float(np.median([walls[i] for i in steady]))
+
+    # the same net's step on the batch it last read, held on the card
+    def resident(events=None):
+        return _train_step(net, loss_fn, last["x"], last["y"], checked,
+                           events, RESNET_LOSS_SCALE)
+    res_walls = []
+    for _ in range(IMAGE_RESIDENT_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        resident().item()
+        res_walls.append((time.perf_counter() - t0) * 1e3)
+    res_kernel_ms, _, _ = profiled_step(resident)
+    res_ms = float(np.median(res_walls[1:]))
+    feed.close()
+    summary = {
+        "card": card, "records": IMAGE_RECORDS, "codec": native.codec(),
+        "preprocess_threads": cores, "batch": [RESNET_B, 3, RESNET_SIZE,
+                                               RESNET_SIZE],
+        "pipeline_alone_images_per_s": IMAGE_RECORDS / pipeline_s,
+        "pipeline_alone_s": pipeline_s,
+        "reset_ms": epochs["reset_ms"],
+        "reset_to_first_batch_ms": epochs["reset_to_first_batch_ms"],
+        "second_epoch_images_per_s": epochs["second_epoch_images_per_s"],
+        "codec_vs_opencv": codec_gap, "losses": losses,
+        "max_abs_grad_by_step": max_grad,
+        "fed_step_wall_ms_median": wall_ms, "fed_step_wall_ms": walls,
+        "fed_images_per_s": RESNET_B / (wall_ms / 1e3),
+        "fed_window_images_per_s": RESNET_B * (len(walls) - 1)
+        / (sum(walls[1:]) / 1e3),
+        "host_wait_for_batch_ms_median": float(np.median(waits[1:])),
+        "host_wait_for_batch_ms": waits,
+        "fed_profiled_kernel_ms": kernel_ms,
+        # a step's kernels over the fed window's mean step (the median fed
+        # step drew a batch decoded ahead)
+        "fed_window_device_busy_share": kernel_ms * (len(walls) - 1)
+        / sum(walls[1:]),
+        "resident_step_wall_ms_median": res_ms,
+        "resident_step_wall_ms": res_walls,
+        "resident_images_per_s": RESNET_B / (res_ms / 1e3),
+        "resident_device_busy_share": res_kernel_ms / res_ms,
+        "fed_over_resident": wall_ms / res_ms,
+        "top_kernels_ms": top, "b1_ms_per_step": ours["mp_sgd"],
+        "b1_launches_per_step": totals["mp_sgd"] / IMAGE_STEPS,
+        "peak_memory_bytes": peak, "decode_failures": failures,
+        "deterministic_pass_max_counts": det_counts,
+        "net_build_s": build_s, "launches": totals}
+    log("[image_rec] " + json.dumps(summary))
+    return net, trainer, det_x, summary
+
+
+def phase_image_dataset(card, path, cores, net, trainer):
+    """[image_dataset]: the Gluon way in, fatal checks as [image_rec]'s."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import image
+    from mxnet_tpu_torch.gluon.data import DataLoader
+    from mxnet_tpu_torch.gluon.data.vision import (ImageRecordDataset,
+                                                   transforms)
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.opt import kernels as opt_kernels
+    tf = transforms.Compose([
+        transforms.RandomResizedCrop(RESNET_SIZE),
+        transforms.RandomFlipLeftRight(), transforms.ToTensor(),
+        transforms.Normalize([m / 255 for m in IMAGE_MEAN],
+                             [s / 255 for s in IMAGE_STD])])
+    ds = ImageRecordDataset(path).transform_first(tf)
+    loader = DataLoader(ds, batch_size=RESNET_B, shuffle=True,
+                        num_workers=cores, thread_pool=True)
+    np.random.seed(SEED)
+    with mx.gpu(0):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        labels = [y._data[:, 1] for _, y in loader]
+        torch.cuda.synchronize()
+        loader_s = time.perf_counter() - t0
+        _index_check("image_dataset", labels)
+        loss_fn = SoftmaxCrossEntropyLoss()
+        batches = iter(loader)
+        losses, walls, b1 = [], [], []
+        for _ in range(IMAGE_DATASET_STEPS):
+            opt_kernels.LAUNCHES.reset()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            x, y = next(batches)
+            loss = _train_step(
+                net, loss_fn, x._data.half(), y._data[:, 0].contiguous(),
+                lambda: trainer.step(RESNET_B * RESNET_LOSS_SCALE),
+                scale=RESNET_LOSS_SCALE)
+            losses.append(loss.item())
+            walls.append((time.perf_counter() - t0) * 1e3)
+            b1.append(opt_kernels.LAUNCHES.count)
+        del batches
+    if not all(np.isfinite(losses)) or b1 != [1] * IMAGE_DATASET_STEPS:
+        raise SystemExit(f"chip_smoke: image_dataset: losses {losses}, B1 "
+                         f"launches {b1}")
+    summary = {"card": card, "decoder": image.decoder(),
+               "threads": cores, "loader_alone_s": loader_s,
+               "loader_alone_images_per_s": IMAGE_RECORDS / loader_s,
+               "losses": losses, "step_wall_ms": walls,
+               "images_per_s_per_step": [RESNET_B / (w / 1e3)
+                                         for w in walls],
+               "b1_launches": b1}
+    log("[image_dataset] " + json.dumps(summary))
+    return summary
+
+
+def phase_image_serve(card, net, images):
+    """[image_serve]: see IMAGE_SERVE_RUNGS; each check fatal."""
+    from mxnet_tpu_torch.serve import InputSpec, ServingEngine
+    from mxnet_tpu_torch.serve.buckets import parse_bucket_spec
+    pool = images.astype(np.float16)
+    rs = np.random.RandomState(SEED)
+    sizes = rs.randint(1, 9, IMAGE_SERVE_REQUESTS)
+    reqs = [np.take(pool, np.arange(j, j + n) % len(pool), axis=0)
+            for j, n in enumerate(sizes)]
+    engine = ServingEngine(net, input_specs=[InputSpec(
+        (3, RESNET_SIZE, RESNET_SIZE), "float16")],
+        ladder=parse_bucket_spec(IMAGE_SERVE_RUNGS))
+    try:
+        t0 = time.perf_counter()
+        engine.warmup()
+        warmup_s = time.perf_counter() - t0
+        out, lat = [None] * len(reqs), [None] * len(reqs)
+
+        def client(k):
+            for j in range(k, len(reqs), IMAGE_SERVE_CLIENTS):
+                t = time.perf_counter()
+                out[j] = engine.predict(reqs[j])
+                lat[j] = (time.perf_counter() - t) * 1e3
+        threads = [threading.Thread(target=client, args=(k,))
+                   for k in range(IMAGE_SERVE_CLIENTS)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        wall_s = time.perf_counter() - t0
+
+        def direct(x):
+            with torch.no_grad():
+                return net(torch.from_numpy(x).cuda()).float().cpu().numpy()
+        errs = [float(np.abs(o.astype(np.float32) - d).max()
+                      / np.abs(d).max())
+                for o, d in zip(out, (direct(x) for x in reqs))]
+        bias = net.output.bias
+        saved = bias.detach().clone()
+        before = engine.predict(reqs[0]).astype(np.float32)
+        with torch.no_grad():
+            bias += IMAGE_BIAS_STEP
+        try:
+            after = engine.predict(reqs[0]).astype(np.float32)
+            want_after = direct(reqs[0])
+        finally:
+            with torch.no_grad():
+                bias.copy_(saved)
+        shift = float(np.mean(after - before))
+        update_err = float(np.abs(after - want_after).max()
+                           / np.abs(want_after).max())
+        stats = engine.stats()
+    finally:
+        engine.close()
+    lat_sorted = sorted(lat)
+    summary = {
+        "card": card, "rungs": IMAGE_SERVE_RUNGS, "dtype": "float16",
+        "requests": len(reqs), "images": int(sizes.sum()),
+        "clients": IMAGE_SERVE_CLIENTS, "warmup_s": warmup_s,
+        "requests_per_s": len(reqs) / wall_s,
+        "images_per_s": float(sizes.sum()) / wall_s,
+        "latency_p50_ms": float(np.percentile(lat_sorted, 50)),
+        "latency_p99_ms": float(np.percentile(lat_sorted, 99)),
+        "max_error_of_largest_logit": max(errs),
+        "bias_step_mean_shift": shift, "after_update_error": update_err,
+        "recompiles_after_warmup": stats["recompiles_after_warmup"]}
+    log("[image_serve] " + json.dumps(summary))
+    faults = []
+    if stats["recompiles_after_warmup"]:
+        faults.append(f"{stats['recompiles_after_warmup']} signatures after "
+                      "warmup")
+    if max(errs) > ZOO_EXPORT_TOL:
+        faults.append(f"a response {max(errs):.3e} of the largest logit "
+                      f"from the direct forward (limit {ZOO_EXPORT_TOL})")
+    if update_err > ZOO_EXPORT_TOL or \
+            abs(shift - IMAGE_BIAS_STEP) > ZOO_EXPORT_TOL * np.abs(
+                want_after).max():
+        faults.append(f"the bias step did not show: mean shift {shift}, "
+                      f"error {update_err:.3e}")
+    if faults:
+        raise SystemExit("chip_smoke: image_serve: " + "; ".join(faults))
+    return summary
+
+
+def phase_image_all(card):
+    """The three phases of the image slice over one .rec file, with
+    torch's CPU threads at one (the decode threads have the cores)."""
+    import mxnet_tpu_torch as mx
+    gc.collect()
+    torch.cuda.empty_cache()
+    cores = len(os.sched_getaffinity(0))
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    t0 = time.perf_counter()
+    try:
+        with tempfile.TemporaryDirectory() as d:
+            path, kb = _image_file(d, cores)
+            write_s = time.perf_counter() - t0
+            log(f"[image_rec] wrote {IMAGE_RECORDS} JPEG records in "
+                f"{write_s:.2f} s: mean {kb:.2f} KB (limit {IMAGE_KB}); "
+                f"{cores} usable cores; decoder of mx.image: "
+                f"{mx.image.decoder()}")
+            if not IMAGE_KB[0] <= kb <= IMAGE_KB[1]:
+                raise SystemExit(f"chip_smoke: image_rec: mean JPEG {kb} KB")
+            net, trainer, det_x, rec = phase_image_rec(card, path, cores)
+            rec.update(mean_jpeg_kb=kb, write_s=write_s)
+            dataset = phase_image_dataset(card, path, cores, net, trainer)
+        serve = phase_image_serve(card, net, det_x)
+    finally:
+        torch.set_num_threads(threads)
+    del net, trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[image] the three image-slice phases took "
+        f"{time.perf_counter() - t0:.1f} s")
+    return {"image_rec": rec, "image_dataset": dataset,
+            "image_serve": serve}
+
+
 def phase_decode(card, peaks):
     """The autoregressive serving slice: every decode phase on one
     parameter tree, the engines of each closed before the next."""
@@ -6988,8 +7618,10 @@ def main():
     phase_sparse_params(card, linear)
     zoo = phase_zoo_all(card)
     phase_rnn_all(card)
+    images = phase_image_all(card)
     phase_decode(card, peaks)
     enc32, enc16 = enc["launches"], enc["fp16"]
+    image_rec = images["image_rec"]
     nd_attn = {r["dtype"]: r["launches"] for r in nd_run["attention"]}
     nd_b1 = nd_run["b1"]
 
@@ -7237,7 +7869,9 @@ def main():
         "launches": train["mp_sgd"] + resnet["mp_sgd"]
         + adamw["launches"]["mp_sgd"] + gluon_nd["launches"]["mp_sgd"]
         + nd_b1["single"]["launches"] + nd_b1["multi"]["launches"]
-        + sum(z["launches"]["mp_sgd"] for z in zoo.values()),
+        + sum(z["launches"]["mp_sgd"] for z in zoo.values())
+        + image_rec["launches"]["mp_sgd"]
+        + sum(images["image_dataset"]["b1_launches"]),
         "launches_by_path": {"train_fp16": train["mp_sgd"],
                              "train_resnet50_fp16": resnet["mp_sgd"],
                              "train_bert_adamw_fp16":
@@ -7249,7 +7883,10 @@ def main():
                              "nd_multi_mp_sgd_mom_update_bert_150":
                                  nd_b1["multi"]["launches"],
                              **{f"{t}_fp16": z["launches"]["mp_sgd"]
-                                for t, z in zoo.items()}},
+                                for t, z in zoo.items()},
+                             "image_rec_fp16": image_rec["launches"]["mp_sgd"],
+                             "image_dataset_fp16":
+                                 sum(images["image_dataset"]["b1_launches"])},
         "launches_per_step": {
             "train_fp16": train["mp_sgd"] / TRAIN_STEPS,
             "train_resnet50_fp16": resnet["mp_sgd"] / RESNET_STEPS,
@@ -7257,7 +7894,8 @@ def main():
             / adamw["steps"],
             "train_gluon_nd_fp16": gluon_nd["b1_launches_per_step"],
             **{f"{t}_fp16": z["b1_launches_per_step"]
-               for t, z in zoo.items()}},
+               for t, z in zoo.items()},
+            "image_rec_fp16": image_rec["b1_launches_per_step"]},
         "max_abs_err": max([r["max_abs_err"] for r in sgd_rows]
                            + [r[f"clip_{c}"]["max_abs_err"]
                               for r in multi_rows.values()

@@ -14,7 +14,8 @@ flash-attention forward and backward, mixed-precision SGD) live in
 ``mx.metric``, ``mx.random``, ``mx.initializer``, ``mx.optimizer``,
 ``mx.lr_scheduler``, ``mx.sym`` (Symbol and its op corpus), ``mx.mod``
 (Module, BucketingModule, SequentialModule), ``mx.rnn`` (the symbolic
-recurrent cells), ``mx.io``, ``mx.model``,
+recurrent cells), ``mx.io`` (with the record iterators),
+``mx.recordio``, ``mx.image`` (``mx.img``), ``mx.model``,
 ``mx.callback``, ``mx.name``, ``mx.AttrScope``, and ``mx.cpu()`` /
 ``mx.gpu(i)``.
 """
@@ -25,6 +26,8 @@ from . import callback, executor, executor_manager, io, model  # noqa: F401
 from . import module  # noqa: F401
 from . import rnn  # noqa: F401
 from . import gluon  # noqa: F401
+from . import image, recordio  # noqa: F401
+from . import image as img  # noqa: F401
 from .attribute import AttrScope  # noqa: F401
 from .base import MXNetError  # noqa: F401
 from .context import (Context, cpu, current_context, gpu,  # noqa: F401
@@ -41,4 +44,4 @@ __all__ = ["MXNetError", "resolve_device", "Context", "cpu", "gpu",
            "gluon", "metric", "random", "initializer", "optimizer",
            "lr_scheduler", "sym", "symbol", "mod", "module", "io", "model",
            "callback", "executor", "executor_manager", "name", "attribute",
-           "rnn", "AttrScope", "init"]
+           "rnn", "AttrScope", "init", "image", "img", "recordio"]

@@ -8,7 +8,8 @@ flags of the decode tier (``serve2/``), the circuit breaker's
 ``MXNET_SAFE_ACCUMULATION``, the sparse storage's
 ``MXNET_STORAGE_FALLBACK_LOG_VERBOSE``, and the fused step's
 ``MXNET_GRAD_BUCKET_BYTES``, ``MXNET_EAGER_SYNC`` and
-``MXNET_COMPILE_CACHE_DIR`` with the engine's ``MXNET_ENGINE_TYPE``.
+``MXNET_COMPILE_CACHE_DIR`` with the engine's ``MXNET_ENGINE_TYPE``,
+and the native input pipeline's ``MXNET_CPU_WORKER_NTHREADS``.
 Resolution order: :func:`set_flag` runtime override > environment >
 declared default. :func:`generation` counts the overrides, for the
 per-op dispatch that caches a flag against it.
@@ -113,6 +114,9 @@ _FLAGS: Dict[str, Flag] = {f.name: f for f in (
     Flag("MXNET_ENGINE_TYPE", str, "ThreadedEnginePerDevice",
          "'NaiveEngine' makes dispatch synchronous (engine.is_sync): "
          "every eager op blocks, as under MXNET_EAGER_SYNC."),
+    Flag("MXNET_CPU_WORKER_NTHREADS", int, 1,
+         "Sizes the native record pipeline's thread pool where the caller "
+         "gives no count (native/: max(2, this), as the JAX package's)."),
 )}
 _OVERRIDES: Dict[str, Any] = {}
 _LOCK = threading.Lock()

@@ -2,10 +2,12 @@
 the vision datasets and transforms."""
 from . import vision  # noqa: F401
 from .dataloader import DataLoader  # noqa: F401
-from .dataset import ArrayDataset, Dataset, SimpleDataset  # noqa: F401
+from .dataset import (ArrayDataset, Dataset, RecordFileDataset,  # noqa: F401
+                      SimpleDataset)
 from .sampler import (BatchSampler, RandomSampler, Sampler,  # noqa: F401
                       SequentialSampler)
 
-__all__ = ["Dataset", "ArrayDataset", "SimpleDataset", "Sampler",
+__all__ = ["Dataset", "ArrayDataset", "SimpleDataset", "RecordFileDataset",
+           "Sampler",
            "SequentialSampler", "RandomSampler", "BatchSampler",
            "DataLoader", "vision"]

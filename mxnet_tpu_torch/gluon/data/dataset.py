@@ -2,14 +2,16 @@
 
 Counterpart of ``mxnet_tpu/gluon/data/dataset.py``'s ``Dataset`` (with
 ``filter``, ``shard``, ``take``, ``transform`` and ``transform_first``),
-``SimpleDataset`` and ``ArrayDataset``. ``RecordFileDataset`` waits for
-the port's ``recordio`` (ROADMAP Queue A).
+``SimpleDataset``, ``ArrayDataset`` and ``RecordFileDataset`` (the
+records of a ``.rec`` file through its ``.idx``).
 """
 from __future__ import annotations
 
+import threading
+
 from ...ndarray.ndarray import NDArray
 
-__all__ = ["Dataset", "ArrayDataset", "SimpleDataset"]
+__all__ = ["Dataset", "ArrayDataset", "SimpleDataset", "RecordFileDataset"]
 
 
 class Dataset:
@@ -117,3 +119,33 @@ class ArrayDataset(Dataset):
 
     def __len__(self):
         return self._length
+
+
+class RecordFileDataset(Dataset):
+    """The records of ``filename`` (a ``.rec`` file) in the order of its
+    ``.idx`` file: each sample the record's bytes. Reads are serialised,
+    so the threads of a ``DataLoader(thread_pool=True)`` share one open
+    file; a worker process reopens it."""
+
+    def __init__(self, filename):
+        from ...recordio import MXIndexedRecordIO
+        self.idx_file = filename.rsplit(".", 1)[0] + ".idx"
+        self.filename = filename
+        self._record = MXIndexedRecordIO(self.idx_file, self.filename, "r")
+        self._lock = threading.Lock()
+
+    def __getitem__(self, idx):
+        with self._lock:
+            return self._record.read_idx(self._record.keys[idx])
+
+    def __len__(self):
+        return len(self._record.keys)
+
+    def __getstate__(self):
+        d = dict(self.__dict__)
+        del d["_lock"]
+        return d
+
+    def __setstate__(self, d):
+        self.__dict__.update(d)
+        self._lock = threading.Lock()

@@ -6,8 +6,10 @@ Counterpart of ``mxnet_tpu/gluon/data/vision/datasets.py``: ``MNIST`` and
 ``cifar-100-python``) and ``ImageFolderDataset`` (``root/<class>/<image>``,
 decoded with Pillow). Nothing downloads: a missing file raises and names
 its path. A sample is ``(image, label)``: the image an HWC uint8 numpy
-array, the label an int32 (``transform(image, label)`` where given);
-``ImageRecordDataset`` waits for the port's ``recordio``.
+array, the label an int32 (``transform(image, label)`` where given).
+``ImageRecordDataset`` decodes the images of a ``.rec`` file with
+:func:`mxnet_tpu_torch.image.imdecode`: a sample is an HWC uint8 NDArray
+on the current context and the record's label.
 """
 from __future__ import annotations
 
@@ -19,10 +21,10 @@ import struct
 import numpy as onp
 
 from ....base import MXNetError
-from ..dataset import Dataset
+from ..dataset import Dataset, RecordFileDataset
 
 __all__ = ["MNIST", "FashionMNIST", "CIFAR10", "CIFAR100",
-           "ImageFolderDataset"]
+           "ImageFolderDataset", "ImageRecordDataset"]
 
 
 def _default_root(name):
@@ -175,3 +177,22 @@ class ImageFolderDataset(Dataset):
 
     def __len__(self):
         return len(self.items)
+
+
+class ImageRecordDataset(RecordFileDataset):
+    """The images of a ``.rec`` file (``pack_img`` records): ``(image,
+    label)``, the image decoded with ``flag`` (1 colour, 0 gray)."""
+
+    def __init__(self, filename, flag=1, transform=None):
+        super().__init__(filename)
+        self._flag = flag
+        self._transform = transform
+
+    def __getitem__(self, idx):
+        from ....image import imdecode
+        from ....recordio import unpack
+        header, img_bytes = unpack(super().__getitem__(idx))
+        img = imdecode(img_bytes, flag=self._flag)
+        if self._transform is not None:
+            return self._transform(img, header.label)
+        return img, header.label

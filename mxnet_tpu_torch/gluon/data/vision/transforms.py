@@ -16,9 +16,9 @@ import math
 
 import numpy as onp
 import torch
-import torch.nn.functional as F
 
 from ....ndarray.ndarray import NDArray, _wrap, as_torch_dtype
+from ....ops.image_ops import resize_hwc as _resize
 from ...block import Block
 from ...nn import Sequential
 
@@ -88,23 +88,6 @@ class Normalize(_Transform):
 
     def _apply(self, x):
         return (x - self._mean.to(x.device)) / self._std.to(x.device)
-
-
-def _resize(x, h, w, mode="bilinear"):
-    """Resize the H, W axes of an HWC (NHWC) tensor, keeping its dtype."""
-    batch = x.unsqueeze(0) if x.dim() == 3 else x
-    t = batch.permute(0, 3, 1, 2).to(torch.float32)
-    if mode == "nearest":
-        out = F.interpolate(t, size=(h, w), mode="nearest")
-    else:
-        out = F.interpolate(t, size=(h, w), mode=mode, align_corners=False,
-                            antialias=True)
-    out = out.permute(0, 2, 3, 1)
-    if not x.dtype.is_floating_point:
-        out = out.round().clamp(torch.iinfo(x.dtype).min,
-                                torch.iinfo(x.dtype).max)
-    out = out.to(x.dtype)
-    return out[0] if x.dim() == 3 else out
 
 
 class Resize(_Transform):

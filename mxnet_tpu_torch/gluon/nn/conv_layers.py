@@ -43,8 +43,8 @@ class _Conv(HybridBlock):
         if layout != _LAYOUTS[n]:
             raise NotImplementedError(
                 f"layout {layout!r}: the port's convolutions take "
-                f"{_LAYOUTS[n]}; the channels-last choice waits in ROADMAP "
-                "Queue A item 2")
+                f"{_LAYOUTS[n]}; the channels-last choice is held in ROADMAP "
+                "Queue A until a benchmark measures it")
         self._transposed = output_padding is not None
         if in_channels % groups or channels % groups:
             raise MXNetError(f"{type(self).__name__}: {in_channels} -> "

@@ -4,12 +4,22 @@ Counterpart of ``mxnet_tpu/io/io.py``: ``DataDesc``, ``DataBatch``,
 ``DataIter``, ``NDArrayIter`` (pad, discard, roll_over; the same shuffle
 order as the JAX package for one seed), ``ResizeIter``,
 ``PrefetchingIter`` (a background thread), ``MNISTIter`` (idx files,
-plain or gzipped) and ``CSVIter``. ``NDArrayIter`` holds its arrays on
-the context current at construction and gathers each batch there; a
-Module moves each batch to its executors' device. The record
-iterators (``ImageRecordIter``, ``ImageDetRecordIter``, ``LibSVMIter``,
-``MXDataIter``) raise ``NotImplementedError``: they wait with the native
-record reader (ROADMAP Queue A item 9).
+plain or gzipped), ``CSVIter`` and ``LibSVMIter``. ``NDArrayIter`` holds
+its arrays on the context current at construction and gathers each batch
+there; a Module moves each batch to its executors' device.
+
+The record iterators: ``ImageRecordIter`` runs the native JPEG pipeline
+(:class:`mxnet_tpu_torch.native.NativeImagePipeline`) where the file's
+first record is a JPEG, else the Python pipeline
+(:func:`mxnet_tpu_torch.image.ImageRecordIterPy`); the choice is made
+once, reported as the iterator's ``backend`` (and ``codec`` or
+``reason``), and a native failure (no codec to build with, a fault of the
+decoder) raises. Its batches land on ``ctx``
+(the context current when it was made). On the card a background thread stages
+each batch into pinned memory and copies it on a side stream, so the
+next batch's decode and copy overlap the caller's step.
+``ImageDetRecordIter`` (``DetRecordIter``) decodes on the native pipeline
+too. ``MXDataIter`` refuses, as the JAX package's does.
 """
 from __future__ import annotations
 
@@ -22,16 +32,14 @@ from collections import namedtuple
 import numpy as onp
 import torch
 
-from ..context import Context
+from ..base import MXNetError
+from ..context import Context, current_context
 from ..ndarray.ndarray import NDArray, _wrap, array
 
 __all__ = ["DataDesc", "DataBatch", "DataIter", "NDArrayIter", "ResizeIter",
            "PrefetchingIter", "MXDataIter", "ImageRecordIter",
            "ImageDetRecordIter", "DetRecordIter", "MNISTIter",
            "CSVIter", "LibSVMIter"]
-
-_RECORDS_WAIT = ("the record iterators wait with the native record reader "
-                 "(ROADMAP Queue A item 9)")
 
 
 class DataDesc(namedtuple("DataDesc", ["name", "shape", "dtype", "layout"])):
@@ -381,20 +389,12 @@ class PrefetchingIter(DataIter):
             return False
 
 
-def _waiting(name):
-    def it(*args, **kwargs):
-        raise NotImplementedError(f"{name} is not ported yet: "
-                                  f"{_RECORDS_WAIT}")
-    it.__name__ = name
-    it.__doc__ = f"Not ported yet: {_RECORDS_WAIT}."
-    return it
+class MXDataIter(DataIter):
+    """The reference's iterators registered from C: refused, as in the JAX
+    package, in favour of the named iterator classes."""
 
-
-MXDataIter = _waiting("MXDataIter")
-ImageRecordIter = _waiting("ImageRecordIter")
-ImageDetRecordIter = _waiting("ImageDetRecordIter")
-DetRecordIter = ImageDetRecordIter
-LibSVMIter = _waiting("LibSVMIter")
+    def __init__(self, *a, **kw):
+        raise MXNetError("MXDataIter: use the named iterator classes")
 
 
 def MNISTIter(image="train-images-idx3-ubyte", label="train-labels-idx1-ubyte",
@@ -433,3 +433,342 @@ def CSVIter(data_csv, data_shape, label_csv=None, label_shape=(1,),
         label = onp.loadtxt(label_csv, delimiter=",", dtype=onp.float32)
         label = label.reshape((-1,) + tuple(label_shape))
     return NDArrayIter(data, label, batch_size=batch_size)
+
+
+def LibSVMIter(data_libsvm, data_shape, batch_size=128, **kwargs):
+    """Rows of a libsvm text file (``label idx:value ...``) as dense
+    batches of an ``NDArrayIter``."""
+    feats = []
+    labels = []
+    dim = int(onp.prod(data_shape))
+    with open(data_libsvm) as f:
+        for line in f:
+            parts = line.strip().split()
+            if not parts:
+                continue
+            labels.append(float(parts[0]))
+            row = onp.zeros(dim, dtype=onp.float32)
+            for tok in parts[1:]:
+                i, v = tok.split(":")
+                row[int(i)] = float(v)
+            feats.append(row)
+    data = onp.stack(feats).reshape((-1,) + tuple(data_shape))
+    return NDArrayIter(data, onp.asarray(labels, onp.float32),
+                       batch_size=batch_size)
+
+
+# -- the record iterators -------------------------------------------------------
+
+def _first_record_is_jpeg(path_imgrec) -> bool:
+    """Whether the file's first record holds a JPEG (the native pipeline
+    decodes JPEG only; PNG records take the Python pipeline)."""
+    from ..recordio import MXRecordIO, unpack
+    rec = MXRecordIO(path_imgrec, "r")
+    try:
+        first = rec.read()
+    finally:
+        rec.close()
+    return first is not None and unpack(first)[1][:2] == b"\xff\xd8"
+
+
+class _Staging:
+    """Moves the native pipeline's batches to a CUDA device from a
+    background thread: each batch is copied into one of ``slots`` pinned
+    host buffers, then to a fresh device tensor on a side stream, with an
+    event the consumer's stream waits on. A slot is written again only
+    after the event of its last copy has completed, so a batch in flight
+    is never overwritten."""
+
+    DEPTH = 2  # batches copied ahead of the consumer
+
+    def __init__(self, pipe, device, label_width):
+        self._pipe = pipe
+        self._device = device
+        n = self.DEPTH + 1
+        self._data = [torch.empty(pipe.batch_shape, dtype=torch.float32,
+                                  pin_memory=True) for _ in range(n)]
+        self._labels = [torch.empty((pipe.batch_size, label_width),
+                                    dtype=torch.float32, pin_memory=True)
+                        for _ in range(n)]
+        self._done = [None] * n  # the event of each slot's last copy
+        self._stream = torch.cuda.Stream(device)
+        self._thread = None
+
+    def start(self):
+        self._stop = threading.Event()
+        self._q = queue.Queue(maxsize=self.DEPTH)
+        self._thread = threading.Thread(target=self._produce, daemon=True)
+        self._thread.start()
+
+    def _put(self, item):
+        while not self._stop.is_set():
+            try:
+                self._q.put(item, timeout=0.1)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def _produce(self):
+        try:
+            k = 0
+            for data, labels, pad in self._pipe.batches():
+                if self._done[k] is not None:
+                    self._done[k].synchronize()
+                self._data[k].copy_(torch.from_numpy(data))
+                self._labels[k].copy_(torch.from_numpy(labels))
+                with torch.cuda.stream(self._stream):
+                    dev = self._data[k].to(self._device, non_blocking=True)
+                    lab = self._labels[k].to(self._device, non_blocking=True)
+                    done = torch.cuda.Event()
+                    done.record(self._stream)
+                self._done[k] = done
+                k = (k + 1) % len(self._data)
+                if not self._put((dev, lab, pad, done)):
+                    return
+            self._put(None)
+        except BaseException as e:  # handed to the consumer, raised there
+            self._put(e)
+
+    def next(self):
+        item = self._q.get()
+        if item is None:
+            raise StopIteration
+        if isinstance(item, BaseException):
+            raise item
+        dev, lab, pad, done = item
+        consumer = torch.cuda.current_stream(self._device)
+        consumer.wait_event(done)
+        # the tensors were made on the side stream: the allocator must
+        # not hand their memory out again before the consumer is done
+        dev.record_stream(consumer)
+        lab.record_stream(consumer)
+        return dev, lab, pad
+
+    def stop(self):
+        if self._thread is None:
+            return
+        self._stop.set()
+        while self._thread.is_alive():
+            try:
+                self._q.get(timeout=0.1)
+            except queue.Empty:
+                pass
+        self._thread.join()
+        self._thread = None
+
+
+class _NativeImageRecordIter(DataIter):
+    """``ImageRecordIter`` over the native decode and augment pipeline."""
+
+    backend = "native"
+
+    def __init__(self, path_imgrec, data_shape, batch_size, label_width,
+                 shuffle, mean_r=0, mean_g=0, mean_b=0, std_r=1, std_g=1,
+                 std_b=1, rand_crop=False, rand_mirror=False, resize=0,
+                 seed=0, preprocess_threads=0, data_name="data",
+                 label_name="softmax_label", **_ignored):
+        super().__init__(batch_size)
+        from ..native import NativeImagePipeline
+        self.ctx = current_context()
+        self._pipe = NativeImagePipeline(
+            path_imgrec, batch_size, data_shape=data_shape,
+            label_width=label_width, shuffle=shuffle, resize=resize,
+            rand_crop=rand_crop, rand_mirror=rand_mirror,
+            mean=(mean_r, mean_g, mean_b), std=(std_r, std_g, std_b),
+            seed=seed, num_workers=preprocess_threads)
+        self.codec = self._pipe.codec
+        self.preprocess_threads = self._pipe.num_workers
+        self.data_shape = tuple(data_shape)
+        self.label_width = label_width
+        self.data_name, self.label_name = data_name, label_name
+        device = self.ctx.torch_device
+        self._staging = _Staging(self._pipe, device, label_width) \
+            if device.type == "cuda" else None
+        self._start()
+
+    def _start(self):
+        if self._staging is not None:
+            self._staging.start()
+        else:
+            self._batches = self._pipe.batches()
+
+    @property
+    def decode_failures(self) -> int:
+        return self._pipe.decode_failures
+
+    @property
+    def provide_data(self):
+        return [DataDesc(self.data_name,
+                         (self.batch_size,) + self.data_shape)]
+
+    @property
+    def provide_label(self):
+        shape = (self.batch_size,) if self.label_width == 1 \
+            else (self.batch_size, self.label_width)
+        return [DataDesc(self.label_name, shape)]
+
+    def reset(self):
+        if self._staging is not None:
+            self._staging.stop()
+        else:
+            self._batches.close()
+        self._pipe.reset()
+        self._start()
+
+    def next(self):
+        if self._staging is not None:
+            data, labels, pad = self._staging.next()
+        else:
+            d, lab, pad = next(self._batches)
+            data, labels = torch.from_numpy(d.copy()), \
+                torch.from_numpy(lab.copy())
+        if self.label_width == 1:
+            labels = labels.reshape(-1)
+        # the native pipeline wrap-pads the final partial batch and says
+        # how many duplicates it holds (the reference's
+        # last_batch_handle="pad")
+        return DataBatch(data=[_wrap(data)], label=[_wrap(labels)], pad=pad,
+                         provide_data=self.provide_data,
+                         provide_label=self.provide_label)
+
+    def close(self):
+        if self._staging is not None:
+            self._staging.stop()
+        self._pipe.close()
+
+    def __del__(self):
+        try:
+            self.close()
+        except Exception:
+            pass
+
+
+def ImageRecordIter(path_imgrec=None, data_shape=(3, 224, 224), batch_size=1,
+                    label_width=1, shuffle=False, **kwargs):
+    """Batches of a ``.rec`` file of images (ref: src/io/
+    iter_image_recordio_2.cc ``ImageRecordIter``): resize the shorter side
+    (``resize``), crop (``rand_crop``, else the centre), mirror
+    (``rand_mirror``), normalise (``mean_r/g/b``, ``std_r/g/b``), on
+    ``preprocess_threads`` threads, shuffled per ``seed``; the final batch
+    wrap-padded; each batch on the context current when it was made. The
+    native pipeline runs where the first record is a JPEG, else the Python
+    pipeline; ``backend`` says which (``codec`` the native one's codec,
+    ``reason`` why the Python one)."""
+    current_context()  # no CUDA and no ``with mx.cpu():`` raises here
+    if _first_record_is_jpeg(path_imgrec):
+        return _NativeImageRecordIter(path_imgrec, data_shape, batch_size,
+                                      label_width, shuffle, **kwargs)
+    from ..image import ImageRecordIterPy, decoder
+    it = ImageRecordIterPy(path_imgrec=path_imgrec, data_shape=data_shape,
+                           batch_size=batch_size, label_width=label_width,
+                           shuffle=shuffle, **kwargs)
+    it.backend, it.codec = "python", decoder()
+    it.reason = "the first record is not a JPEG"
+    return it
+
+
+class ImageDetRecordIter(DataIter):
+    """Detection RecordIO iterator (ref: src/io/iter_image_det_recordio.cc
+    and image_det_aug_default.cc, the SSD input tier).
+
+    Records are packed with an array label ``[header_width,
+    object_width, <extra header...>, (cls, xmin, ymin, xmax, ymax) * N]``
+    in normalized coordinates. The native pipeline decodes and warps each
+    image to ``data_shape`` (no crop, so the boxes stay valid); the
+    horizontal flip moves the boxes with the pixels, drawn from a
+    ``RandomState(seed)``. Data ``(B, C, H, W)``, labels ``(B, N, 5)``
+    padded with ``label_pad_value``, on the context current when it was
+    made.
+    """
+
+    backend = "native"
+
+    def __init__(self, path_imgrec=None, data_shape=(3, 300, 300),
+                 batch_size=1, shuffle=False, label_pad_width=0,
+                 label_pad_value=-1.0, rand_mirror=False, resize=0,
+                 mean_r=0, mean_g=0, mean_b=0, std_r=1, std_g=1, std_b=1,
+                 seed=0, preprocess_threads=0, **_ignored):
+        super().__init__(batch_size)
+        from .. import native
+        from .. import recordio as rio
+        self.ctx = current_context()
+        if not _first_record_is_jpeg(path_imgrec):
+            raise MXNetError(
+                "ImageDetRecordIter requires JPEG-encoded records "
+                "(the native decode path has no PNG support)")
+        if label_pad_width <= 0:
+            # scan the headers for the widest label (the reference's
+            # first-pass estimate, iter_image_det_recordio.cc:332)
+            reader = native.NativeRecordIO(path_imgrec)
+            try:
+                for i in range(len(reader)):
+                    hdr, _ = rio.unpack(reader.read_idx(i))
+                    width = 1 if isinstance(hdr.label, float) \
+                        else len(hdr.label)
+                    label_pad_width = max(label_pad_width, width)
+            finally:
+                reader.close()
+        self.label_pad_width = label_pad_width
+        self.label_pad_value = float(label_pad_value)
+        self._rand_mirror = rand_mirror
+        self._rng = onp.random.RandomState(seed)
+        self.data_shape = tuple(data_shape)
+        self._pipe = native.NativeImagePipeline(
+            path_imgrec, batch_size, data_shape=data_shape,
+            label_width=label_pad_width, shuffle=shuffle,
+            rand_crop=False, rand_mirror=False, force_resize=True,
+            mean=(mean_r, mean_g, mean_b), std=(std_r, std_g, std_b),
+            seed=seed, num_workers=preprocess_threads,
+            label_pad_value=self.label_pad_value)
+        self.codec = self._pipe.codec
+        self._iter = iter(self._pipe)
+
+    @property
+    def provide_data(self):
+        return [DataDesc("data", (self.batch_size,) + self.data_shape)]
+
+    @property
+    def provide_label(self):
+        n_obj = (self.label_pad_width - 2) // 5
+        return [DataDesc("label", (self.batch_size, n_obj, 5))]
+
+    def reset(self):
+        self._pipe.reset()
+        self._iter = iter(self._pipe)
+
+    def next(self):
+        data, labels = next(self._iter)
+        B = data.shape[0]
+        n_obj = (self.label_pad_width - 2) // 5
+        boxes = onp.full((B, n_obj, 5), self.label_pad_value, "float32")
+        for b in range(B):
+            row = labels[b]
+            hw = int(row[0]) if row[0] > 0 else 2
+            ow = int(row[1]) if row[1] > 0 else 5
+            body = row[hw:]
+            k = 0
+            for o in range(min(n_obj, len(body) // ow)):
+                rec = body[o * ow:(o + 1) * ow]
+                if rec[0] < 0:  # padding
+                    continue
+                boxes[b, k, :5] = rec[:5]
+                k += 1
+        if self._rand_mirror:
+            flip = self._rng.rand(B) < 0.5
+            for b in onp.where(flip)[0]:
+                data[b] = data[b][:, :, ::-1]
+                valid = boxes[b, :, 0] >= 0
+                x1 = boxes[b, valid, 1].copy()
+                x2 = boxes[b, valid, 3].copy()
+                boxes[b, valid, 1] = 1.0 - x2
+                boxes[b, valid, 3] = 1.0 - x1
+        return DataBatch(data=[array(onp.ascontiguousarray(data),
+                                     ctx=self.ctx)],
+                         label=[array(boxes, ctx=self.ctx)],
+                         pad=self._pipe.last_pad,
+                         provide_data=self.provide_data,
+                         provide_label=self.provide_label)
+
+
+DetRecordIter = ImageDetRecordIter

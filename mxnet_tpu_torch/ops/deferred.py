@@ -32,24 +32,6 @@ WAITING = {
         "_npx_multibox_detection", "_npx_multibox_prior",
         "_npx_multibox_target", "bipartite_matching", "box_iou", "box_nms",
         "quadratic",),
-    ("the image ops wait with io/ and image.py (ROADMAP Queue A item 9)"): (
-        "_cvcopyMakeBorder", "_cvimdecode", "_cvimread", "_cvimresize",
-        "_image_adjust_lighting", "_image_crop", "_image_flip_left_right",
-        "_image_flip_top_bottom", "_image_normalize",
-        "_image_random_brightness", "_image_random_color_jitter",
-        "_image_random_contrast", "_image_random_flip_left_right",
-        "_image_random_flip_top_bottom", "_image_random_hue",
-        "_image_random_lighting", "_image_random_saturation", "_image_resize",
-        "_image_to_tensor", "_npi_copyMakeBorder", "_npi_cvimdecode",
-        "_npi_cvimread", "_npi_cvimresize", "_npx__image_adjust_lighting",
-        "_npx__image_crop", "_npx__image_flip_left_right",
-        "_npx__image_flip_top_bottom", "_npx__image_normalize",
-        "_npx__image_random_brightness", "_npx__image_random_color_jitter",
-        "_npx__image_random_contrast", "_npx__image_random_flip_left_right",
-        "_npx__image_random_flip_top_bottom", "_npx__image_random_hue",
-        "_npx__image_random_lighting", "_npx__image_random_saturation",
-        "_npx__image_resize", "_npx__image_to_tensor", "image_crop",
-        "image_normalize", "image_resize", "image_to_tensor",),
     ("the deferred half of the mx.nd slice (ROADMAP Queue A item 1)"): (
         "Custom", "_NDArray", "_Native", "_TensorRT",
         "_contrib_calibrate_entropy", "_contrib_dequantize",

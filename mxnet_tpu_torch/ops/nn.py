@@ -33,7 +33,8 @@ item 1).
 
 Layouts are channels-first (NCW, NCHW, NCDHW); tensors run in the memory
 format they are given. The JAX package's per-shape NCHW/NHWC choice on an
-accelerator (``operator_tune``) waits in ROADMAP Queue A item 2.
+accelerator (``operator_tune``) is held in ROADMAP Queue A's list of
+work held until a benchmark measures it (``channels_last``).
 """
 from __future__ import annotations
 

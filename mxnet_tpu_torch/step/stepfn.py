@@ -141,6 +141,18 @@ class _Program:
                 buf.copy_(host)
 
 
+def _release_generators(gens, states) -> None:
+    """After an aborted capture every generator the graph registered still
+    counts as capturing, and its next draw outside a graph raises ("Offset
+    increment outside graph capture"). Each gets a fresh state object (the
+    same ``torch.Generator``, so the layers that hold it keep it), set to
+    its state before the warm-up."""
+    for g, state in zip(gens, states):
+        fresh = torch.Generator(device=g.device)
+        fresh.set_state(state)
+        g.graphsafe_set_state(fresh.graphsafe_get_state())
+
+
 class StepFunction:
     """The fused whole training step of a Gluon block (or a Symbol).
 
@@ -434,9 +446,17 @@ class StepFunction:
             graph = torch.cuda.CUDAGraph()
             for g in gens[:-1]:  # the default generator registers itself
                 graph.register_generator_state(g)
-            with torch.cuda.graph(graph, pool=self._pool):
+            # thread_local: a CUDA call that is unsafe during a capture
+            # still raises from this thread (a host read in the step), but
+            # one from another thread, such as a record iterator's staging
+            # copy or decoder, no longer invalidates the capture (under
+            # "global" it did, now and then); torch.compile's CUDA graphs
+            # capture the same way
+            with torch.cuda.graph(graph, pool=self._pool,
+                                  capture_error_mode="thread_local"):
                 prog.loss = self._body(prog.inputs, prog.lrs, prog.wds)
         except Exception as e:
+            _release_generators(gens, gen_states)
             raise MXNetError(
                 f"StepFunction '{self._name}': the CUDA graph capture of "
                 f"the training step failed ({type(e).__name__}: {e}); the "

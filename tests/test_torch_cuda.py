@@ -21,6 +21,8 @@ The mixed-precision SGD kernel rounds each operation as its plain version
 does, and the fp32 backward's split kernel rounds as its plain version
 does, so each agrees with it bit for bit.
 """
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -1616,6 +1618,43 @@ def test_fused_step_host_sync_in_the_loss_raises():
     assert trainer._optimizer._index_update_count == {}
 
 
+def test_a_failed_capture_leaves_the_generators_usable():
+    """The capture that a host read aborts registered the device's
+    generators with its graph; afterwards each draws again outside a
+    graph (it raised "Offset increment outside graph capture" before the
+    repair), from its state before the warm-up."""
+    _need_cuda()
+    from mxnet_tpu_torch import MXNetError
+    from mxnet_tpu_torch.gluon import Trainer, collect_params
+    from mxnet_tpu_torch.gluon import loss as gloss
+    from mxnet_tpu_torch.random import generator
+
+    class SyncingLoss(gloss.L2Loss):
+        def forward(self, pred, label, sample_weight=None):
+            loss = super().forward(pred, label, sample_weight)
+            if loss.sum().item() < 0:   # a host read of a device value
+                loss = loss * 2
+            return loss
+
+    net = _bn_mlp_cuda()
+    fused = Trainer(collect_params(net), "sgd", {"learning_rate": 0.1}) \
+        .fuse_step(net, SyncingLoss())
+    x, y = _step_batches("bn_mlp", 1)[0]
+    g = generator(torch.device("cuda", 0))
+    before = g.get_state()
+    default_before = torch.cuda.default_generators[0].get_state()
+    with pytest.raises(MXNetError, match="capture"):
+        fused.step(x, y)
+    assert generator(torch.device("cuda", 0)) is g
+    assert torch.equal(g.get_state(), before)
+    a = torch.rand(4, device="cuda", generator=g)
+    b = torch.rand(4, device="cuda")            # the default generator
+    for got, state in ((a, before), (b, default_before)):
+        ref = torch.Generator(device="cuda")
+        ref.set_state(state)
+        assert torch.equal(got, torch.rand(4, device="cuda", generator=ref))
+
+
 _EAGER_SYNC_PROBE = """
 import sys
 import numpy as np
@@ -1724,3 +1763,294 @@ def test_ctc_loss_on_the_card_matches_the_cpu():
         lh[:3].abs().max())
     assert float((gc - gh).abs().max()) <= 1e-10 * float(gh.abs().max())
     assert not gc[9:, 1].any() and not gc[6:, 2].any()
+
+
+# -- the image input pipeline and image serving (slice 18) ------------------------
+
+def _image_records(path, n, seed=0):
+    """``n`` JPEG records of random sizes 40-80 px, labels [class, index]."""
+    import cv2
+    from mxnet_tpu_torch import recordio
+    rs = np.random.RandomState(seed)
+    w = recordio.MXIndexedRecordIO(path[:-4] + ".idx", path, "w")
+    for i in range(n):
+        h, wd = rs.randint(40, 80, size=2)
+        coarse = rs.randint(0, 255, (h // 8 + 2, wd // 8 + 2, 3))
+        img = cv2.resize(coarse.astype(np.uint8), (int(wd), int(h)))
+        w.write_idx(i, recordio.pack_img(
+            recordio.IRHeader(0, [float(i % 10), float(i)], i, 0), img,
+            quality=90))
+    w.close()
+
+
+def _record_batches(path, ctx, slow=0.0):
+    import time
+    import mxnet_tpu_torch as mx
+    with ctx:
+        it = mx.io.ImageRecordIter(
+            path_imgrec=path, data_shape=(3, 32, 32), batch_size=4,
+            label_width=2, shuffle=True, rand_crop=True, rand_mirror=True,
+            resize=36, mean_r=120.0, std_r=60.0, seed=5,
+            preprocess_threads=3)
+    out = []
+    for batch in it:
+        if slow:  # a consumer slower than the pipeline and its copies
+            time.sleep(slow)
+            x = batch.data[0]._data
+            for _ in range(20):
+                x = x * 1.0001
+        out.append((batch.data[0]._data.cpu(), batch.label[0]._data.cpu(),
+                    batch.pad, batch.data[0]._data.device))
+    return it, out
+
+
+def test_image_record_iter_on_the_card_equals_the_cpu(tmp_path):
+    """The native pipeline's batches on ``cuda:0`` (pinned staging, a side
+    stream) bit-equal to the same seeded iterator's with ``ctx=cpu``, the
+    labels those written."""
+    _need_cuda()
+    import mxnet_tpu_torch as mx
+    path = str(tmp_path / "a.rec")
+    _image_records(path, 30)
+    it, card = _record_batches(path, mx.gpu(0))
+    assert it.backend == "native" and it.decode_failures == 0
+    _, host = _record_batches(path, mx.cpu())
+    assert len(card) == len(host) == 8 and card[-1][2] == 2
+    for (x, y, pad, dev), (hx, hy, hpad, hdev) in zip(card, host):
+        assert dev.type == "cuda" and hdev.type == "cpu" and pad == hpad
+        assert torch.equal(x, hx) and torch.equal(y, hy)
+    seen = torch.cat([y[:4 - pad, 1] for _, y, pad, _ in card])
+    assert sorted(seen.tolist()) == list(range(30))
+
+
+def test_staging_buffer_is_not_overwritten_under_a_slow_consumer(tmp_path):
+    """60 batches through three pinned slots to a consumer that sleeps
+    and queues work on each batch: every batch equals the CPU run's."""
+    _need_cuda()
+    import mxnet_tpu_torch as mx
+    path = str(tmp_path / "b.rec")
+    _image_records(path, 240, seed=1)
+    _, card = _record_batches(path, mx.gpu(0), slow=0.01)
+    _, host = _record_batches(path, mx.cpu())
+    assert len(card) == len(host) == 60
+    for (x, y, *_), (hx, hy, *_) in zip(card, host):
+        assert torch.equal(x, hx) and torch.equal(y, hy)
+
+
+def test_image_net_served_on_the_card():
+    """A Gluon conv net with BatchNorm served on the card over batch rungs:
+    each response equals a direct forward within 1e-5 (fp32, TF32 off), 0
+    signatures after warmup, the engine's output on the card's path."""
+    _need_cuda()
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon import nn
+    from mxnet_tpu_torch.serve import ServingEngine
+    from mxnet_tpu_torch.serve.buckets import parse_bucket_spec
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    net = nn.HybridSequential()
+    net.add(nn.Conv2D(8, 3, padding=1), nn.BatchNorm(),
+            nn.Activation("relu"), nn.GlobalAvgPool2D(), nn.Dense(5))
+    net.initialize(ctx=mx.gpu(0))
+    net.hybridize()
+    eng = ServingEngine(net, input_specs=[(3, 16, 16)],
+                        ladder=parse_bucket_spec("1,2,4"))
+    try:
+        eng.warmup()
+        rs = np.random.RandomState(0)
+        for n in (1, 3, 4, 2):
+            x = rs.rand(n, 3, 16, 16).astype("float32")
+            got = eng.predict(x)
+            want = net(mx.nd.array(x, ctx=mx.gpu(0))).asnumpy()
+            np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+        assert eng.stats()["recompiles_after_warmup"] == 0
+    finally:
+        eng.close()
+
+
+# photo-like JPEGs as chip_smoke.py's [image_rec] makes them: smooth random
+# colour fields at 300-500 px plus noise, quality 90, 4:2:0
+def _photo_jpeg(rs, sides=(300, 500)):
+    import cv2
+    h, w = (int(v) for v in rs.randint(sides[0], sides[1] + 1, size=2))
+    coarse = rs.randint(0, 256, (h // 12 + 2, w // 12 + 2, 3)).astype(
+        np.uint8)
+    img = cv2.resize(coarse, (w, h), interpolation=cv2.INTER_LINEAR) \
+        .astype(np.int16) + rs.randint(-44, 45, (h, w, 3))
+    ok, buf = cv2.imencode(".jpg", np.clip(img, 0, 255).astype(np.uint8),
+                           [cv2.IMWRITE_JPEG_QUALITY, 90])
+    assert ok
+    return buf.tobytes()
+
+
+def _photo_records(path, n, seed=0):
+    from mxnet_tpu_torch import recordio
+    rs = np.random.RandomState(seed)
+    w = recordio.MXIndexedRecordIO(path[:-4] + ".idx", path, "w")
+    for i in range(n):
+        w.write_idx(i, recordio.pack(
+            recordio.IRHeader(0, float(i % 10), i, 0), _photo_jpeg(rs)))
+    w.close()
+
+
+def test_nvjpeg_codec_matches_opencv():
+    """The nvJPEG codec, built explicitly, against OpenCV's libjpeg-turbo
+    on photo-like JPEGs, at chip_smoke.py's IMAGE_CODEC_* limits (derived
+    there): RGB within IMAGE_CODEC_MAX counts and IMAGE_CODEC_MEAN on
+    average, luma within IMAGE_CODEC_LUMA_MAX and 4:4:4 images (no chroma
+    upsampling) within IMAGE_CODEC_444_MAX; a swap of R and B lies far
+    outside the mean limit."""
+    _need_cuda()
+    import cv2
+    import importlib.util
+    from mxnet_tpu_torch import native
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(root, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    lim = {k: getattr(smoke, f"IMAGE_CODEC_{k}")
+           for k in ("MAX", "MEAN", "444_MAX", "LUMA_MAX")}
+    native.build("nvjpeg")
+    rs = np.random.RandomState(7)
+    for _ in range(8):
+        jpeg = _photo_jpeg(rs)
+        ours = native.decode(jpeg, codec="nvjpeg").astype(np.int16)
+        ref = cv2.imdecode(np.frombuffer(jpeg, np.uint8),
+                           cv2.IMREAD_COLOR)[:, :, ::-1].astype(np.int16)
+        assert ours.shape == ref.shape
+        d = np.abs(ours - ref)
+        assert d.max() <= lim["MAX"] and d.mean() <= lim["MEAN"]
+        assert np.abs(ours[:, :, ::-1] - ref).mean() > 3 * lim["MEAN"]
+        luma = native.decode(jpeg, 1, codec="nvjpeg")[:, :, 0]
+        gray = cv2.imdecode(np.frombuffer(jpeg, np.uint8),
+                            cv2.IMREAD_GRAYSCALE)
+        assert np.abs(luma.astype(np.int16) - gray).max() <= lim["LUMA_MAX"]
+        ok, j444 = cv2.imencode(
+            ".jpg", np.ascontiguousarray(ref[:, :, ::-1]).astype(np.uint8),
+            [cv2.IMWRITE_JPEG_QUALITY, 90, cv2.IMWRITE_JPEG_SAMPLING_FACTOR,
+             cv2.IMWRITE_JPEG_SAMPLING_FACTOR_444])
+        ours = native.decode(j444.tobytes(), codec="nvjpeg").astype(np.int16)
+        ref = cv2.imdecode(j444, cv2.IMREAD_COLOR)[:, :, ::-1]
+        assert np.abs(ours - ref).max() <= lim["444_MAX"]
+
+
+def _need_nvjpeg_pipeline():
+    _need_cuda()
+    from mxnet_tpu_torch import native
+    if native.codec() != "nvjpeg":
+        pytest.skip("the native pipeline decodes with libjpeg here")
+
+
+_FAULT_PROBE = """
+import sys
+import numpy as np
+import torch
+from mxnet_tpu_torch import MXNetError, native, recordio
+path = sys.argv[1]
+w = recordio.MXIndexedRecordIO(path[:-4] + ".idx", path, "w")
+small = np.full((64, 64, 3), 128, np.uint8)
+big = np.full((6000, 6000, 3), 90, np.uint8)  # 108 MB decoded
+for i, img in enumerate((small, small, big)):
+    w.write_idx(i, recordio.pack_img(recordio.IRHeader(0, float(i), i, 0),
+                                     img, quality=90))
+w.close()
+free, _ = torch.cuda.mem_get_info()
+hog = torch.empty(free - (64 << 20), dtype=torch.uint8, device="cuda")
+pipe = native.NativeImagePipeline(path, 3, data_shape=(3, 32, 32),
+                                  num_workers=1)
+for _ in range(2):  # the fault stays after a reset
+    try:
+        list(pipe)
+        print("no error")
+    except MXNetError as e:
+        print("raised:", e)
+    pipe.reset()
+print("decode_failures:", pipe.decode_failures)
+"""
+
+
+def test_nvjpeg_decoder_fault_raises_and_is_no_bad_record(tmp_path):
+    """An image too large for the card's free memory (the rest held by
+    torch) is a decoder fault: the pipeline raises ``MXNetError`` naming
+    it, again after a reset, and counts no bad record (a bad record is
+    zeroed and training goes on). In a process of its own, which holds
+    the card's memory."""
+    _need_nvjpeg_pipeline()
+    import subprocess
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run(
+        [sys.executable, "-c", _FAULT_PROBE, str(tmp_path / "big.rec")],
+        capture_output=True, text=True, timeout=300, cwd=root,
+        env={**os.environ, "PYTHONPATH": root})
+    lines = out.stdout.splitlines()
+    assert len(lines) == 3, out.stdout + out.stderr
+    for line in lines[:2]:
+        assert line.startswith("raised: the native image pipeline stopped: "
+                               "nvjpeg codec: cudaMalloc"), line
+    assert lines[2] == "decode_failures: 0"
+
+
+def test_nvjpeg_pipeline_without_a_device_raises(tmp_path):
+    """With no device visible the decoders cannot be made: the pipeline
+    raises at construction, naming the failed call."""
+    _need_nvjpeg_pipeline()
+    import subprocess
+    import sys
+    path = str(tmp_path / "a.rec")
+    _photo_records(path, 2)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    code = ("from mxnet_tpu_torch import MXNetError, native\n"
+            "try:\n"
+            f"    native.NativeImagePipeline({path!r}, 2)\n"
+            "except MXNetError as e:\n"
+            "    print('raised:', e)\n")
+    out = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True,
+        timeout=300, cwd=root,
+        env={**os.environ, "CUDA_VISIBLE_DEVICES": "", "PYTHONPATH": root})
+    assert "raised: the native image pipeline stopped: nvjpeg codec" \
+        in out.stdout, out.stdout + out.stderr
+
+
+def test_fused_step_captures_while_an_image_record_iter_decodes(tmp_path):
+    """Fused steps captured (a new capture at every batch) while the
+    native pipeline's workers decode ahead and its staging thread copies
+    and allocates: every capture succeeds, no record fails, and the
+    batches the steps read equal the same seeded iterator's with
+    ``ctx=cpu``. Under CUDA's global capture mode the other threads' calls
+    invalidated a capture in whole runs of this file."""
+    _need_cuda()
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon import Trainer, nn
+    from mxnet_tpu_torch.gluon import loss as gloss
+    path = str(tmp_path / "f.rec")
+    _photo_records(path, 192, seed=2)
+
+    def record_iter(ctx):
+        with ctx:
+            return mx.io.ImageRecordIter(
+                path_imgrec=path, data_shape=(3, 32, 32), batch_size=16,
+                resize=40, rand_crop=True, rand_mirror=True, shuffle=True,
+                seed=3, preprocess_threads=4)
+    net = nn.HybridSequential()
+    net.add(nn.Conv2D(8, 3, padding=1, in_channels=3),
+            nn.BatchNorm(in_channels=8), nn.Activation("relu"),
+            nn.GlobalAvgPool2D(), nn.Dense(10, in_units=8))
+    net.initialize(ctx=mx.gpu(0))
+    trainer = Trainer(net.collect_params(), "sgd", {"learning_rate": 0.01})
+    loss_fn = gloss.SoftmaxCrossEntropyLoss()
+    it = record_iter(mx.gpu(0))
+    seen, losses = [], []
+    for batch in it:
+        x, y = batch.data[0]._data, batch.label[0]._data
+        step = trainer.fuse_step(net, loss_fn)
+        losses.append(step.step(x, y).detach())
+        seen.append((x.cpu(), y.cpu()))
+    torch.cuda.synchronize()
+    assert it.decode_failures == 0 and len(seen) == 12
+    assert all(bool(torch.isfinite(v).all()) for v in losses)
+    for (x, y), b in zip(seen, record_iter(mx.cpu())):
+        assert torch.equal(x, b.data[0]._data)
+        assert torch.equal(y, b.label[0]._data)

@@ -86,7 +86,10 @@ SLICE_MODULES = [
     "mxnet_tpu_torch.gluon.contrib.estimator.estimator",
     "mxnet_tpu_torch.gluon.contrib.estimator.event_handler",
     "mxnet_tpu_torch.rnn", "mxnet_tpu_torch.rnn.rnn_cell",
-    "mxnet_tpu_torch.rnn.rnn", "mxnet_tpu_torch.rnn.io"]
+    "mxnet_tpu_torch.rnn.rnn", "mxnet_tpu_torch.rnn.io",
+    # slice 18: the image input pipeline and image serving
+    "mxnet_tpu_torch.recordio", "mxnet_tpu_torch.native",
+    "mxnet_tpu_torch.image", "mxnet_tpu_torch.ops.image_ops"]
 
 _PROBE = r"""
 import importlib, pkgutil, sys
@@ -211,3 +214,57 @@ def test_initialize_takes_the_current_context_and_raises_without_cuda():
     dense.initialize(ctx=mx.cpu())
     out = dense(torch.ones(2, 5))
     assert out.shape == (2, 3) and dense.weight.device.type == "cpu"
+
+
+NATIVE = os.path.join(PKG, "native")
+
+
+@pytest.mark.parametrize("name", sorted(
+    f for f in os.listdir(NATIVE) if f.endswith((".cc", ".h"))))
+def test_native_sources_include_nothing_of_the_jax_package(name):
+    with open(os.path.join(NATIVE, name)) as f:
+        includes = [line for line in f if line.startswith("#include")]
+    assert includes and not any("mxnet_tpu" in line for line in includes)
+
+
+def test_record_pipeline_entry_points_raise_without_cuda(tmp_path):
+    """The record iterators (the native pipeline's and the Python one's),
+    ``ImageRecordDataset`` under a thread-pool ``DataLoader`` and a
+    ``ServingEngine`` over an image net default to the card."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has a GPU: the default device is valid")
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import MXNetError, image, recordio
+    from mxnet_tpu_torch.gluon import nn
+    from mxnet_tpu_torch.gluon.data import DataLoader
+    from mxnet_tpu_torch.gluon.data.vision import ImageRecordDataset
+    from mxnet_tpu_torch.serve import ServingEngine
+    img = np.random.RandomState(0).randint(0, 255, (9, 9, 3)).astype("uint8")
+    paths = {}
+    for fmt in (".jpg", ".png"):
+        path = str(tmp_path / f"a{fmt[1:]}.rec")
+        w = recordio.MXIndexedRecordIO(path[:-4] + ".idx", path, "w")
+        label = np.array([2, 5, 1, 0.1, 0.1, 0.6, 0.6], "float32")
+        w.write_idx(0, recordio.pack_img(recordio.IRHeader(0, label, 0, 0),
+                                         img, img_fmt=fmt))
+        w.close()
+        paths[fmt] = path
+    with mx.cpu():
+        net = nn.HybridSequential()
+        net.add(nn.Conv2D(2, 3), nn.BatchNorm(), nn.Dense(3))
+        net.initialize(ctx=mx.cpu())
+    kw = dict(data_shape=(3, 8, 8), batch_size=1)
+    for make in (
+            lambda: mx.io.ImageRecordIter(path_imgrec=paths[".jpg"], **kw),
+            lambda: mx.io.ImageRecordIter(path_imgrec=paths[".png"], **kw),
+            lambda: mx.io.ImageDetRecordIter(path_imgrec=paths[".jpg"],
+                                             **kw),
+            lambda: image.ImageIter(path_imgrec=paths[".jpg"], **kw),
+            lambda: image.imdecode(recordio.unpack(
+                recordio.MXRecordIO(paths[".jpg"], "r").read())[1]),
+            lambda: next(iter(DataLoader(ImageRecordDataset(paths[".jpg"]),
+                                         batch_size=1, num_workers=2,
+                                         thread_pool=True))),
+            lambda: ServingEngine(net, input_specs=[(3, 8, 8)])):
+        with pytest.raises(MXNetError, match="CUDA is not available"):
+            make()

@@ -17,6 +17,7 @@ import pytest
 import mxnet_tpu as jmx
 
 import mxnet_tpu_torch as mx
+from mxnet_tpu_torch import MXNetError
 from mxnet_tpu_torch.io import (DataBatch, DataIter, NDArrayIter,
                                 PrefetchingIter)
 
@@ -185,5 +186,13 @@ def test_csv_iter_matches(tmp_path):
 @pytest.mark.parametrize("name", ["ImageRecordIter", "ImageDetRecordIter",
                                   "LibSVMIter", "MXDataIter"])
 def test_record_iterators_raise_naming_their_item(name):
-    with pytest.raises(NotImplementedError, match="Queue A item 9"):
-        getattr(mx.io, name)("x.rec", data_shape=(3, 8, 8))
+    """The record iterators are ported (tests/test_torch_image_data.py):
+    on a file that is not there each raises naming it, and
+    ``MXDataIter`` refuses as the JAX package's does."""
+    with mx.cpu():
+        if name == "MXDataIter":
+            with pytest.raises(MXNetError, match="named iterator classes"):
+                mx.io.MXDataIter("x.rec", data_shape=(3, 8, 8))
+            return
+        with pytest.raises(FileNotFoundError, match="x.rec"):
+            getattr(mx.io, name)("x.rec", data_shape=(3, 8, 8))

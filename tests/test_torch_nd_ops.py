@@ -53,9 +53,14 @@ def _unique(pred):
 
 
 # the control-flow graph nodes take sub-Symbols as parameters, not arrays:
-# tests/test_torch_control_flow.py holds them to the JAX package's
+# tests/test_torch_control_flow.py holds them to the JAX package's; the
+# random image ops (drawn from torch's generator, not JAX's threefry) and
+# the decode ops (which take encoded bytes or a file) are held to it by
+# tests/test_torch_image_data.py
+IMAGE_ELSEWHERE = ("_image_random_", "_cvimdecode", "_cvimread")
 DENSE = _unique(lambda i: not i.stub and not _is_sampler(i)
-                and i.name not in GRAPH_NODES)
+                and i.name not in GRAPH_NODES
+                and not i.name.startswith(IMAGE_ELSEWHERE))
 SAMPLERS = _unique(lambda i: not i.stub and _is_sampler(i)
                    and not i.name.startswith("_random_pdf"))
 STUBS = sorted(n for n, i in _OPS.items() if i.stub)
